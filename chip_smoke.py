@@ -10,8 +10,10 @@ on failure (non-zero exit, no result line):
            ``nvcc`` into ``build/kernels`` (one ``nvcc`` per source, started
            together);
 2. parity  each kernel's wrapper against its plain PyTorch version on the
-           card, at a small shape and at the serving shape, including the
-           hotstart, ``q_init`` and ``T = 1`` cases;
+           card: ``wave_scan`` at a small shape and at the serving shape,
+           including the hotstart, ``q_init`` and ``T = 1`` cases;
+           ``reverse_scan`` at a small shape, ``T = 1``, a DAG with fan-out
+           (``t_width > 1``) and the training shape;
 3. serve   ``ForecastService(device="cuda")`` on the synthetic deep basin
            (65,536 reaches, depth 512, 8 gauges), horizon 72 h, batch 8, KAN
            from a fixed seed: warm up, answer 4 batches of 8 requests, check
@@ -20,8 +22,15 @@ on failure (non-zero exit, no result line):
            answer matches the plain path (``kernel="reference"``), then
            one more batch under ``torch.profiler`` (device time by
            operation);
-4. timing  each kernel at the serving shape against its bound and its plain
-           version (CUDA events).
+4. train   ``make_batch_train_step(device="cuda")`` on the same basin over a
+           10-day window (T = 240 h), observed by the twin experiment: the
+           KAN gradients of one step through the kernels against those
+           through the plain scans, then 5 steps (lr 0.005, 0.001 from step
+           3) with finite losses and exactly one ``wave_scan`` and one
+           ``reverse_scan`` launch a step (counts zeroed just before, read
+           just after), then one more step under ``torch.profiler``;
+5. timing  each kernel at its main path's shape against its bound and its
+           plain version (CUDA events).
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero without a card.
@@ -43,9 +52,15 @@ FP32_FLOP_PER_S = 67e12
 # row, and the raw + clamped sums for one gather slot.
 FLOPS_PER_PAIR = 66
 FLOPS_PER_SLOT = 4
+# ... and of the reverse scan for one in-band (request, reach, timestep): the
+# lam and gx updates, and two multiply-adds for each successor slot.
+REVERSE_FLOPS_PER_PAIR = 4
+REVERSE_FLOPS_PER_SLOT = 4
 RTOL = ATOL_SCALE = 1e-5  # parity tolerance: |a - b| <= 1e-5 |ref| + 1e-5 max|ref|
+GRAD_RTOL = 1e-4  # KAN gradients, kernels vs plain scans: the reductions over reaches differ
 
 N_SEGMENTS, DEPTH, N_GAUGES, HORIZON, MAX_BATCH, N_BATCHES = 65536, 512, 8, 72, 8, 4
+TRAIN_DAYS, TRAIN_STEPS = 10, 5  # T = 240 h
 
 
 def fail(msg: str) -> None:
@@ -53,7 +68,7 @@ def fail(msg: str) -> None:
     raise SystemExit(1)
 
 
-def compare(ref, out, label: str) -> float:
+def compare(ref, out, label: str, rtol: float = RTOL) -> float:
     """Max abs error of ``out`` against ``ref``; fails past the tolerance."""
     import torch
 
@@ -66,9 +81,9 @@ def compare(ref, out, label: str) -> float:
     scale = float(ref.abs().max())
     max_abs = float(err.max())
     max_rel = float((err / ref.abs().clamp_min(1e-30)).max())
-    ok = bool((err <= RTOL * ref.abs() + ATOL_SCALE * scale).all())
+    ok = bool((err <= rtol * ref.abs() + ATOL_SCALE * scale).all())
     print(f"parity {label}: max_abs {max_abs:.3e} max_rel {max_rel:.3e} "
-          f"(tolerance rtol {RTOL:g}, atol {ATOL_SCALE:g} x {scale:.3e}) -> {'ok' if ok else 'FAIL'}")
+          f"(tolerance rtol {rtol:g}, atol {ATOL_SCALE:g} x {scale:.3e}) -> {'ok' if ok else 'FAIL'}")
     if not ok:
         fail(f"{label}: outside tolerance")
     return max_abs
@@ -104,6 +119,86 @@ def scan_case(net, phys, B, T, seed, with_q_init, dev):
     return qs.contiguous(), q_init
 
 
+def reverse_streams(net, B, T, seed, dev):
+    """Reverse streams ``(B, W, 2n + 2n t_width)`` shaped as the analytic
+    backward builds them: random ``(B, T, .)`` rows skewed into reverse wave
+    order (zeros out of band), ``ow`` and ``duce`` zero at ``t = 0``, weights
+    nonnegative and summing below 1 a wave (``lam`` stays bounded)."""
+    import torch
+
+    from ddr_tpu_torch.routing.wavefront import _reverse_stream
+
+    n, tw = net.n, net.wf_t_width
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.cat([
+        torch.randn(B, T, n, generator=gen, device=dev),
+        0.3 * torch.rand(B, T, n, generator=gen, device=dev),
+        (0.3 / tw) * torch.rand(B, T, 2 * n * tw, generator=gen, device=dev),
+    ], dim=-1)
+    a[:, 0, n : 2 * n] = 0.0
+    a[:, 0, 2 * n + n * tw :] = 0.0
+    lvl = net.level_p.long()
+    levels = torch.cat([lvl, lvl, lvl.repeat_interleave(tw), lvl.repeat_interleave(tw)])
+    return _reverse_stream(a, levels, net.depth, T + net.depth).contiguous()
+
+
+def fan_out_network(n, seed, dev):
+    """A random DAG whose reaches have up to 3 predecessors and any number of
+    successors, so the reverse scan's slot loop runs more than once."""
+    import numpy as np
+
+    from ddr_tpu_torch.routing.network import build_network
+
+    rng = np.random.default_rng(seed)
+    k = rng.integers(1, 4, n)
+    rows = np.repeat(np.arange(1, n), np.minimum(k[1:], np.arange(1, n)))
+    cols = np.concatenate([rng.choice(i, size=min(int(k[i]), i), replace=False) for i in range(1, n)])
+    return build_network(rows, cols, n, device=dev)
+
+
+def device_profile(prof, ranges=(), sub_ranges=()) -> float:
+    """Busy device time from a ``torch.profiler`` trace: every kernel, copy
+    and memset once (the GPU spans of ``record_function`` ranges are not
+    device work), by name, within each range's GPU span, and outside all of
+    them. ``sub_ranges`` nest inside ``ranges`` on the host, but the GPU span
+    of a range need not cover a nested ``autograd.grad``, so each is read on
+    its own. Returns the busy milliseconds (0.0 when the profiler saw no
+    device time)."""
+    from torch.autograd import DeviceType
+
+    gpu = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    work = [e for e in gpu if not e.is_user_annotation]
+    busy_ms = sum(e.time_range.elapsed_us() for e in work) / 1e3
+    if not work:
+        print("profile: the profiler saw no device time (device breakdown not measured)")
+        return 0.0
+    spans = {}
+    for e in gpu:
+        if e.is_user_annotation:
+            spans.setdefault(e.name, []).append((e.time_range.start, e.time_range.end))
+
+    def inside(e, names):
+        return any(s <= e.time_range.start < t for name in names for s, t in spans.get(name, ()))
+
+    for name in (*ranges, *sub_ranges):
+        kernels = [e for e in work if inside(e, (name,))]
+        ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+        span_ms = sum(t - s for s, t in spans.get(name, ())) / 1e3
+        print(f"  {'range' if name in ranges else '  sub-range'} {name:26s} busy {ms:9.3f} ms in a GPU "
+              f"span of {span_ms:9.3f} ms ({len(kernels)} kernels)")
+    if ranges:
+        rest = [e for e in work if not inside(e, (*ranges, *sub_ranges))]
+        print(f"  outside every range              busy {sum(e.time_range.elapsed_us() for e in rest) / 1e3:9.3f}"
+              f" ms ({len(rest)} kernels: autograd of the KAN, permutes, skews, gauges, loss, clip)")
+    by_name = {}
+    for e in work:
+        ms, count = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
+    for name, (ms, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
+        print(f"  {ms:9.3f} ms  x{count:<4d} {name[:90]}")
+    return busy_ms
+
+
 def profile_batch(svc, starts) -> None:
     """One served batch under ``torch.profiler``: device time by operation,
     largest first, and the device's busy share of the batch's host time."""
@@ -116,17 +211,9 @@ def profile_batch(svc, starts) -> None:
             f.result(timeout=600)
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3
-    # self device time counts each kernel and copy once (a CPU op's is 0)
-    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
-                   if e.self_device_time_total > 0), reverse=True)
-    device_ms = sum(ms for ms, _, _ in rows)
-    if not rows:
-        print("profile: the profiler saw no device time (device breakdown not measured)")
-        return
-    print(f"profile of one served batch: host {host_ms:.3f} ms, device busy {device_ms:.3f} ms "
-          f"({100 * device_ms / host_ms:.1f}%)")
-    for ms, count, key in rows[:10]:
-        print(f"  {ms:9.3f} ms  x{count:<4d} {key[:90]}")
+    print(f"profile of one served batch: host {host_ms:.3f} ms")
+    device_ms = device_profile(prof)
+    print(f"  device busy {device_ms:.3f} ms ({100 * device_ms / host_ms:.1f}% of the host time)")
 
 
 def nvidia_smi() -> str:
@@ -149,12 +236,15 @@ def main() -> int:
         return 2
     import numpy as np
 
-    from ddr_tpu_torch.geodatazoo.synthetic import make_basin
+    from ddr_tpu_torch import training
+    from ddr_tpu_torch.geodatazoo.synthetic import make_basin, observe
     from ddr_tpu_torch.nn.kan import Kan
     from ddr_tpu_torch.routing import _build
     from ddr_tpu_torch.routing.mc import Bounds, reach_physics, route
     from ddr_tpu_torch.routing.model import denormalize_spatial_parameters, prepare_batch
+    from ddr_tpu_torch.routing.reverse_kernel import reverse_scan, reverse_scan_reference
     from ddr_tpu_torch.routing.wave_kernel import wave_scan, wave_scan_reference
+    from ddr_tpu_torch.scripts_utils import resolve_learning_rate
     from ddr_tpu_torch.serving.config import ServeConfig
     from ddr_tpu_torch.serving.service import ForecastService
     from ddr_tpu_torch.validation.configs import Config, KanConfig
@@ -188,6 +278,18 @@ def main() -> int:
             ys = wave_scan(qs, net_s, phys_s, qi, T=T)
             torch.cuda.synchronize()
             compare(wave_scan_reference(qs, net_s, phys_s, qi, T=T), ys, label)
+        # reverse scan: the small tree (t_width 1), T = 1, and a DAG with fan-out
+        net_f = fan_out_network(4096, 2, dev)
+        reverse_err = 0.0
+        for label, net_r, B, T in (("small/tree", net_s, 3, 24), ("small/T=1", net_s, 2, 1),
+                                   (f"small/fan-out t_width {net_f.wf_t_width}", net_f, 2, 24)):
+            rows_s = reverse_streams(net_r, B, T, 5, dev)
+            lams = reverse_scan(rows_s, net_r, T=T)
+            torch.cuda.synchronize()
+            err = compare(reverse_scan_reference(rows_s, net_r, T=T), lams, f"reverse_scan {label}")
+            reverse_err = max(reverse_err, err)
+        if net_f.wf_t_width < 2:
+            fail(f"the fan-out network has t_width {net_f.wf_t_width}; the slot loop was not exercised")
 
     basin = make_basin(n_segments=N_SEGMENTS, n_gauges=N_GAUGES, n_days=8, depth=DEPTH, seed=0)
     kan = Kan(cfg.kan.input_var_names, cfg.kan.learnable_parameters,
@@ -215,7 +317,16 @@ def main() -> int:
                 torch.cuda.synchronize()
                 err = compare(wave_scan_reference(qs, net, phys, qi, T=HORIZON), ys, label)
                 max_abs = max(max_abs, err)
-            del ys
+            del ys, qs
+            # the training phase routes this topology (same seed) over T = 240 h
+            T_rev = TRAIN_DAYS * 24
+            rows_s = reverse_streams(net, 1, T_rev, 17, dev)
+            lams = reverse_scan(rows_s, net, T=T_rev)
+            torch.cuda.synchronize()
+            err = compare(reverse_scan_reference(rows_s, net, T=T_rev), lams,
+                          f"reverse_scan train-shape (T {T_rev}, n {net.n}, t_width {net.wf_t_width})")
+            reverse_err = max(reverse_err, err)
+            del rows_s, lams
 
         # ---- 3. serve ----
         t0 = time.perf_counter()
@@ -252,7 +363,84 @@ def main() -> int:
     finally:
         svc.close()
 
-    # ---- 4. timing at the serving shape ----
+    # ---- 4. train: the twin experiment on the same basin, T = 240 h ----
+    train_basin = observe(
+        make_basin(n_segments=N_SEGMENTS, n_gauges=N_GAUGES, n_days=TRAIN_DAYS, depth=DEPTH, seed=0),
+        cfg, device=dev,
+    )
+    rd = train_basin.routing_data
+    net_t, ch_t, gauges_t = prepare_batch(rd, p.attribute_minimums["slope"], device=dev)
+    T_train = train_basin.q_prime.shape[0]
+    obs = train_basin.obs_daily  # (D-1, G): days 1..D-1 of the 10-day window
+    batch = (net_t, ch_t, gauges_t,
+             torch.as_tensor(rd.normalized_spatial_attributes, device=dev),
+             torch.as_tensor(train_basin.q_prime, device=dev),
+             torch.as_tensor(np.nan_to_num(obs), device=dev),
+             torch.as_tensor(np.isfinite(obs), device=dev))
+    print(f"train batch: T {T_train} h, n {net_t.n}, gauges {gauges_t.n_gauges}, daily obs "
+          f"{obs.shape}, t_width {net_t.wf_t_width}, warmup {cfg.experiment.warmup} days")
+    kan_t = Kan(cfg.kan.input_var_names, cfg.kan.learnable_parameters,
+                hidden_size=11, num_hidden_layers=1, grid=3, k=3,
+                generator=torch.Generator().manual_seed(0)).to(dev)
+    train_args = (bounds, p.parameter_ranges, p.log_space_parameters, p.defaults, p.tau,
+                  cfg.experiment.warmup)
+    # one step's KAN gradients through the kernels against the plain scans
+    grads = {}
+    for kernel in (None, "reference"):
+        kan_t.zero_grad(set_to_none=True)
+        loss_fn = training.make_batch_loss(kan_t, *train_args, kernel=kernel, device=dev)
+        loss, _ = loss_fn(*batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        grads[kernel] = {k: v.grad.detach().clone() for k, v in kan_t.named_parameters()}
+        print(f"train loss through {kernel or 'the kernels'}: {float(loss.detach()):.6f}")
+    for k in grads[None]:
+        compare(grads["reference"][k], grads[None][k], f"KAN gradient {k}, kernels vs plain scans",
+                rtol=GRAD_RTOL)
+    kan_t.zero_grad(set_to_none=True)
+
+    # each step plays one epoch of the learning-rate schedule: 0.005, then 0.001 from 3
+    schedule = cfg.experiment.learning_rate
+    opt = training.make_optimizer(kan_t.parameters(), resolve_learning_rate(schedule, 1))
+    step = training.make_batch_train_step(kan_t, *train_args, opt, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    wave_scan.launches = reverse_scan.launches = 0
+    losses = []
+    for i in range(1, TRAIN_STEPS + 1):
+        training.set_learning_rate(opt, resolve_learning_rate(schedule, i))
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        loss, daily = step(*batch)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        losses.append(float(loss))
+        print(f"train step {i}: loss {losses[-1]:.6f} (lr {opt.param_groups[0]['lr']:g}), device "
+              f"{start.elapsed_time(end):.3f} ms (CUDA events), host {host_ms:.3f} ms on {smi}")
+    train_launches = {"wave_scan": wave_scan.launches, "reverse_scan": reverse_scan.launches}
+    print(f"train: {TRAIN_STEPS} steps, launches {train_launches}, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    if not all(np.isfinite(losses)) or daily.shape != (obs.shape[0], N_GAUGES):
+        fail(f"train: losses {losses}, daily {tuple(daily.shape)}")
+    if train_launches != {"wave_scan": TRAIN_STEPS, "reverse_scan": TRAIN_STEPS}:
+        fail(f"expected one wave_scan and one reverse_scan launch per step: {train_launches}")
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(*batch)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    print(f"profile of one train step: host {host_ms:.3f} ms")
+    device_ms = device_profile(
+        prof, ("ddr::kan", "ddr::forward_scan", "ddr::adjoint_prepasses", "ddr::reverse_scan",
+               "ddr::adjoint_postpasses", "ddr::optimizer"),
+        ("ddr::adjoint_physics", "ddr::adjoint_stream", "ddr::adjoint_pullback"),
+    )
+    print(f"  device busy {device_ms:.3f} ms ({100 * device_ms / host_ms:.1f}% of the host time)")
+
+    # ---- 5. timing: wave_scan at the serving shape ----
     B, T, n = MAX_BATCH, HORIZON, net.n
     W = T + net.depth
     with torch.no_grad():
@@ -280,6 +468,27 @@ def main() -> int:
           f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bytes_moved / 1e9:.3f} GB -> "
           f"{bytes_ms:.4f} ms, {flops / 1e9:.3f} GFLOP -> {flops_ms:.4f} ms); "
           f"kernel at B 1: {kernel_b1_ms:.3f} ms")
+    del qs, qs1
+
+    # ---- 5. timing: reverse_scan at the training shape ----
+    T, n, tw = T_train, net_t.n, net_t.wf_t_width
+    rows_s = reverse_streams(net_t, 1, T, 17, dev)
+    for _ in range(2):
+        reverse_scan(rows_s, net_t, T=T)
+    reverse_ms = cuda_ms(lambda: reverse_scan(rows_s, net_t, T=T), 10)
+    reverse_plain_ms = cuda_ms(lambda: reverse_scan_reference(rows_s, net_t, T=T), 2)
+    # bytes the scan must move: each reach's T in-band rows of gbar, ow and its
+    # t_width slots of zce and duce read once, its T lams written once, and the
+    # transposed tables and levels
+    rev_bytes = 4 * (T * n * (2 + 2 * tw) + T * n) + 4 * (2 * n * tw + n)
+    rev_flops = T * n * (REVERSE_FLOPS_PER_PAIR + REVERSE_FLOPS_PER_SLOT * tw)
+    rev_bytes_ms = rev_bytes / HBM_BYTES_PER_S * 1e3
+    rev_flops_ms = rev_flops / FP32_FLOP_PER_S * 1e3
+    reverse_bound_ms = max(rev_bytes_ms, rev_flops_ms)
+    print(f"timing reverse_scan (B 1, W {T + net_t.depth}, n {n}, t_width {tw}): kernel "
+          f"{reverse_ms:.3f} ms, plain {reverse_plain_ms:.3f} ms, bound {reverse_bound_ms:.4f} ms "
+          f"({rev_bytes / 1e9:.3f} GB -> {rev_bytes_ms:.4f} ms, {rev_flops / 1e9:.3f} GFLOP -> "
+          f"{rev_flops_ms:.4f} ms)")
 
     print(nvidia_smi())
     print(json.dumps({"kernels": [{
@@ -287,12 +496,24 @@ def main() -> int:
         "route": "cuda",
         "source": "ddr_tpu_torch/csrc/wave_scan.cu",
         "replaces": "ddr_tpu/routing/pallas_kernel.py:193",
-        "launches": launches,
+        "launches": launches + train_launches["wave_scan"],
         "max_abs_err": max_abs,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+        "library_ms": None,
+    }, {
+        "name": "reverse_scan",
+        "route": "cuda",
+        "source": "ddr_tpu_torch/csrc/reverse_scan.cu",
+        "replaces": "ddr_tpu/routing/pallas_kernel.py:348",
+        "launches": train_launches["reverse_scan"],
+        "max_abs_err": reverse_err,
+        "ms": reverse_ms,
+        "plain_ms": reverse_plain_ms,
+        "bound_ms": reverse_bound_ms,
+        "bound_by": "bytes" if rev_bytes_ms >= rev_flops_ms else "operations",
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@
 The port's own copy of ``ddr_tpu/geodatazoo/synthetic.py``'s generators. The
 random stream is drawn in the same order, so one seed gives the same basin
 here as there. :class:`RoutingData` is a minimal dataclass of the fields the
-serving path reads (no dates, no observations).
+serving and training paths read (no dates, no observation store);
+:func:`observe` fills the twin experiment's daily observations.
 """
 
 from __future__ import annotations
@@ -12,7 +13,14 @@ import dataclasses
 
 import numpy as np
 
-__all__ = ["N_ATTRIBUTES", "RoutingData", "SyntheticBasin", "make_basin", "make_deep_network"]
+__all__ = [
+    "N_ATTRIBUTES",
+    "RoutingData",
+    "SyntheticBasin",
+    "make_basin",
+    "make_deep_network",
+    "observe",
+]
 
 N_ATTRIBUTES = 10  # the 10 canonical MERIT attributes
 
@@ -40,6 +48,7 @@ class SyntheticBasin:
     q_prime: np.ndarray  # (T, N) hourly lateral inflow
     true_params: dict[str, np.ndarray]  # physical-space truth
     gauge_segments: np.ndarray | None = None
+    obs_daily: np.ndarray | None = None  # (D-1, G) daily gauge discharge, from observe()
 
 
 def _dendritic_network(rng: np.random.Generator, n: int) -> tuple[np.ndarray, np.ndarray]:
@@ -178,3 +187,31 @@ def make_basin(
         true_params=true_params,
         gauge_segments=gauge_segments,
     )
+
+
+def observe(basin: SyntheticBasin, cfg, device="cuda") -> SyntheticBasin:
+    """The twin experiment: route the basin with its true parameters through
+    the port's ``route`` (default bounds, as the JAX package's ``observe``
+    does) and store the tau-trimmed daily gauge discharge as
+    ``basin.obs_daily`` ``(D-1, G)``. Runs on ``device`` (default
+    ``"cuda"``); ``cfg`` supplies ``params.attribute_minimums["slope"]`` and
+    ``params.tau``."""
+    import torch
+
+    from ddr_tpu_torch.routing.mc import route
+    from ddr_tpu_torch.routing.model import prepare_batch
+    from ddr_tpu_torch.scripts_utils import compute_daily_runoff
+
+    network, channels, gauges = prepare_batch(
+        basin.routing_data, slope_min=cfg.params.attribute_minimums["slope"], device=device
+    )
+    dev = network.device
+    params = {
+        k: torch.as_tensor(np.asarray(v, np.float32), device=dev)
+        for k, v in basin.true_params.items()
+    }
+    with torch.no_grad():
+        res = route(network, channels, params, torch.as_tensor(basin.q_prime, device=dev),
+                    gauges=gauges, device=dev)
+    basin.obs_daily = compute_daily_runoff(res.runoff.T, tau=cfg.params.tau).T  # (D-1, G)
+    return basin

@@ -22,7 +22,7 @@ from pathlib import Path
 __all__ = ["KERNELS", "NVCC_FLAGS", "build", "build_dir", "load"]
 
 #: Every kernel source of the port, by name (``csrc/<name>.cu``).
-KERNELS = ("wave_scan",)
+KERNELS = ("wave_scan", "reverse_scan")
 
 #: ``sm_90a`` keeps Hopper's arch-specific instructions available; no
 #: ``--use_fast_math`` (the physics uses ``powf``); ``--fmad=false`` keeps

@@ -1,13 +1,14 @@
 """Muskingum-Cunge routing: physics and the ``route`` entry point.
 
-The port of ``ddr_tpu/routing/mc.py`` for the serving path. Per timestep the
-engine solves
+The port of ``ddr_tpu/routing/mc.py`` for the serving and training paths.
+Per timestep the engine solves
 
     (I - diag(c1) N) Q_{t+1} = c2 * (N @ Q_t) + c3 * Q_t + c4 * Q'
 
 on the time-skewed wavefront schedule (:mod:`ddr_tpu_torch.routing.wavefront`),
-the only engine of this slice. Networks the single ring cannot carry go to
-the JAX package's stacked band router, which is a later slice of the port.
+the only engine of the port so far, differentiated by its analytic
+reverse-wavefront adjoint. Networks the single ring cannot carry go to the
+JAX package's stacked band router, which is a later slice of the port.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import numpy as np
 import torch
 
 from ddr_tpu_torch.device import resolve_device
-from ddr_tpu_torch.geometry.trapezoidal import rdiv, trapezoidal_geometry
+from ddr_tpu_torch.geometry.trapezoidal import clip, rdiv, trapezoidal_geometry
 from ddr_tpu_torch.routing.network import RiverNetwork
 
 __all__ = [
@@ -178,7 +179,7 @@ def celerity(
     )
     top_width = _override(geom["top_width"], channels.top_width_data)
     side_slope = _override(geom["side_slope"], channels.side_slope_data)
-    c = torch.clamp(geom["velocity"], bounds.velocity, 15.0) * (5.0 / 3.0)
+    c = clip(geom["velocity"], bounds.velocity, 15.0) * (5.0 / 3.0)
     return c, top_width, side_slope
 
 
@@ -222,6 +223,7 @@ def route(
     dt: float = DT_SECONDS,
     kernel: str | None = None,
     device: str | torch.device = "cuda",
+    adjoint: str = "analytic",
 ) -> RouteResult:
     """Route lateral inflows through the network over a full time window.
 
@@ -233,15 +235,30 @@ def route(
     consumes ``q_prime[t-1]``. ``gauges`` aggregates the output columns;
     ``None`` returns every reach.
 
-    ``kernel`` selects the wave scan: ``None`` runs
-    :func:`~ddr_tpu_torch.routing.wave_kernel.wave_scan` (the CUDA kernel on a
-    card, its plain version on the CPU), ``"reference"`` the plain PyTorch
-    version on any device (a yardstick, never the serving path).
+    ``kernel`` selects the scans: ``None`` runs
+    :func:`~ddr_tpu_torch.routing.wave_kernel.wave_scan` forward and
+    :func:`~ddr_tpu_torch.routing.reverse_kernel.reverse_scan` backward (the
+    CUDA kernels on a card, their plain versions on the CPU), ``"reference"``
+    the plain PyTorch versions on any device (a yardstick, never the main
+    path).
+
+    Gradients flow to ``q_prime``, ``q_init``, ``spatial_params`` and the
+    channel tensors through the analytic reverse-wavefront adjoint
+    (``adjoint="analytic"``, the JAX package's default wherever the network
+    carries transposed tables, and the only one ported: ``"ad"``, autograd
+    through the forward scan, raises).
 
     Inputs must lie on ``device`` (default ``"cuda"``; raises without a card).
     """
     from ddr_tpu_torch.routing.wavefront import wavefront_route_core
 
+    if adjoint == "ad":
+        raise NotImplementedError(
+            "adjoint='ad' (autograd through the forward scan) is not ported; the "
+            "analytic adjoint is the port's backward (ROADMAP A.7)"
+        )
+    if adjoint != "analytic":
+        raise ValueError(f"unknown adjoint {adjoint!r} (use 'analytic')")
     dev = resolve_device(device)
     if not network.single_ring:
         raise NotImplementedError(

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ddr_tpu_torch.device import resolve_device
+from ddr_tpu_torch.geometry.trapezoidal import maximum
 from ddr_tpu_torch.geodatazoo.synthetic import RoutingData
 from ddr_tpu_torch.routing.mc import (
     Bounds,
@@ -49,7 +50,7 @@ def prepare_channels(
 
     channels = ChannelState(
         length=f32(rd.length),
-        slope=torch.clamp_min(f32(rd.slope), slope_min),
+        slope=maximum(f32(rd.slope), slope_min),
         x_storage=f32(rd.x),
         top_width_data=opt(rd.top_width),
         side_slope_data=opt(rd.side_slope),

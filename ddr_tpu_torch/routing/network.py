@@ -46,6 +46,12 @@ class RiverNetwork:
     point at the always-zero sentinel column ``n``), and ``wf_mask[k]`` is 0
     for pad slots. ``wf_idx = wf_row * (n + 1) + wf_col`` is the JAX
     package's flat form of the same table.
+
+    The transposed table serves the reverse scan of the analytic adjoint:
+    node ``i`` (wf order) owns slots ``i * wf_t_width .. (i + 1) *
+    wf_t_width - 1``, one per successor, and slot ``k`` reads the ring
+    ``wf_t_row[k] + 1`` reverse waves back at column ``wf_t_col[k]`` (pad
+    slots: the sentinel). ``wf_t_idx`` is its flat form.
     """
 
     n: int
@@ -63,6 +69,8 @@ class RiverNetwork:
     wf_slot: torch.Tensor  # (n,) int32, first slot of each node (wf order)
     wf_width: torch.Tensor  # (n,) int32, slot count of each node (wf order)
     wf_t_idx: torch.Tensor  # (n * wf_t_width,) int32, transposed table
+    wf_t_row: torch.Tensor  # (n * wf_t_width,) int32, gap - 1
+    wf_t_col: torch.Tensor  # (n * wf_t_width,) int32, successor wf column (n = sentinel)
     wf_buckets: tuple  # ((node_start, node_end, width), ...)
     wf_level_runs: tuple  # ((start, end, level), ...) in wf order
     wf_ring_rows: int  # max edge level-gap + 2
@@ -210,7 +218,7 @@ def _transposed_wavefront_tables(
     rows: np.ndarray, cols: np.ndarray, n: int, level: np.ndarray, inv: np.ndarray
 ) -> tuple[np.ndarray, int]:
     """Successor (transposed-adjacency) gather table for the reverse scan of
-    the training slice: node i's row (wf order) lists ``(gap - 1) * (n + 1) +
+    the analytic adjoint: node i's row (wf order) lists ``(gap - 1) * (n + 1) +
     inv[j]`` for each successor j, padded to a power-of-two width with the
     sentinel. Returns ``(flat (n * width,) table, width)``."""
     row_len = n + 1
@@ -282,6 +290,7 @@ def build_network(
     slot, width = _node_slots(n, buckets)
     row_len = n + 1
     wf_row = wf_idx // row_len
+    wf_t_row = wf_t_idx // row_len
 
     def i32(a):
         return torch.as_tensor(np.asarray(a, dtype=np.int32), device=dev)
@@ -302,6 +311,8 @@ def build_network(
         wf_slot=i32(slot),
         wf_width=i32(width),
         wf_t_idx=i32(wf_t_idx),
+        wf_t_row=i32(wf_t_row),
+        wf_t_col=i32(wf_t_idx - wf_t_row * row_len),
         wf_buckets=buckets,
         wf_level_runs=runs,
         wf_ring_rows=int(ring_rows),

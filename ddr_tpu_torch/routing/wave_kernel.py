@@ -2,8 +2,9 @@
 
 Counterpart of ``ddr_tpu/routing/pallas_kernel.py``'s ``fused_wave_scan``
 (single-ring, fp32 ring, no external-inflow rows, ``mask_raw=False``: the
-variant the serving path runs). Per wave ``w = 1..W`` every reach ``i`` (wf
-order) advances its in-flight timestep ``t = w - 1 - level[i]``:
+variant the serving and training paths run). Per wave ``w = 1..W`` every
+reach ``i`` (wf order) advances its in-flight timestep ``t = w - 1 -
+level[i]``:
 
 * ``q_prev = max(ring[(w-1) % R, i], lb)`` and the MC chain gives c1..c4;
 * its predecessor slots are gathered from the rotating ring and reduced
@@ -16,7 +17,8 @@ order) advances its in-flight timestep ``t = w - 1 - level[i]``:
 
 :func:`wave_scan` launches ``csrc/wave_scan.cu`` for CUDA tensors and runs
 :func:`wave_scan_reference` only for CPU tensors. ``wave_scan.launches``
-counts kernel launches.
+counts kernel launches. The analytic adjoint reads the same chain through
+:func:`physics_derivatives` and :func:`physics_pullback`.
 """
 
 from __future__ import annotations
@@ -26,12 +28,16 @@ import dataclasses
 
 import torch
 
+from ddr_tpu_torch.geometry.trapezoidal import maximum
 from ddr_tpu_torch.routing.mc import Bounds, ChannelState, celerity, muskingum_coefficients
 from ddr_tpu_torch.routing.network import RiverNetwork
 
 __all__ = [
     "ReachPhysics",
+    "check_ring_table",
     "physics_coefficients",
+    "physics_derivatives",
+    "physics_pullback",
     "reduce_gathered",
     "wave_scan",
     "wave_scan_reference",
@@ -60,6 +66,48 @@ def physics_coefficients(q_prev: torch.Tensor, phys: ReachPhysics):
     return muskingum_coefficients(phys.channels.length, c, phys.channels.x_storage, phys.dt)
 
 
+def reach_operands(phys: ReachPhysics) -> tuple[torch.Tensor, ...]:
+    """The per-reach operands of the MC chain, in the order the kernels and
+    the analytic adjoint take them: ``n, p_spatial, q_spatial, slope, length,
+    x_storage``."""
+    ch = phys.channels
+    return (phys.n, phys.p_spatial, phys.q_spatial, ch.slope, ch.length, ch.x_storage)
+
+
+def with_operands(phys: ReachPhysics, ops) -> ReachPhysics:
+    """``phys`` with its :func:`reach_operands` replaced by ``ops``."""
+    n, p, q, slope, length, x = ops
+    channels = dataclasses.replace(phys.channels, slope=slope, length=length, x_storage=x)
+    return dataclasses.replace(phys, n=n, p_spatial=p, q_spatial=q, channels=channels)
+
+
+def physics_derivatives(q_prev: torch.Tensor, phys: ReachPhysics):
+    """``(c1..c4), (d1..d4)`` at ``q_prev`` over any leading shape, with
+    ``d_k = dc_k / dq_prev`` elementwise: one forward-mode pass with a ones
+    tangent (the JAX backward's ``jax.linearize`` evaluated at ones). The
+    per-reach operands are held constant."""
+    consts = with_operands(phys, [t.detach() for t in reach_operands(phys)])
+    return torch.func.jvp(
+        lambda q: physics_coefficients(q, consts), (q_prev,), (torch.ones_like(q_prev),)
+    )
+
+
+def physics_pullback(q_prev: torch.Tensor, phys: ReachPhysics, c_bar, needs) -> list:
+    """The pullback of cotangents ``c_bar = (c1_bar..c4_bar)`` (each shaped
+    like ``q_prev``, ``(..., n)``) to the :func:`reach_operands`, summed over
+    the leading axes: one list entry per operand, ``None`` where
+    ``needs`` is false. Rebuilds the elementwise chain under autograd (the JAX
+    backward's ``linear_transpose`` of its linearization)."""
+    if not any(needs):
+        return [None] * len(needs)
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(bool(need)) for t, need in zip(reach_operands(phys), needs)]
+        cs = physics_coefficients(q_prev.detach(), with_operands(phys, leaves))
+        wanted = [leaf for leaf, need in zip(leaves, needs) if need]
+        grads = iter(torch.autograd.grad(cs, wanted, c_bar, allow_unused=True))
+    return [next(grads) if need else None for need in needs]
+
+
 def reduce_gathered(gathered, wf_mask, buckets, n_deg0, lb, clamped, mask_raw):
     """Per-node sums of the flat bucket-concatenated gather, ``(..., E) ->
     (..., n)``: raw (pad slots read the ring's zero sentinel, so no mask
@@ -73,7 +121,7 @@ def reduce_gathered(gathered, wf_mask, buckets, n_deg0, lb, clamped, mask_raw):
         blk = gathered[..., off : off + cnt].reshape(lead + (cnt_nodes, width))
         msk = wf_mask[off : off + cnt].reshape(cnt_nodes, width)
         if clamped:
-            blk = torch.clamp_min(blk, lb) * msk
+            blk = maximum(blk, lb) * msk
         elif mask_raw:
             blk = blk * msk
         parts.append(blk.sum(dim=-1))
@@ -111,7 +159,7 @@ def wave_scan_reference(
     for w in range(1, W + 1):
         t_node = w - 1 - lvl
         h1 = (w - 1) % R
-        q_prev = torch.clamp_min(ring[:, h1 * row_len : h1 * row_len + n], lb)
+        q_prev = maximum(ring[:, h1 * row_len : h1 * row_len + n], lb)
         c1, c2, c3, c4 = physics_coefficients(q_prev, phys)
         rot = h1 - wf_row
         rot = torch.where(rot < 0, rot + R, rot)
@@ -120,13 +168,13 @@ def wave_scan_reference(
         s_next = reduce_gathered(gathered, mask, buckets, n_deg0, lb, True, False)
 
         q_row = qs[:, w - 1]
-        b_step = c2 * s_state + c3 * q_prev + c4 * torch.clamp_min(q_row, lb)
+        b_step = c2 * s_state + c3 * q_prev + c4 * maximum(q_row, lb)
         is_hot = t_node == 0
         b = torch.where(is_hot, q_row, b_step)
         c1_eff = torch.where(is_hot, torch.ones_like(c1), c1)
         y = b + c1_eff * x_pred
         if q_init is not None:
-            y = torch.where(is_hot, torch.clamp_min(q_init, lb), y)
+            y = torch.where(is_hot, maximum(q_init, lb), y)
         ok = (t_node >= 0) & (t_node <= T - 1)
         y = torch.where(ok, y, torch.zeros_like(y))
         h = w % R
@@ -136,23 +184,27 @@ def wave_scan_reference(
     return ys
 
 
+def check_ring_table(row: torch.Tensor, col: torch.Tensor, ring_rows: int, n: int, what: str) -> None:
+    """The kernels load the ring without clipping (the TPU kernels' gathers
+    clip), so every slot of a gather table must address a ring row in ``[0,
+    R-2]`` (never the row being written) and a column in ``[0, n]``."""
+    if ring_rows < 2:
+        raise ValueError(f"wf_ring_rows must be >= 2, got {ring_rows}")
+    if row.numel():
+        row_lo, row_hi = int(row.min()), int(row.max())
+        col_lo, col_hi = int(col.min()), int(col.max())
+        if row_lo < 0 or row_hi >= ring_rows - 1 or col_lo < 0 or col_hi > n:
+            raise ValueError(
+                f"{what} out of range: rows [{row_lo}, {row_hi}] must lie in "
+                f"[0, {ring_rows - 2}], columns [{col_lo}, {col_hi}] in [0, {n}]"
+            )
+
+
 def _check_tables(network: RiverNetwork) -> None:
-    """The kernel loads without clipping (the TPU kernel's gathers clip), so
-    every slot must address a ring row in ``[0, R-2]`` (never the row being
-    written) and a column in ``[0, n]``. Checked once per network."""
+    """:func:`check_ring_table` on the gather table, once per network."""
     if getattr(network, "_kernel_tables_ok", False):
         return
-    R = network.wf_ring_rows
-    if R < 2:
-        raise ValueError(f"wf_ring_rows must be >= 2, got {R}")
-    if network.wf_row.numel():
-        row_lo, row_hi = int(network.wf_row.min()), int(network.wf_row.max())
-        col_lo, col_hi = int(network.wf_col.min()), int(network.wf_col.max())
-        if row_lo < 0 or row_hi >= R - 1 or col_lo < 0 or col_hi > network.n:
-            raise ValueError(
-                f"gather table out of range: rows [{row_lo}, {row_hi}] must lie in "
-                f"[0, {R - 2}], columns [{col_lo}, {col_hi}] in [0, {network.n}]"
-            )
+    check_ring_table(network.wf_row, network.wf_col, network.wf_ring_rows, network.n, "gather table")
     object.__setattr__(network, "_kernel_tables_ok", True)
 
 
@@ -207,8 +259,7 @@ def wave_scan(
             f"W = T + depth = {T} + {network.depth}"
         )
     dev = qs.device
-    ch = phys.channels
-    per_reach = [phys.n, phys.p_spatial, phys.q_spatial, ch.slope, ch.length, ch.x_storage]
+    per_reach = list(reach_operands(phys))
     ints = [network.level_p, network.wf_slot, network.wf_width, network.wf_row, network.wf_col]
     floats = [qs, network.wf_mask, *per_reach] + ([] if q_init is None else [q_init])
     for t in per_reach:

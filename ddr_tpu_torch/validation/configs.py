@@ -1,14 +1,15 @@
-"""Minimal configuration for the serving slice: plain dataclasses.
+"""Minimal configuration for the serving and training slices: plain dataclasses.
 
-Field names and defaults follow the JAX package's pydantic ``params`` and
-``kan`` sections, so a config written for one reads the same in the other.
+Field names and defaults follow the JAX package's pydantic ``params``,
+``kan`` and ``experiment`` sections (the ``experiment`` fields the train step
+reads), so a config written for one reads the same in the other.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["Config", "KanConfig", "Params"]
+__all__ = ["Config", "ExperimentConfig", "KanConfig", "Params"]
 
 
 @dataclasses.dataclass
@@ -33,6 +34,7 @@ class Params:
     )
     log_space_parameters: list[str] = dataclasses.field(default_factory=lambda: ["p_spatial"])
     defaults: dict[str, float] = dataclasses.field(default_factory=lambda: {"p_spatial": 21})
+    tau: int = 3  # routing timestep offset of the daily trim
 
 
 @dataclasses.dataclass
@@ -49,6 +51,20 @@ class KanConfig:
 
 
 @dataclasses.dataclass
+class ExperimentConfig:
+    """Training experiment config (the fields the train step reads)."""
+
+    batch_size: int = 1
+    epochs: int = 1
+    learning_rate: dict[int, float] = dataclasses.field(
+        default_factory=lambda: {1: 0.005, 3: 0.001}
+    )  # epoch -> learning rate, the latest at or before an epoch applies
+    rho: int | None = None  # days per random training window
+    warmup: int = 3  # days excluded from the loss while routing spins up
+
+
+@dataclasses.dataclass
 class Config:
     kan: KanConfig
     params: Params = dataclasses.field(default_factory=Params)
+    experiment: ExperimentConfig = dataclasses.field(default_factory=ExperimentConfig)

@@ -7,9 +7,10 @@ port's dependencies:
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
 Tolerance: rtol 1e-5 with an absolute floor of 1e-5 x the largest magnitude.
-The kernel evaluates the same float32 operations as the plain version
+The kernels evaluate the same float32 operations as the plain versions
 without FMA contraction, but the card's ``powf`` and PyTorch's ``pow`` may
-differ by an ulp, and the recurrence carries that along the longest path.
+differ by an ulp, the plain reverse scan may sum a node's successor slots in
+another order, and the recurrences carry that along the longest path.
 """
 
 from __future__ import annotations
@@ -22,10 +23,12 @@ from ddr_tpu_torch.geodatazoo.synthetic import make_basin, make_deep_network
 from ddr_tpu_torch.routing import mc
 from ddr_tpu_torch.routing.model import prepare_batch
 from ddr_tpu_torch.routing.network import build_network
+from ddr_tpu_torch.routing.reverse_kernel import reverse_scan, reverse_scan_reference
 from ddr_tpu_torch.routing.wave_kernel import ReachPhysics, wave_scan, wave_scan_reference
-from ddr_tpu_torch.routing.wavefront import wavefront_route_core
+from chip_smoke import fan_out_network, reverse_streams
 
 CASES = ("hotstart", "q_init", "T=1", "no-edges")
+REVERSE_CASES = ("tree", "fan-out", "T=1")
 
 
 @pytest.fixture
@@ -70,6 +73,31 @@ def _case(name, dev):
     return net, phys, f32(qs), q_init, T
 
 
+def reverse_case(name, device="cpu"):
+    """A network and reverse streams shaped as the analytic backward builds
+    them (``chip_smoke.py``'s builders): a dendritic tree (one successor a
+    reach), a DAG with fan-out (``t_width > 1``) or ``T = 1``."""
+    seed = sum(ord(c) for c in name)
+    T = 1 if name == "T=1" else 12
+    if name == "tree":
+        net = build_network(*make_deep_network(96, 12, seed=seed), 96, device=device)
+    else:
+        net = fan_out_network(96, seed, device)
+    return net, reverse_streams(net, 2, T, seed, device), T
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", REVERSE_CASES)
+def test_reverse_scan_kernel_matches_reference(card, name):
+    net, rows_s, T = reverse_case(name, card)
+    assert (net.wf_t_width > 1) == (name != "tree")
+    before = reverse_scan.launches
+    lams = reverse_scan(rows_s, net, T=T)
+    torch.cuda.synchronize()
+    assert reverse_scan.launches == before + 1
+    _close(reverse_scan_reference(rows_s, net, T=T), lams, f"{name}: kernel vs plain")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", CASES)
 def test_wave_scan_kernel_matches_reference(card, name):
@@ -112,8 +140,35 @@ def test_route_on_the_card_runs_the_kernel(card):
 
 
 @pytest.mark.cuda
-def test_engine_raises_on_inputs_that_require_grad(card):
-    net, phys, qs, _, T = _case("hotstart", card)
-    q = torch.ones(2, T, net.n, device=card, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        wavefront_route_core(net, phys, q, None)
+@pytest.mark.parametrize("init", ["hotstart", "q_init"])
+def test_engine_raises_on_inputs_that_require_grad(card, init):
+    """Inputs that require grad: ``adjoint="ad"`` raises (autograd through the
+    forward scan is not ported); the analytic adjoint launches each kernel
+    once, and its gradients are finite and match the plain scans'. The
+    ``q_init`` case puts some initial states below the discharge bound and
+    some on it."""
+    basin = make_basin(n_segments=512, n_gauges=4, n_days=2, seed=3, depth=24)
+    net, ch, gauges = prepare_batch(basin.routing_data, 0.001, device=card)
+    q = torch.tensor(basin.q_prime[:24], device=card, requires_grad=True)
+    params = {k: torch.tensor(v, dtype=torch.float32, device=card) for k, v in basin.true_params.items()}
+    with pytest.raises(NotImplementedError, match="adjoint='ad'"):
+        mc.route(net, ch, params, q, gauges=gauges, adjoint="ad", device=card)
+    q_init = np.random.default_rng(4).uniform(0.0, 3.0, 512).astype(np.float32)
+    q_init[::5] = 0.0
+    q_init[1::7] = np.float32(mc.Bounds().discharge)
+    grads = {}
+    for kernel in (None, "reference"):
+        params = {k: torch.tensor(v, dtype=torch.float32, device=card, requires_grad=True)
+                  for k, v in basin.true_params.items()}
+        q = torch.tensor(basin.q_prime[:24], device=card, requires_grad=True)
+        qi = torch.tensor(q_init, device=card, requires_grad=True) if init == "q_init" else None
+        before = (wave_scan.launches, reverse_scan.launches)
+        out = mc.route(net, ch, params, q, q_init=qi, gauges=gauges, kernel=kernel, device=card)
+        (out.runoff.sum() + out.final_discharge.sum()).backward()
+        torch.cuda.synchronize()
+        launched = 1 if kernel is None else 0
+        assert (wave_scan.launches, reverse_scan.launches) == (before[0] + launched, before[1] + launched)
+        grads[kernel] = [params["n"].grad, params["q_spatial"].grad, q.grad] + ([qi.grad] if qi is not None else [])
+    for ref, got, label in zip(grads["reference"], grads[None], ("n", "q_spatial", "q_prime", "q_init")):
+        assert torch.isfinite(got).all(), label
+        _close(ref, got, f"{init}: gradient of {label}, kernels vs plain scans")

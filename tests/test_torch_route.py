@@ -10,6 +10,8 @@ magnitude, as for the wave scan.
 
 from __future__ import annotations
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -135,9 +137,20 @@ def test_ineligible_network_raises_not_implemented():
 
 
 def test_inputs_that_require_grad_raise():
+    """Inputs that require grad: ``adjoint="ad"`` and unknown adjoints raise;
+    the analytic adjoint (the default) gives finite gradients to every
+    parameter, the inflows and the channel lengths."""
     ours, _ = _basins()
-    params = {k: torch.as_tensor(v) for k, v in _params(ours).items()}
-    params["n"].requires_grad_(True)
+    params = {k: torch.as_tensor(v).requires_grad_(True) for k, v in _params(ours).items()}
     net, ch, g = prepare_batch(ours.routing_data, SLOPE_MIN, device="cpu")
-    with pytest.raises(NotImplementedError, match="training slice"):
-        mc.route(net, ch, params, torch.as_tensor(ours.q_prime[:T]), device="cpu")
+    ch = dataclasses.replace(ch, length=ch.length.clone().requires_grad_(True))
+    q = torch.as_tensor(ours.q_prime[:T]).requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="adjoint='ad'"):
+        mc.route(net, ch, params, q, gauges=g, adjoint="ad", device="cpu")
+    with pytest.raises(ValueError, match="unknown adjoint"):
+        mc.route(net, ch, params, q, gauges=g, adjoint="bogus", device="cpu")
+    res = mc.route(net, ch, params, q, gauges=g, device="cpu")
+    (res.runoff.sum() + res.final_discharge.sum()).backward()
+    for name, t in [*params.items(), ("q_prime", q), ("length", ch.length)]:
+        assert t.grad is not None and t.grad.shape == t.shape, name
+        assert torch.isfinite(t.grad).all() and t.grad.abs().sum() > 0, name

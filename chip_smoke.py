@@ -15,22 +15,42 @@ on failure (non-zero exit, no result line):
            ``reverse_scan`` at a small shape, ``T = 1``, a DAG with fan-out
            (``t_width > 1``) and the training shape;
 3. serve   ``ForecastService(device="cuda")`` on the synthetic deep basin
-           (65,536 reaches, depth 512, 8 gauges), horizon 72 h, batch 8, KAN
-           from a fixed seed: warm up, answer 4 batches of 8 requests, check
-           the answers are finite, that the kernel carried every batch
-           (launch counts zeroed just before, read just after) and that one
-           answer matches the plain path (``kernel="reference"``), then
-           one more batch under ``torch.profiler`` (device time by
-           operation);
+           (65,536 reaches, depth 512, 8 gauges; the single-ring engine),
+           horizon 72 h, batch 8, KAN from a fixed seed: warm up, answer 3
+           batches of 8 requests, check the answers are finite, that the
+           kernel carried every batch (launch counts zeroed just before,
+           read just after) and that one answer matches the plain path
+           (``kernel="reference"``), then one more batch under
+           ``torch.profiler`` (device time by operation);
 4. train   ``make_batch_train_step(device="cuda")`` on the same basin over a
            10-day window (T = 240 h), observed by the twin experiment: the
            KAN gradients of one step through the kernels against those
-           through the plain scans, then 5 steps (lr 0.005, 0.001 from step
+           through the plain scans, then 3 steps (lr 0.005, 0.001 from step
            3) with finite losses and exactly one ``wave_scan`` and one
-           ``reverse_scan`` launch a step (counts zeroed just before, read
-           just after), then one more step under ``torch.profiler``;
-5. timing  each kernel at its main path's shape against its bound and its
-           plain version (CUDA events).
+           ``reverse_scan`` launch a step, then one more step under
+           ``torch.profiler``;
+5. timing  each single-ring kernel at its main path's shape against its
+           bound and its plain version (CUDA events);
+6. parity  (band frame) the band variant of each kernel (``wave_scan`` with
+           external rows and ``mask_raw``, ``reverse_scan`` over a band's
+           transposed tables) against its plain version on a small stacked
+           frame with 3 bands, a 100-way confluence (gather width 128), a
+           width-0 bucket tail and fan-out (``t_width`` 16): hotstart,
+           ``q_init`` and ``T = 1``;
+7. serve   (deep) the same service on the continental shape, 2.9 M reaches
+           of longest-path depth 4000 (the stacked band router): build the
+           frame, hold both band kernels against their plain versions on
+           one band of it, warm up, answer 3 batches with exactly
+           ``n_chunks`` ``wave_scan`` launches each, check one answer
+           against the plain path, profile a batch;
+8. train   (deep) ``observe`` and 3 train steps on the same basin (T = 240,
+           B 1) with exactly ``n_chunks`` launches of each kernel a step,
+           the peak device memory and a profiled step; then the KAN
+           gradients through the kernels against the plain scans on a
+           smaller stacked basin (65,536 reaches, depth 2048, 3 bands);
+9. timing  each band kernel at its main path's shape: one band, and all
+           ``n_chunks`` bands of a route, against the bound counted per
+           band, and the plain version on one band.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero without a card.
@@ -38,6 +58,7 @@ last ``{"ok": true, "device": {...}}``. Exits non-zero without a card.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -59,8 +80,13 @@ REVERSE_FLOPS_PER_SLOT = 4
 RTOL = ATOL_SCALE = 1e-5  # parity tolerance: |a - b| <= 1e-5 |ref| + 1e-5 max|ref|
 GRAD_RTOL = 1e-4  # KAN gradients, kernels vs plain scans: the reductions over reaches differ
 
-N_SEGMENTS, DEPTH, N_GAUGES, HORIZON, MAX_BATCH, N_BATCHES = 65536, 512, 8, 72, 8, 4
-TRAIN_DAYS, TRAIN_STEPS = 10, 5  # T = 240 h
+N_SEGMENTS, DEPTH, N_GAUGES, HORIZON, MAX_BATCH, N_BATCHES = 65536, 512, 8, 72, 8, 3
+TRAIN_DAYS, TRAIN_STEPS = 10, 3  # T = 240 h
+# The continental shape: global MERIT over CONUS, ~2.9 M reaches of
+# longest-path depth 2k-5k (docs/tpu.md); and the smaller stacked basin of
+# the gradient check, where the plain scans take seconds, not minutes.
+DEEP_SEGMENTS, DEEP_DEPTH = 2_900_000, 4000
+GRAD_SEGMENTS, GRAD_DEPTH = 65536, 2048
 
 
 def fail(msg: str) -> None:
@@ -142,18 +168,107 @@ def reverse_streams(net, B, T, seed, dev):
     return _reverse_stream(a, levels, net.depth, T + net.depth).contiguous()
 
 
-def fan_out_network(n, seed, dev):
+def fan_out_edges(n, seed, confluence=0):
     """A random DAG whose reaches have up to 3 predecessors and any number of
-    successors, so the reverse scan's slot loop runs more than once."""
+    successors; ``confluence > 0`` makes reach ``confluence`` gather every
+    reach before it instead."""
     import numpy as np
-
-    from ddr_tpu_torch.routing.network import build_network
 
     rng = np.random.default_rng(seed)
     k = rng.integers(1, 4, n)
     rows = np.repeat(np.arange(1, n), np.minimum(k[1:], np.arange(1, n)))
     cols = np.concatenate([rng.choice(i, size=min(int(k[i]), i), replace=False) for i in range(1, n)])
-    return build_network(rows, cols, n, device=dev)
+    if confluence:
+        keep = rows != confluence
+        rows = np.concatenate([rows[keep], np.full(confluence, confluence)])
+        cols = np.concatenate([cols[keep], np.arange(confluence)])
+    return rows, cols
+
+
+def fan_out_network(n, seed, dev):
+    """The fan-out DAG as a single-ring network, so the reverse scan's slot
+    loop runs more than once."""
+    from ddr_tpu_torch.routing.network import build_network
+
+    return build_network(*fan_out_edges(n, seed), n, device=dev)
+
+
+def band_frame(dev):
+    """A small stacked frame: the fan-out DAG of 4096 reaches with a 100-way
+    confluence, banded by a cell budget into 3 bands: gather buckets of width
+    128 down to a width-0 tail, transposed width 16."""
+    from ddr_tpu_torch.routing.stacked import build_stacked_chunked
+
+    frame = build_stacked_chunked(*fan_out_edges(4096, 2, confluence=100), 4096, cell_budget=20000,
+                                  device=dev)
+    widths = [w for *_, w in frame.buckets]
+    if frame.n_chunks < 3 or max(widths) < 64 or 0 not in widths or frame.t_width < 2:
+        fail(f"small band frame: {frame.n_chunks} bands, bucket widths {widths}, "
+             f"t_width {frame.t_width}")
+    return frame
+
+
+def random_physics(n, seed, dev):
+    """Random per-slot physics (the ranges of the port's kernel tests)."""
+    import numpy as np
+    import torch
+
+    from ddr_tpu_torch.routing import mc
+    from ddr_tpu_torch.routing.wave_kernel import ReachPhysics
+
+    rng = np.random.default_rng(seed)
+
+    def f32(lo, hi):
+        return torch.as_tensor(rng.uniform(lo, hi, n).astype(np.float32), device=dev)
+
+    return ReachPhysics(
+        n=f32(0.02, 0.06), p_spatial=f32(5.0, 30.0), q_spatial=f32(0.2, 0.8),
+        channels=mc.ChannelState(length=f32(500.0, 5000.0), slope=f32(1e-3, 1e-2),
+                                 x_storage=f32(0.1, 0.4)),
+        bounds=mc.Bounds(), dt=mc.DT_SECONDS,
+    )
+
+
+def band_scan_case(band, B, T, seed, with_q_init, dev):
+    """Pre-skewed inflow and external rows ``(B, W, n_cap)`` for one band, as
+    the router builds them from ``(B, T, n_cap)`` series, and an optional
+    carried state."""
+    import torch
+
+    from ddr_tpu_torch.routing.wavefront import _ext_skews, _input_skews
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n, lvl = band.n, band.level_p.long()
+
+    def series(scale):
+        return scale * torch.rand(B, T, n, generator=gen, device=dev)
+
+    q = series(2.0)
+    q[torch.rand(B, T, n, generator=gen, device=dev) < 0.25] = 0.0  # below the discharge clamp
+    qs = _input_skews(q, lvl, band.depth, T).contiguous()
+    xe, se = _ext_skews(series(1.0), series(1.0), lvl, band.depth, T)
+    q_init = 3.0 * torch.rand(B, n, generator=gen, device=dev) if with_q_init else None
+    return qs, xe, se, q_init
+
+
+def band_bounds(frame, c, B, T):
+    """``(bytes ms, operations ms)`` of band ``c``'s two scans at batch B and
+    T timesteps, counting only in-band work of its real reaches and real
+    gather slots, as the single-ring bounds do: the forward reads qs, xe and
+    se and writes ys once per in-band (request, reach, timestep), reads its
+    tables and operands once; the reverse reads its four streams and writes
+    lams once, reads its transposed tables once."""
+    n = int((frame.gidx[c] < frame.n).sum())
+    slots = int(frame.wf_mask[c].sum())
+    t_slots = int((frame.t_col[c] < frame.n_cap).sum())
+    fwd_bytes = 4 * 4 * B * T * n + 4 * (3 * n + 3 * slots) + 4 * 6 * n
+    # the band variant adds xe and se once a pair and the mask once a slot
+    fwd_flops = B * (T - 1) * n * (FLOPS_PER_PAIR + 2) + B * T * slots * (FLOPS_PER_SLOT + 1)
+    tw = frame.t_width
+    rev_bytes = 4 * (B * T * n * (2 + 2 * tw) + B * T * n) + 4 * (2 * n * tw + n)
+    rev_flops = B * T * (n * REVERSE_FLOPS_PER_PAIR + t_slots * REVERSE_FLOPS_PER_SLOT)
+    ms = lambda b, f: (b / HBM_BYTES_PER_S * 1e3, f / FP32_FLOP_PER_S * 1e3)  # noqa: E731
+    return ms(fwd_bytes, fwd_flops), ms(rev_bytes, rev_flops)
 
 
 def device_profile(prof, ranges=(), sub_ranges=()) -> float:
@@ -199,7 +314,14 @@ def device_profile(prof, ranges=(), sub_ranges=()) -> float:
     return busy_ms
 
 
-def profile_batch(svc, starts) -> None:
+def executed_batches(answers) -> int:
+    """How many batches served ``answers``: requests of one batch share its
+    timings. (The batcher's own count is raised after the futures resolve,
+    so reading it here would race with the last batch.)"""
+    return len({(a["execute_s"], a["device_ms"]) for a in answers})
+
+
+def profile_batch(svc, name, starts) -> None:
     """One served batch under ``torch.profiler``: device time by operation,
     largest first, and the device's busy share of the batch's host time."""
     import torch
@@ -207,13 +329,349 @@ def profile_batch(svc, starts) -> None:
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for f in [svc.submit("conus-synthetic", t0=int(s)) for s in starts]:
+        for f in [svc.submit(name, t0=int(s)) for s in starts]:
             f.result(timeout=600)
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3
-    print(f"profile of one served batch: host {host_ms:.3f} ms")
+    print(f"profile of one served batch of {name}: host {host_ms:.3f} ms")
     device_ms = device_profile(prof)
     print(f"  device busy {device_ms:.3f} ms ({100 * device_ms / host_ms:.1f}% of the host time)")
+
+
+def band_parity_small(dev) -> tuple[float, float]:
+    """Phase 6: both band kernels against their plain versions on the small
+    frame; returns their max abs errors."""
+    import torch
+
+    from ddr_tpu_torch.routing.reverse_kernel import reverse_scan, reverse_scan_reference
+    from ddr_tpu_torch.routing.wave_kernel import wave_scan, wave_scan_reference
+
+    frame = band_frame(dev)
+    print(f"small band frame: {frame.n_chunks} bands, n_cap {frame.n_cap}, span_max "
+          f"{frame.span_max}, ring_rows {frame.ring_rows}, bucket widths "
+          f"{[w for *_, w in frame.buckets]}, t_width {frame.t_width}, boundary {frame.n_boundary}")
+    wave_err = reverse_err = 0.0
+    with torch.no_grad():
+        for c in range(frame.n_chunks):
+            band = frame.band(c)
+            phys = random_physics(frame.n_cap, 3 + c, dev)
+            for label, B, T, with_init in (("hotstart", 3, 24, False), ("q_init", 3, 24, True),
+                                           ("T=1", 2, 1, False)):
+                qs, xe, se, qi = band_scan_case(band, B, T, 7 + c, with_init, dev)
+                kw = dict(T=T, xe=xe, se=se, mask_raw=True)
+                ys = wave_scan(qs, band, phys, qi, **kw)
+                torch.cuda.synchronize()
+                wave_err = max(wave_err, compare(wave_scan_reference(qs, band, phys, qi, **kw), ys,
+                                                 f"wave_scan/band small band {c} {label}"))
+            for label, B, T in (("T 24", 2, 24), ("T=1", 2, 1)):
+                rows_s = reverse_streams(band, B, T, 5 + c, dev)
+                lams = reverse_scan(rows_s, band, T=T)
+                torch.cuda.synchronize()
+                reverse_err = max(reverse_err, compare(
+                    reverse_scan_reference(rows_s, band, T=T), lams,
+                    f"reverse_scan/band small band {c} {label} (t_width {frame.t_width})"))
+    return wave_err, reverse_err
+
+
+def new_kan(cfg, dev):
+    """The KAN of every phase: hidden 11, one layer, grid 3, order 3, seed 0."""
+    import torch
+
+    from ddr_tpu_torch.nn.kan import Kan
+
+    return Kan(cfg.kan.input_var_names, cfg.kan.learnable_parameters, hidden_size=11,
+               num_hidden_layers=1, grid=3, k=3,
+               generator=torch.Generator().manual_seed(0)).to(dev)
+
+
+def serve_deep(cfg, basin, smi, dev) -> dict:
+    """Phase 7: the service on the continental basin. Returns the registered
+    entry, the KAN, the serving launches and the band kernels' errors."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from ddr_tpu_torch.routing.mc import DT_SECONDS, route
+    from ddr_tpu_torch.routing.model import denormalize_spatial_parameters, engine_label
+    from ddr_tpu_torch.routing.reverse_kernel import reverse_scan, reverse_scan_reference
+    from ddr_tpu_torch.routing.stacked import StackedChunked, band_physics, frame_operands
+    from ddr_tpu_torch.routing.wave_kernel import wave_scan, wave_scan_reference
+    from ddr_tpu_torch.serving.config import ServeConfig
+    from ddr_tpu_torch.serving.service import ForecastService
+
+    p = cfg.params
+    kan = new_kan(cfg, dev)
+    # a continental batch takes seconds on the host: give requests room
+    svc = ForecastService(cfg, ServeConfig(max_batch=MAX_BATCH, horizon_hours=HORIZON,
+                                           deadline_s=600.0), device=dev)
+    out = {"kan": kan}
+    try:
+        t0 = time.perf_counter()
+        entry = svc.register_network("conus-deep", basin.routing_data, forcing=basin.q_prime)
+        build_s = time.perf_counter() - t0
+        svc.register_model("default", kan)
+        net = entry.network
+        if not isinstance(net, StackedChunked):
+            fail(f"the continental basin did not build a stacked frame: {engine_label(net)}")
+        out["entry"] = entry
+        print(f"deep network: {engine_label(net)}, n {net.n}, depth {net.depth}, edges "
+              f"{net.n_edges}, n_chunks {net.n_chunks}, n_cap {net.n_cap}, span_max "
+              f"{net.span_max}, ring_rows {net.ring_rows}, t_width {net.t_width}, boundary "
+              f"{net.n_boundary}, bucket widths {[w for *_, w in net.buckets]} "
+              f"({build_s:.2f}s to build)")
+
+        # both band kernels on one band of this frame, at the main path's shapes
+        with torch.no_grad():
+            raw = kan(entry.attrs)
+            phys_params = denormalize_spatial_parameters(
+                raw, p.parameter_ranges, p.log_space_parameters, p.defaults, net.n)
+            ops_pad = frame_operands(entry.channels, phys_params, net.n, dev)
+            c = 0
+            band = net.band(c)
+            phys = band_physics(ops_pad, net.gidx[c].long(), svc.bounds, DT_SECONDS)
+            qs, xe, se, _ = band_scan_case(band, MAX_BATCH, HORIZON, 19, False, dev)
+            kw = dict(T=HORIZON, xe=xe, se=se, mask_raw=True)
+            ys = wave_scan(qs, band, phys, None, **kw)
+            torch.cuda.synchronize()
+            out["wave_err"] = compare(wave_scan_reference(qs, band, phys, None, **kw), ys,
+                                      f"wave_scan/band serve-frame band {c} (B {MAX_BATCH}, T {HORIZON})")
+            del qs, xe, se, ys
+            T_rev = TRAIN_DAYS * 24
+            rows_s = reverse_streams(band, 1, T_rev, 23, dev)
+            lams = reverse_scan(rows_s, band, T=T_rev)
+            torch.cuda.synchronize()
+            out["reverse_err"] = compare(reverse_scan_reference(rows_s, band, T=T_rev), lams,
+                                         f"reverse_scan/band serve-frame band {c} (B 1, T {T_rev})")
+            del rows_s, lams
+            torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        svc.warmup()
+        print(f"deep warmup: {time.perf_counter() - t0:.2f}s")
+        starts = np.arange(MAX_BATCH * N_BATCHES) % (basin.q_prime.shape[0] - HORIZON + 1)
+        torch.cuda.reset_peak_memory_stats()
+        wave_scan.launches = 0
+        futures = [svc.submit("conus-deep", t0=int(s)) for s in starts]
+        answers = [f.result(timeout=900) for f in futures]
+        launches = wave_scan.launches
+        batches = executed_batches(answers)
+        print(f"deep serve: {len(answers)} requests in {batches} batches, wave_scan.launches "
+              f"{launches} ({net.n_chunks} bands), peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB on {smi}")
+        if batches < 3 or launches != batches * net.n_chunks:
+            fail(f"expected n_chunks = {net.n_chunks} wave_scan launches per batch (>= 3 "
+                 f"batches): {launches} launches, {batches} batches")
+        out["launches"] = launches
+        per_batch = {}
+        for a in answers:
+            if a["runoff"].shape != (HORIZON, N_GAUGES) or not np.isfinite(a["runoff"]).all():
+                fail(f"deep request {a['request_id']}: runoff {a['runoff'].shape} not finite "
+                     f"({HORIZON}, {N_GAUGES})")
+            per_batch[(a["execute_s"], a["device_ms"])] = a["batch_size"]
+        for (execute_s, device_ms), size in per_batch.items():
+            device = "not measured" if device_ms is None else f"{device_ms:.3f} ms (CUDA events)"
+            print(f"deep batch of {size}: device {device}, host {execute_s * 1e3:.3f} ms on {smi}")
+
+        with torch.no_grad():
+            q = torch.as_tensor(basin.q_prime[starts[0] : starts[0] + HORIZON], device=dev)
+            t0 = time.perf_counter()
+            expect = route(net, entry.channels, phys_params, q, gauges=entry.gauge_index,
+                           bounds=svc.bounds, kernel="reference", device=dev).runoff
+            print(f"deep plain route of one request: {time.perf_counter() - t0:.2f}s")
+        compare(expect.cpu(), torch.as_tensor(answers[0]["runoff"]), "deep served request vs plain path")
+        del q, expect
+        # by operation only: the batch runs on the batcher's thread, whose
+        # record_function ranges the profiler does not carry to the device
+        profile_batch(svc, "conus-deep", starts[:MAX_BATCH])
+    finally:
+        svc.close()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_deep(cfg, basin, entry, kan, smi, dev) -> dict:
+    """Phase 8: ``observe`` and 3 train steps on the continental basin, with
+    the service's network, channels and gauges. Returns the launches."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ddr_tpu_torch import training
+    from ddr_tpu_torch.geodatazoo.synthetic import observe
+    from ddr_tpu_torch.routing.mc import Bounds
+    from ddr_tpu_torch.routing.reverse_kernel import reverse_scan
+    from ddr_tpu_torch.routing.wave_kernel import wave_scan
+    from ddr_tpu_torch.scripts_utils import resolve_learning_rate
+
+    p = cfg.params
+    t0 = time.perf_counter()
+    observe(basin, cfg, device=dev)
+    print(f"deep observe (a frame build and a T {basin.q_prime.shape[0]} route): "
+          f"{time.perf_counter() - t0:.2f}s")
+    net = entry.network
+    obs = basin.obs_daily
+    batch = (net, entry.channels, entry.gauge_index, entry.attrs,
+             torch.as_tensor(basin.q_prime, device=dev),
+             torch.as_tensor(np.nan_to_num(obs), device=dev),
+             torch.as_tensor(np.isfinite(obs), device=dev))
+    train_args = (Bounds.from_config(p.attribute_minimums), p.parameter_ranges,
+                  p.log_space_parameters, p.defaults, p.tau, cfg.experiment.warmup)
+    kan.train()
+    schedule = cfg.experiment.learning_rate
+    opt = training.make_optimizer(kan.parameters(), resolve_learning_rate(schedule, 1))
+    step = training.make_batch_train_step(kan, *train_args, opt, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    wave_scan.launches = reverse_scan.launches = 0
+    losses = []
+    for i in range(1, TRAIN_STEPS + 1):
+        training.set_learning_rate(opt, resolve_learning_rate(schedule, i))
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        loss, daily = step(*batch)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        losses.append(float(loss))
+        print(f"deep train step {i}: loss {losses[-1]:.6f} (lr {opt.param_groups[0]['lr']:g}), device "
+              f"{start.elapsed_time(end):.3f} ms (CUDA events), host {host_ms:.3f} ms on {smi}")
+    launches = {"wave_scan": wave_scan.launches, "reverse_scan": reverse_scan.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"deep train: {TRAIN_STEPS} steps, launches {launches} ({net.n_chunks} bands), peak device "
+          f"memory {peak_gb:.3f} GB on {smi}")
+    expect = TRAIN_STEPS * net.n_chunks
+    if not all(np.isfinite(losses)) or daily.shape != (obs.shape[0], N_GAUGES):
+        fail(f"deep train: losses {losses}, daily {tuple(daily.shape)}")
+    if launches != {"wave_scan": expect, "reverse_scan": expect}:
+        fail(f"expected n_chunks = {net.n_chunks} launches of each kernel a step: {launches}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(*batch)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    print(f"profile of one deep train step: host {host_ms:.3f} ms")
+    device_ms = device_profile(
+        prof, ("ddr::kan", "ddr::band_inputs", "ddr::forward_scan", "ddr::band_publish",
+               "ddr::adjoint_prepasses", "ddr::reverse_scan", "ddr::adjoint_postpasses",
+               "ddr::optimizer"),
+        ("ddr::adjoint_physics", "ddr::adjoint_stream", "ddr::adjoint_pullback"),
+    )
+    print(f"  device busy {device_ms:.3f} ms ({100 * device_ms / host_ms:.1f}% of the host time)")
+    del batch, opt, step
+    return launches
+
+
+def stacked_gradients(cfg, dev) -> None:
+    """Phase 8, end: KAN gradients through the band kernels against those
+    through the plain scans, on the 65,536-reach, depth-2048 stacked basin."""
+    import numpy as np
+    import torch
+
+    from ddr_tpu_torch import training
+    from ddr_tpu_torch.geodatazoo.synthetic import make_basin, observe
+    from ddr_tpu_torch.routing.mc import Bounds
+    from ddr_tpu_torch.routing.model import engine_label, prepare_batch
+    from ddr_tpu_torch.routing.stacked import StackedChunked
+
+    p = cfg.params
+    basin = observe(make_basin(n_segments=GRAD_SEGMENTS, n_gauges=N_GAUGES, n_days=TRAIN_DAYS,
+                               depth=GRAD_DEPTH, seed=0), cfg, device=dev)
+    net, ch, gauges = prepare_batch(basin.routing_data, p.attribute_minimums["slope"], device=dev)
+    if not isinstance(net, StackedChunked) or net.n_chunks < 2:
+        fail(f"the gradient basin did not build a multi-band frame: {engine_label(net)}")
+    print(f"gradient basin: {engine_label(net)}, n {net.n}, depth {net.depth}, n_cap {net.n_cap}, "
+          f"span_max {net.span_max}")
+    obs = basin.obs_daily
+    batch = (net, ch, gauges, torch.as_tensor(basin.routing_data.normalized_spatial_attributes, device=dev),
+             torch.as_tensor(basin.q_prime, device=dev), torch.as_tensor(np.nan_to_num(obs), device=dev),
+             torch.as_tensor(np.isfinite(obs), device=dev))
+    kan = new_kan(cfg, dev)
+    train_args = (Bounds.from_config(p.attribute_minimums), p.parameter_ranges,
+                  p.log_space_parameters, p.defaults, p.tau, cfg.experiment.warmup)
+    grads = {}
+    for kernel in (None, "reference"):
+        kan.zero_grad(set_to_none=True)
+        loss, _ = training.make_batch_loss(kan, *train_args, kernel=kernel, device=dev)(*batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        grads[kernel] = {k: v.grad.detach().clone() for k, v in kan.named_parameters()}
+        print(f"stacked train loss through {kernel or 'the kernels'}: {float(loss.detach()):.6f}")
+    for k in grads[None]:
+        compare(grads["reference"][k], grads[None][k],
+                f"stacked KAN gradient {k}, kernels vs plain scans", rtol=GRAD_RTOL)
+
+
+def time_bands(cfg, entry, kan, smi, dev) -> dict:
+    """Phase 9: each band kernel at its main path's shape (serving for the
+    forward, B 8, T 72; training for the reverse, B 1, T 240): one band, all
+    ``n_chunks`` bands of a route back to back, the bound per band and
+    summed, and the plain version on one band."""
+    import torch
+
+    from ddr_tpu_torch.routing.mc import DT_SECONDS, Bounds
+    from ddr_tpu_torch.routing.model import denormalize_spatial_parameters
+    from ddr_tpu_torch.routing.reverse_kernel import reverse_scan, reverse_scan_reference
+    from ddr_tpu_torch.routing.stacked import band_physics, frame_operands
+    from ddr_tpu_torch.routing.wave_kernel import wave_scan, wave_scan_reference
+
+    p = cfg.params
+    net = entry.network
+    C = net.n_chunks
+    bounds = Bounds.from_config(p.attribute_minimums)
+    out = {}
+    with torch.no_grad():
+        raw = kan(entry.attrs)
+        phys_params = denormalize_spatial_parameters(
+            raw, p.parameter_ranges, p.log_space_parameters, p.defaults, net.n)
+        ops_pad = frame_operands(entry.channels, phys_params, net.n, dev)
+        gidx = net.gidx.long()
+        phys = [band_physics(ops_pad, gidx[c], bounds, DT_SECONDS) for c in range(C)]
+        bands = [net.band(c) for c in range(C)]
+
+        B, T = MAX_BATCH, HORIZON
+        qs, xe, se, _ = band_scan_case(bands[0], B, T, 29, False, dev)
+        kw = dict(T=T, xe=xe, se=se, mask_raw=True)
+        for _ in range(2):
+            wave_scan(qs, bands[0], phys[0], None, **kw)
+        def every_band():  # each output dropped at once, as the route drops its ys
+            for c in range(C):
+                wave_scan(qs, bands[c], phys[c], None, **kw)
+
+        one_ms = cuda_ms(lambda: wave_scan(qs, bands[0], phys[0], None, **kw), 5)
+        all_ms = cuda_ms(every_band, 2)
+        wave_scan_reference(qs, bands[0], phys[0], None, **kw)
+        plain_ms = cuda_ms(lambda: wave_scan_reference(qs, bands[0], phys[0], None, **kw), 1)
+        fwd = [band_bounds(net, c, B, T)[0] for c in range(C)]
+        out["wave"] = dict(ms=one_ms, all_ms=all_ms, plain_ms=plain_ms, bound=fwd[0],
+                           all_bound_ms=sum(max(b) for b in fwd))
+        print(f"timing wave_scan/band (B {B}, W {T + net.span_max}, n_cap {net.n_cap}): one band "
+              f"{one_ms:.3f} ms, all {C} bands {all_ms:.3f} ms, plain one band {plain_ms:.3f} ms, "
+              f"bound one band {max(fwd[0]):.4f} ms (bytes {fwd[0][0]:.4f}, operations "
+              f"{fwd[0][1]:.4f}), all bands {out['wave']['all_bound_ms']:.4f} ms on {smi}")
+        del qs, xe, se
+        torch.cuda.empty_cache()
+
+        B, T = 1, TRAIN_DAYS * 24
+        rows_s = reverse_streams(bands[0], B, T, 31, dev)
+        for _ in range(2):
+            reverse_scan(rows_s, bands[0], T=T)
+        def every_reverse_band():
+            for c in range(C):
+                reverse_scan(rows_s, bands[c], T=T)
+
+        one_ms = cuda_ms(lambda: reverse_scan(rows_s, bands[0], T=T), 5)
+        all_ms = cuda_ms(every_reverse_band, 2)
+        plain_ms = cuda_ms(lambda: reverse_scan_reference(rows_s, bands[0], T=T), 1)
+        rev = [band_bounds(net, c, B, T)[1] for c in range(C)]
+        out["reverse"] = dict(ms=one_ms, all_ms=all_ms, plain_ms=plain_ms, bound=rev[0],
+                              all_bound_ms=sum(max(b) for b in rev))
+        print(f"timing reverse_scan/band (B {B}, W {T + net.span_max}, n_cap {net.n_cap}, t_width "
+              f"{net.t_width}): one band {one_ms:.3f} ms, all {C} bands {all_ms:.3f} ms, plain one "
+              f"band {plain_ms:.3f} ms, bound one band {max(rev[0]):.4f} ms (bytes {rev[0][0]:.4f}, "
+              f"operations {rev[0][1]:.4f}), all bands {out['reverse']['all_bound_ms']:.4f} ms on {smi}")
+    return out
 
 
 def nvidia_smi() -> str:
@@ -238,7 +696,6 @@ def main() -> int:
 
     from ddr_tpu_torch import training
     from ddr_tpu_torch.geodatazoo.synthetic import make_basin, observe
-    from ddr_tpu_torch.nn.kan import Kan
     from ddr_tpu_torch.routing import _build
     from ddr_tpu_torch.routing.mc import Bounds, reach_physics, route
     from ddr_tpu_torch.routing.model import denormalize_spatial_parameters, prepare_batch
@@ -292,9 +749,7 @@ def main() -> int:
             fail(f"the fan-out network has t_width {net_f.wf_t_width}; the slot loop was not exercised")
 
     basin = make_basin(n_segments=N_SEGMENTS, n_gauges=N_GAUGES, n_days=8, depth=DEPTH, seed=0)
-    kan = Kan(cfg.kan.input_var_names, cfg.kan.learnable_parameters,
-              hidden_size=11, num_hidden_layers=1, grid=3, k=3,
-              generator=torch.Generator().manual_seed(0))
+    kan = new_kan(cfg, dev)
     svc = ForecastService(cfg, ServeConfig(max_batch=MAX_BATCH, horizon_hours=HORIZON), device=dev)
     try:
         t0 = time.perf_counter()
@@ -337,7 +792,7 @@ def main() -> int:
         futures = [svc.submit("conus-synthetic", t0=int(s)) for s in starts]
         answers = [f.result(timeout=600) for f in futures]
         launches = wave_scan.launches
-        batches = svc.stats()["queue"]["batches"]
+        batches = executed_batches(answers)
         print(f"serve: {len(answers)} requests in {batches} batches, "
               f"wave_scan.launches {launches}")
         if launches < 1 or batches < 3 or launches != batches:
@@ -359,7 +814,7 @@ def main() -> int:
             expect = route(net, entry.channels, phys_params, q, gauges=entry.gauge_index,
                            bounds=svc.bounds, kernel="reference", device=dev).runoff
         compare(expect.cpu(), torch.as_tensor(answers[0]["runoff"]), "served request vs plain path")
-        profile_batch(svc, starts[:MAX_BATCH])
+        profile_batch(svc, "conus-synthetic", starts[:MAX_BATCH])
     finally:
         svc.close()
 
@@ -379,9 +834,7 @@ def main() -> int:
              torch.as_tensor(np.isfinite(obs), device=dev))
     print(f"train batch: T {T_train} h, n {net_t.n}, gauges {gauges_t.n_gauges}, daily obs "
           f"{obs.shape}, t_width {net_t.wf_t_width}, warmup {cfg.experiment.warmup} days")
-    kan_t = Kan(cfg.kan.input_var_names, cfg.kan.learnable_parameters,
-                hidden_size=11, num_hidden_layers=1, grid=3, k=3,
-                generator=torch.Generator().manual_seed(0)).to(dev)
+    kan_t = new_kan(cfg, dev)
     train_args = (bounds, p.parameter_ranges, p.log_space_parameters, p.defaults, p.tau,
                   cfg.experiment.warmup)
     # one step's KAN gradients through the kernels against the plain scans
@@ -490,6 +943,38 @@ def main() -> int:
           f"({rev_bytes / 1e9:.3f} GB -> {rev_bytes_ms:.4f} ms, {rev_flops / 1e9:.3f} GFLOP -> "
           f"{rev_flops_ms:.4f} ms)")
 
+    del rows_s
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 6-9. the stacked band router ----
+    band_wave_err, band_reverse_err = band_parity_small(dev)
+    t0 = time.perf_counter()
+    deep = make_basin(n_segments=DEEP_SEGMENTS, n_gauges=N_GAUGES, n_days=TRAIN_DAYS,
+                      depth=DEEP_DEPTH, seed=0)
+    print(f"continental basin: {DEEP_SEGMENTS} reaches, depth {DEEP_DEPTH}, forcing "
+          f"{deep.q_prime.shape} ({time.perf_counter() - t0:.2f}s to generate)")
+    served = serve_deep(cfg, deep, smi, dev)
+    band_wave_err = max(band_wave_err, served["wave_err"])
+    band_reverse_err = max(band_reverse_err, served["reverse_err"])
+    deep_launches = train_deep(cfg, deep, served["entry"], served["kan"], smi, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    stacked_gradients(cfg, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    band = time_bands(cfg, served["entry"], served["kan"], smi, dev)
+
+    def band_entry(name, source, replaces, launches, err, t):
+        bytes_ms, flops_ms = t["bound"]
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": max(bytes_ms, flops_ms),
+            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+            "library_ms": None, "ms_all_bands": t["all_ms"], "bound_ms_all_bands": t["all_bound_ms"],
+        }
+
     print(nvidia_smi())
     print(json.dumps({"kernels": [{
         "name": "wave_scan",
@@ -515,7 +1000,14 @@ def main() -> int:
         "bound_ms": reverse_bound_ms,
         "bound_by": "bytes" if rev_bytes_ms >= rev_flops_ms else "operations",
         "library_ms": None,
-    }]}))
+    },
+        band_entry("wave_scan/band", "ddr_tpu_torch/csrc/wave_scan.cu",
+                   "ddr_tpu/routing/pallas_kernel.py:193",
+                   served["launches"] + deep_launches["wave_scan"], band_wave_err, band["wave"]),
+        band_entry("reverse_scan/band", "ddr_tpu_torch/csrc/reverse_scan.cu",
+                   "ddr_tpu/routing/pallas_kernel.py:348",
+                   deep_launches["reverse_scan"], band_reverse_err, band["reverse"]),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

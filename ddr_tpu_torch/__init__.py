@@ -8,9 +8,12 @@ find, imports ``torch`` and ``numpy`` only (never ``jax`` and nothing of
 engine. Entry points take an explicit ``device`` that defaults to ``"cuda"``
 and raise when no card is present unless the caller asks for ``"cpu"``.
 
-This slice covers the serving path: network tables, MC physics, the
-forward wavefront engine with its hand-written CUDA wave-scan kernel
-(``routing/wave_kernel.py`` + ``csrc/wave_scan.cu``), the KAN, and a minimal
-``ForecastService``. Training (the analytic adjoint and the reverse-scan
-kernel) is a later slice.
+It covers the serving path (network tables, MC physics, the forward
+wavefront engine with its hand-written CUDA wave-scan kernel,
+``routing/wave_kernel.py`` + ``csrc/wave_scan.cu``, the KAN and a minimal
+``ForecastService``), one train step (the analytic adjoint with its
+hand-written reverse-scan kernel, ``routing/reverse_kernel.py`` +
+``csrc/reverse_scan.cu``), and networks beyond the single-ring caps through
+the stacked band router (``routing/stacked.py``), whose bands run both
+kernels.
 """

@@ -1,16 +1,26 @@
 // The forward wavefront scan of Muskingum-Cunge routing, for Hopper (sm_90a).
 //
-// Replaces ddr_tpu/routing/pallas_kernel.py::fused_wave_scan in the variant
-// the serving path runs: fp32 ring, no external-inflow rows, mask_raw=False,
-// optional q_init. Its plain version is wave_scan_reference in
-// ddr_tpu_torch/routing/wave_kernel.py, which also documents the recurrence.
+// Replaces ddr_tpu/routing/pallas_kernel.py::fused_wave_scan with an fp32
+// ring and optional q_init, in two variants of one entry point:
+// * the single-ring engine: no external-inflow rows (xe = se = nullptr),
+//   mask_raw = 0;
+// * a band of the stacked band router (ddr_tpu/routing/stacked.py:409):
+//   external rows xe/se (pre-skewed (B, W, n), the raw and clamped inflow
+//   sums of predecessors in earlier bands) and mask_raw = 1 (the raw sum
+//   multiplies each slot by its mask, pallas_kernel.py:184-185).
+// With xe = se = nullptr and mask_raw = 0 every operation is the one the
+// single-ring kernel did before the band variant existed. Its plain version
+// is wave_scan_reference in ddr_tpu_torch/routing/wave_kernel.py, which also
+// documents the recurrence.
 //
 // What bounds it on the H100: bytes. The pre-skewed qs and ys are (B, W, n)
 // float32 with W = T + depth, but each reach is in its valid band for only T
 // of the W waves, so the scan needs to read B * T * n * 4 bytes of qs and
 // write as many of ys (151 MB each at B = 8, T = 72, n = 65,536). This
 // version still writes the out-of-band zeros of ys, B * W * n * 4 bytes in
-// all (1.23 GB). The ring's recent rows stay in the 50 MB L2. Below that lies
+// all (1.23 GB). A band counts the same way at n = n_cap and W = T +
+// span_max, plus its in-band xe and se rows read once. The ring's recent
+// rows stay in the 50 MB L2. Below that lies
 // a floor of W grid barriers: the waves are sequential and every wave reads
 // rows other blocks wrote in the previous waves.
 //
@@ -50,9 +60,11 @@ struct WaveScanParams {
   float* ys;              // (B, W, n) raw solve values, out
   float* ring;            // (B, R, n + 1) scratch, zeroed by the caller
   float* s;               // (B, n) carried clamped inflow sum, zeroed by the caller
+  const float* xe;        // (B, W, n) external raw inflow rows, or nullptr
+  const float* se;        // (B, W, n) external clamped inflow rows, or nullptr
   const int* lvl;         // (n,) level per node, wf order
   const int* slot;        // (n,) first gather slot per node
-  const int* width;       // (n,) gather slot count per node
+  const int* width;       // (n,) gather slot count per node (0: no slots)
   const int* wf_row;      // (E,) ring row distance - 1 per slot
   const int* wf_col;      // (E,) ring column per slot (n = sentinel)
   const float* wf_mask;   // (E,) 1 for real slots, 0 for pad slots
@@ -65,6 +77,7 @@ struct WaveScanParams {
   const float* x_storage;
   float depth_lb, bottom_width_lb, velocity_lb, discharge_lb, dt;
   int B, T, n, W, R;
+  int mask_raw;           // 1: the raw sum multiplies each slot by its mask
 };
 
 // NaN-propagating max/min, as torch.maximum / jnp.maximum (fmaxf drops NaN).
@@ -129,9 +142,14 @@ __global__ void __launch_bounds__(kThreads) wave_scan_kernel(WaveScanParams p) {
         int rot = h1 - p.wf_row[k];
         if (rot < 0) rot += p.R;
         const float v = __ldcg(ring_b + rot * row_len + p.wf_col[k]);
-        x_pred += v;
+        if (p.mask_raw) {
+          x_pred += v * p.wf_mask[k];
+        } else {
+          x_pred += v;
+        }
         s_next += max_nan(v, lb) * p.wf_mask[k];
       }
+      if (p.xe != nullptr) x_pred += p.xe[out];
       const float q_row = p.qs[out];
       float y;
       if (t == 0) {  // hotstart diagonal: (I - N) q0 = q'_0, or the carried state
@@ -141,8 +159,9 @@ __global__ void __launch_bounds__(kThreads) wave_scan_kernel(WaveScanParams p) {
         const float q_prev = max_nan(__ldcg(ring_b + h1 * row_len + i), lb);
         float c1, c2, c3, c4;
         mc_coefficients(p, i, q_prev, c1, c2, c3, c4);
-        const float b_step = c2 * p.s[static_cast<size_t>(b) * p.n + i] + c3 * q_prev +
-                             c4 * max_nan(q_row, lb);
+        const float s_prev = p.s[static_cast<size_t>(b) * p.n + i];
+        const float s_in = p.se != nullptr ? s_prev + p.se[out] : s_prev;
+        const float b_step = c2 * s_in + c3 * q_prev + c4 * max_nan(q_row, lb);
         y = b_step + c1 * x_pred;
       }
       ring_b[h * row_len + i] = y;
@@ -160,13 +179,13 @@ extern "C" {
 // Launches the scan on `stream` and returns the launch's cudaError_t (0 on
 // success). Does not synchronise; faults during the run surface at the
 // caller's next synchronisation.
-int ddr_wave_scan(const float* qs, float* ys, float* ring, float* s, const int* lvl,
-                  const int* slot, const int* width, const int* wf_row, const int* wf_col,
+int ddr_wave_scan(const float* qs, float* ys, float* ring, float* s, const float* xe,
+                  const float* se, const int* lvl, const int* slot, const int* width, const int* wf_row, const int* wf_col,
                   const float* wf_mask, const float* q_init, const float* n_mann,
                   const float* p_spatial, const float* q_spatial, const float* slope,
                   const float* length, const float* x_storage, float depth_lb,
                   float bottom_width_lb, float velocity_lb, float discharge_lb, float dt, int B,
-                  int T, int n, int W, int R, int device, void* stream) {
+                  int T, int n, int W, int R, int mask_raw, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   int coop = 0, sms = 0, per_sm = 0;
@@ -184,10 +203,12 @@ int ddr_wave_scan(const float* qs, float* ys, float* ring, float* s, const int* 
   if (blocks > resident) blocks = resident;
   if (blocks < 1) blocks = 1;
 
-  WaveScanParams p{qs,        ys,          ring,       s,      lvl,          slot,
-                   width,     wf_row,      wf_col,     wf_mask, q_init,      n_mann,
-                   p_spatial, q_spatial,   slope,      length, x_storage,    depth_lb,
-                   bottom_width_lb, velocity_lb, discharge_lb, dt, B, T, n, W, R};
+  WaveScanParams p{qs,        ys,          ring,       s,      xe,           se,
+                   lvl,       slot,        width,      wf_row, wf_col,       wf_mask,
+                   q_init,    n_mann,      p_spatial,  q_spatial, slope,     length,
+                   x_storage, depth_lb,    bottom_width_lb, velocity_lb, discharge_lb,
+                   dt,        B,           T,          n,      W,            R,
+                   mask_raw};
   void* args[] = {&p};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(wave_scan_kernel),
                                     dim3(static_cast<unsigned>(blocks)), dim3(kThreads), args, 0,

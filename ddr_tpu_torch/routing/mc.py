@@ -5,10 +5,11 @@ Per timestep the engine solves
 
     (I - diag(c1) N) Q_{t+1} = c2 * (N @ Q_t) + c3 * Q_t + c4 * Q'
 
-on the time-skewed wavefront schedule (:mod:`ddr_tpu_torch.routing.wavefront`),
-the only engine of the port so far, differentiated by its analytic
-reverse-wavefront adjoint. Networks the single ring cannot carry go to the
-JAX package's stacked band router, which is a later slice of the port.
+on the time-skewed wavefront schedule, differentiated by its analytic
+reverse-wavefront adjoint: the single-ring engine
+(:mod:`ddr_tpu_torch.routing.wavefront`) where its caps fit, the stacked band
+router (:mod:`ddr_tpu_torch.routing.stacked`) for deeper or wider networks
+(:func:`~ddr_tpu_torch.routing.chunked.build_routing_network` picks).
 """
 
 from __future__ import annotations
@@ -213,7 +214,7 @@ def reach_physics(
 
 
 def route(
-    network: RiverNetwork,
+    network,
     channels: ChannelState,
     spatial_params: dict[str, torch.Tensor],
     q_prime: torch.Tensor,
@@ -242,6 +243,10 @@ def route(
     the plain PyTorch versions on any device (a yardstick, never the main
     path).
 
+    ``network`` is a single-ring :class:`RiverNetwork` or a
+    :class:`~ddr_tpu_torch.routing.stacked.StackedChunked`, which routes
+    through :func:`~ddr_tpu_torch.routing.stacked.route_stacked`.
+
     Gradients flow to ``q_prime``, ``q_init``, ``spatial_params`` and the
     channel tensors through the analytic reverse-wavefront adjoint
     (``adjoint="analytic"``, the JAX package's default wherever the network
@@ -250,6 +255,7 @@ def route(
 
     Inputs must lie on ``device`` (default ``"cuda"``; raises without a card).
     """
+    from ddr_tpu_torch.routing.stacked import StackedChunked, route_stacked
     from ddr_tpu_torch.routing.wavefront import wavefront_route_core
 
     if adjoint == "ad":
@@ -260,18 +266,25 @@ def route(
     if adjoint != "analytic":
         raise ValueError(f"unknown adjoint {adjoint!r} (use 'analytic')")
     dev = resolve_device(device)
-    if not network.single_ring:
+    stacked = isinstance(network, StackedChunked)
+    if not stacked and not network.single_ring:
+        engine = "the step engine (ROADMAP A.7)" if network.depth == 0 else (
+            "the stacked band router: build it with build_routing_network"
+        )
         raise NotImplementedError(
             f"network (depth={network.depth}, n={network.n}) is not single-ring "
-            "eligible; the stacked band router (route_stacked) that carries it "
-            "is a later slice of the port"
+            f"eligible; it needs {engine}"
         )
-    tensors = [network.level, q_prime, *spatial_params.values(), channels.length]
+    tensors = [network.gidx if stacked else network.level, q_prime, *spatial_params.values(),
+               channels.length]
     if q_init is not None:
         tensors.append(q_init)
     for t in tensors:
         if torch.is_tensor(t) and t.device.type != dev.type:
             raise ValueError(f"route on {dev} got a tensor on {t.device}")
+    if stacked:
+        return route_stacked(network, channels, spatial_params, q_prime, q_init=q_init,
+                             gauges=gauges, bounds=bounds, dt=dt, kernel=kernel)
 
     perm = network.wf_perm.long()
     inv = network.wf_inv.long()

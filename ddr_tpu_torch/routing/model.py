@@ -25,14 +25,28 @@ from ddr_tpu_torch.routing.mc import (
     denormalize,
     route,
 )
-from ddr_tpu_torch.routing.network import RiverNetwork, build_network
+from ddr_tpu_torch.routing.chunked import build_routing_network
+from ddr_tpu_torch.routing.network import RiverNetwork
+from ddr_tpu_torch.routing.stacked import StackedChunked
 
 __all__ = [
     "denormalize_spatial_parameters",
     "dmc",
+    "engine_label",
     "prepare_batch",
     "prepare_channels",
 ]
+
+
+def engine_label(network: Any) -> str:
+    """The name of the engine a built network routes on, as the JAX package
+    prints it: ``stacked-chunked-wavefront[K-band-scan]``,
+    ``single-ring-wavefront`` or ``step`` (not ported)."""
+    if isinstance(network, StackedChunked):
+        return f"stacked-chunked-wavefront[{network.n_chunks}-band-scan]"
+    if getattr(network, "single_ring", False):
+        return "single-ring-wavefront"
+    return "step"
 
 
 def prepare_channels(
@@ -63,11 +77,14 @@ def prepare_channels(
 
 def prepare_batch(
     rd: RoutingData, slope_min: float, device: str | torch.device = "cuda"
-) -> tuple[RiverNetwork, ChannelState, GaugeIndex | None]:
+) -> tuple[RiverNetwork | StackedChunked, ChannelState, GaugeIndex | None]:
     """RoutingData -> (network, channel state, gauge index) on ``device``.
-    Only single-ring networks route in this slice (``route`` raises
-    otherwise)."""
-    network = build_network(rd.adjacency_rows, rd.adjacency_cols, rd.n_segments, device=device)
+    The network is the one :func:`~ddr_tpu_torch.routing.chunked.build_routing_network`
+    picks: single-ring where its caps fit, the stacked band frame for deeper
+    or wider networks."""
+    network = build_routing_network(
+        rd.adjacency_rows, rd.adjacency_cols, rd.n_segments, device=device
+    )
     channels, gauges = prepare_channels(rd, slope_min, device=device)
     return network, channels, gauges
 

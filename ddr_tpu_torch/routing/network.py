@@ -28,8 +28,8 @@ __all__ = [
     "single_ring_eligible",
 ]
 
-# Heuristic single-ring caps, as in the JAX builder: beyond them the JAX
-# package routes with the depth-chunked / stacked band routers.
+# Heuristic single-ring caps, as in the JAX builder: beyond them a network
+# routes on the stacked band router (routing/stacked.py).
 WAVEFRONT_MAX_IN_DEGREE = 64
 WAVEFRONT_MAX_DEPTH = 1024
 
@@ -277,8 +277,8 @@ def build_network(
     max_in = int(in_deg.max()) if n else 0
     if not (depth + 2) * (n + 1) < 2**31:
         raise ValueError(
-            f"wavefront ring indices overflow int32 (depth={depth}, n={n}); the "
-            "depth-chunked and stacked routers are a later slice of the port"
+            f"wavefront ring indices overflow int32 (depth={depth}, n={n}); "
+            "build_routing_network gives such a network the stacked band router"
         )
 
     wf_perm, wf_inv, wf_idx, wf_mask, buckets, runs = _wavefront_tables(

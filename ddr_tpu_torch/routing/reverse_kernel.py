@@ -17,7 +17,9 @@ weights, built by :class:`~ddr_tpu_torch.routing.wavefront.AnalyticRoute`):
 Pairs outside ``0 <= t <= T-1`` give ``lam = 0`` and leave ``gx``: for the
 streams the backward builds (zero out of band, zero ``ow``/``duce`` at
 ``t = 0``) that is the JAX recurrence exactly, and it lets the kernel skip
-their arithmetic.
+their arithmetic. On a band frame the same holds slot by slot: a sentinel
+slot (level 0, no edges, zero ``gbar``) keeps ``lam = 0`` in both, whatever
+its pad physics puts in ``ow``.
 
 :func:`reverse_scan` launches ``csrc/reverse_scan.cu`` for CUDA tensors and
 runs :func:`reverse_scan_reference` only for CPU tensors.
@@ -31,7 +33,7 @@ import ctypes
 import torch
 
 from ddr_tpu_torch.routing.network import RiverNetwork
-from ddr_tpu_torch.routing.wave_kernel import check_ring_table
+from ddr_tpu_torch.routing.wave_kernel import check_ring_table, table_owner
 
 __all__ = ["reverse_scan", "reverse_scan_reference"]
 
@@ -43,7 +45,9 @@ def _stream_width(n: int, t_width: int) -> int:
 def reverse_scan_reference(rows_s: torch.Tensor, network: RiverNetwork, *, T: int) -> torch.Tensor:
     """The plain PyTorch reverse scan: a Python loop over waves, vectorized
     over ``(B, n)``. ``rows_s`` is the reverse stream ``(B, W, 2n + 2 n
-    t_width)``; returns the per-wave ``lams (B, W, n)``."""
+    t_width)``; returns the per-wave ``lams (B, W, n)``. ``network`` is a
+    RiverNetwork or a band of a stacked frame (``depth`` is then the frame's
+    ``span_max`` and the levels band-local)."""
     B, W, _ = rows_s.shape
     n, tw = network.n, network.wf_t_width
     R = network.wf_ring_rows
@@ -74,20 +78,22 @@ def reverse_scan_reference(rows_s: torch.Tensor, network: RiverNetwork, *, T: in
     return lams
 
 
-def _check_tables(network: RiverNetwork) -> None:
+def _check_tables(tables) -> None:
     """:func:`~ddr_tpu_torch.routing.wave_kernel.check_ring_table` on the
     transposed table, which must hold ``wf_t_width >= 1`` slots a node; once
-    per network."""
-    if getattr(network, "_reverse_tables_ok", False):
+    per network or band frame (every band at once)."""
+    owner = table_owner(tables)
+    if getattr(owner, "_reverse_tables_ok", False):
         return
-    if network.wf_t_width < 1 or network.wf_t_row.numel() != network.n * network.wf_t_width:
+    slots = owner.wf_t_row.shape[-1] if owner.wf_t_row.dim() else 0
+    if tables.wf_t_width < 1 or slots != tables.n * tables.wf_t_width:
         raise ValueError(
-            f"transposed tables hold {network.wf_t_row.numel()} slots, expected "
-            f"n * wf_t_width = {network.n} * {network.wf_t_width} (>= 1 slot a node)"
+            f"transposed tables hold {slots} slots, expected "
+            f"n * wf_t_width = {tables.n} * {tables.wf_t_width} (>= 1 slot a node)"
         )
-    check_ring_table(network.wf_t_row, network.wf_t_col, network.wf_ring_rows, network.n,
+    check_ring_table(owner.wf_t_row, owner.wf_t_col, tables.wf_ring_rows, tables.n,
                      "transposed table")
-    object.__setattr__(network, "_reverse_tables_ok", True)
+    object.__setattr__(owner, "_reverse_tables_ok", True)
 
 
 _ARGTYPES = (

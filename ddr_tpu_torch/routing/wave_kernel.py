@@ -1,18 +1,20 @@
 """The forward wave scan: a hand-written CUDA kernel and its plain version.
 
 Counterpart of ``ddr_tpu/routing/pallas_kernel.py``'s ``fused_wave_scan``
-(single-ring, fp32 ring, no external-inflow rows, ``mask_raw=False``: the
-variant the serving and training paths run). Per wave ``w = 1..W`` every
-reach ``i`` (wf order) advances its in-flight timestep ``t = w - 1 -
+with an fp32 ring, in its two fp32 uses: the single-ring engine (no external
+rows, ``mask_raw=False``) and a band of the stacked band router (external
+rows ``xe``/``se``, ``mask_raw=True``). Per wave ``w = 1..W`` every reach
+``i`` (wf or band-slot order) advances its in-flight timestep ``t = w - 1 -
 level[i]``:
 
 * ``q_prev = max(ring[(w-1) % R, i], lb)`` and the MC chain gives c1..c4;
 * its predecessor slots are gathered from the rotating ring and reduced
-  twice: raw (the same-timestep solve sum ``x_pred``) and clamped (the next
-  wave's inflow sum ``s``);
-* ``y = c2*s + c3*q_prev + c4*max(q', lb) + c1*x_pred``, with the hotstart
-  diagonal (``t == 0``: ``y = q' + x_pred``), the ``q_init`` override and
-  zeros outside ``0 <= t < T``;
+  twice: raw (the same-timestep solve sum, each slot times its mask under
+  ``mask_raw``) plus ``xe`` gives ``x_pred``, clamped and masked gives the
+  next wave's inflow sum ``s``;
+* ``y = c2*(s + se) + c3*q_prev + c4*max(q', lb) + c1*x_pred``, with the
+  hotstart diagonal (``t == 0``: ``y = q' + x_pred``), the ``q_init``
+  override and zeros outside ``0 <= t < T``;
 * ``y`` goes to ring row ``w % R`` and to ``ys[w-1]``.
 
 :func:`wave_scan` launches ``csrc/wave_scan.cu`` for CUDA tensors and runs
@@ -39,6 +41,7 @@ __all__ = [
     "physics_derivatives",
     "physics_pullback",
     "reduce_gathered",
+    "table_owner",
     "wave_scan",
     "wave_scan_reference",
 ]
@@ -117,6 +120,9 @@ def reduce_gathered(gathered, wf_mask, buckets, n_deg0, lb, clamped, mask_raw):
     off = 0
     for node_start, node_end, width in buckets:
         cnt_nodes = node_end - node_start
+        if width == 0:  # a band frame's tail: slots without in-band predecessors
+            parts.append(gathered.new_zeros(lead + (cnt_nodes,)))
+            continue
         cnt = cnt_nodes * width
         blk = gathered[..., off : off + cnt].reshape(lead + (cnt_nodes, width))
         msk = wf_mask[off : off + cnt].reshape(cnt_nodes, width)
@@ -138,10 +144,15 @@ def wave_scan_reference(
     q_init: torch.Tensor | None = None,
     *,
     T: int,
+    xe: torch.Tensor | None = None,
+    se: torch.Tensor | None = None,
+    mask_raw: bool = False,
 ) -> torch.Tensor:
     """The plain PyTorch wave scan: a Python loop over waves, vectorized
     over ``(B, n)``. ``qs`` is the pre-skewed ``(B, W, n)`` inflow, ``q_init``
-    ``(B, n)`` or None; returns the raw per-wave solve values ``(B, W, n)``."""
+    ``(B, n)`` or None, ``xe``/``se`` the pre-skewed ``(B, W, n)`` external
+    inflow rows or None; returns the raw per-wave solve values ``(B, W,
+    n)``. ``network`` is a RiverNetwork or a band of a stacked frame."""
     B, W, n = qs.shape
     R = network.wf_ring_rows
     row_len = n + 1
@@ -164,11 +175,14 @@ def wave_scan_reference(
         rot = h1 - wf_row
         rot = torch.where(rot < 0, rot + R, rot)
         gathered = ring[:, rot * row_len + wf_col]
-        x_pred = reduce_gathered(gathered, mask, buckets, n_deg0, lb, False, False)
-        s_next = reduce_gathered(gathered, mask, buckets, n_deg0, lb, True, False)
+        x_pred = reduce_gathered(gathered, mask, buckets, n_deg0, lb, False, mask_raw)
+        s_next = reduce_gathered(gathered, mask, buckets, n_deg0, lb, True, mask_raw)
+        if xe is not None:
+            x_pred = x_pred + xe[:, w - 1]
 
         q_row = qs[:, w - 1]
-        b_step = c2 * s_state + c3 * q_prev + c4 * maximum(q_row, lb)
+        s_in = s_state if se is None else s_state + se[:, w - 1]
+        b_step = c2 * s_in + c3 * q_prev + c4 * maximum(q_row, lb)
         is_hot = t_node == 0
         b = torch.where(is_hot, q_row, b_step)
         c1_eff = torch.where(is_hot, torch.ones_like(c1), c1)
@@ -200,21 +214,31 @@ def check_ring_table(row: torch.Tensor, col: torch.Tensor, ring_rows: int, n: in
             )
 
 
-def _check_tables(network: RiverNetwork) -> None:
-    """:func:`check_ring_table` on the gather table, once per network."""
-    if getattr(network, "_kernel_tables_ok", False):
+def table_owner(tables):
+    """What a range check covers: a band's whole frame (every band at once,
+    each ``int(t.min())`` being a host sync) or the network itself."""
+    frame = getattr(tables, "frame", None)
+    return tables if frame is None else frame
+
+
+def _check_tables(tables) -> None:
+    """:func:`check_ring_table` on the gather table, once per network or
+    band frame."""
+    owner = table_owner(tables)
+    if getattr(owner, "_kernel_tables_ok", False):
         return
-    check_ring_table(network.wf_row, network.wf_col, network.wf_ring_rows, network.n, "gather table")
-    object.__setattr__(network, "_kernel_tables_ok", True)
+    check_ring_table(owner.wf_row, owner.wf_col, tables.wf_ring_rows, tables.n, "gather table")
+    object.__setattr__(owner, "_kernel_tables_ok", True)
 
 
 _ARGTYPES = (
     [ctypes.c_void_p] * 4  # qs, ys, ring, s
+    + [ctypes.c_void_p] * 2  # xe, se (NULL = no external rows)
     + [ctypes.c_void_p] * 6  # lvl, slot, width, wf_row, wf_col, wf_mask
     + [ctypes.c_void_p]  # q_init (NULL = hotstart)
     + [ctypes.c_void_p] * 6  # n, p, q, slope, length, x_storage
     + [ctypes.c_float] * 5  # depth_lb, bottom_width_lb, velocity_lb, discharge_lb, dt
-    + [ctypes.c_int] * 6  # B, T, n, W, R, device
+    + [ctypes.c_int] * 7  # B, T, n, W, R, mask_raw, device
     + [ctypes.c_void_p]  # stream
 )
 
@@ -239,15 +263,23 @@ def wave_scan(
     q_init: torch.Tensor | None = None,
     *,
     T: int,
+    xe: torch.Tensor | None = None,
+    se: torch.Tensor | None = None,
+    mask_raw: bool = False,
 ) -> torch.Tensor:
     """The forward wave scan ``(B, W, n) -> (B, W, n)``: the CUDA kernel for
-    CUDA tensors, :func:`wave_scan_reference` for CPU tensors.
+    CUDA tensors, :func:`wave_scan_reference` for CPU tensors. ``network``
+    is a RiverNetwork or a band of a stacked frame
+    (:meth:`~ddr_tpu_torch.routing.stacked.StackedChunked.band`).
 
     Per-reach operands are shared by the batch. Raises on anything the
     kernel does not take (other dtypes, shapes or devices, non-contiguous
-    inputs, out-of-range tables); never falls back."""
+    inputs, out-of-range tables, one of ``xe``/``se`` without the other);
+    never falls back."""
+    if (xe is None) != (se is None):
+        raise ValueError("pass both external rows xe and se, or neither")
     if qs.device.type == "cpu":
-        return wave_scan_reference(qs, network, phys, q_init, T=T)
+        return wave_scan_reference(qs, network, phys, q_init, T=T, xe=xe, se=se, mask_raw=mask_raw)
     if qs.device.type != "cuda":
         raise ValueError(f"wave_scan takes CPU or CUDA tensors, got {qs.device}")
     if qs.dtype != torch.float32 or qs.dim() != 3:
@@ -260,13 +292,17 @@ def wave_scan(
         )
     dev = qs.device
     per_reach = list(reach_operands(phys))
+    ext = [] if xe is None else [xe, se]
     ints = [network.level_p, network.wf_slot, network.wf_width, network.wf_row, network.wf_col]
-    floats = [qs, network.wf_mask, *per_reach] + ([] if q_init is None else [q_init])
+    floats = [qs, *ext, network.wf_mask, *per_reach] + ([] if q_init is None else [q_init])
     for t in per_reach:
         if tuple(t.shape) != (n,):
             raise ValueError(f"per-reach operands must be ({n},), got {tuple(t.shape)}")
     if q_init is not None and tuple(q_init.shape) != (B, n):
         raise ValueError(f"q_init must be ({B}, {n}), got {tuple(q_init.shape)}")
+    for t in ext:
+        if tuple(t.shape) != (B, W, n):
+            raise ValueError(f"external rows must be ({B}, {W}, {n}), got {tuple(t.shape)}")
     for t in ints + floats:
         if t.device != dev:
             raise ValueError(f"wave_scan operands must all lie on {dev}, got {t.device}")
@@ -285,11 +321,13 @@ def wave_scan(
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.ddr_wave_scan(
         qs.data_ptr(), ys.data_ptr(), ring.data_ptr(), s_state.data_ptr(),
+        None if xe is None else xe.data_ptr(), None if se is None else se.data_ptr(),
         *(t.data_ptr() for t in ints), network.wf_mask.data_ptr(),
         None if q_init is None else q_init.data_ptr(),
         *(t.data_ptr() for t in per_reach),
         b.depth, b.bottom_width, b.velocity, b.discharge, phys.dt,
-        B, T, n, W, R, dev.index if dev.index is not None else torch.cuda.current_device(),
+        B, T, n, W, R, int(bool(mask_raw)),
+        dev.index if dev.index is not None else torch.cuda.current_device(),
         stream,
     )
     if err != 0:

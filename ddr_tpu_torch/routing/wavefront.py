@@ -6,9 +6,15 @@ at longest-path level ``L(i)`` computes its timestep-``t`` value at wave
 (:mod:`ddr_tpu_torch.routing.wave_kernel`) instead of ``T x depth`` steps.
 Around the scan sit two skews: the inflow rows are sheared into wave order
 before it and the solve values sheared back to time-major order after it.
-Here each skew is one ``torch.gather`` with a per-column row start (the JAX
-package splits it into static slices or a vmapped slice only to bound XLA's
-compile time).
+Here each skew is one ``torch.gather`` with a per-column row index, clamped
+to the series and masked outside it, so no padded copy of the series is made
+(the JAX package pads, then splits the skew into static slices or a vmapped
+slice only to bound XLA's compile time).
+
+The same engine runs each band of the stacked band router
+(:mod:`ddr_tpu_torch.routing.stacked`): a band is a table object with the
+kernels' field names, external inflow rows ``x_ext``/``s_ext`` from earlier
+bands, and masked raw sums (``mask_raw``), as the JAX band frame has them.
 
 The backward is not autograd through the scan: :class:`AnalyticRoute` is the
 JAX package's ``_analytic_route`` custom VJP. The adjoint of the recurrence
@@ -48,39 +54,48 @@ from ddr_tpu_torch.routing.wave_kernel import (
 __all__ = ["AnalyticRoute", "wavefront_route_core"]
 
 
+def _skew(src: torch.Tensor, rows: torch.Tensor, valid: torch.Tensor | None = None) -> torch.Tensor:
+    """``(B, S, C) -> (B, R, C)`` with ``out[:, r, c] = src[:, rows[r, c], c]``,
+    zero where ``valid[r, c]`` is false: one gather, no padded copy of ``src``."""
+    out = torch.gather(src, 1, rows.expand(src.shape[0], *rows.shape))
+    return out if valid is None else out.masked_fill_(~valid, 0.0)
+
+
 def _skew_by_level_runs(src: torch.Tensor, starts: torch.Tensor, width: int) -> torch.Tensor:
     """``(B, S, C) -> (B, width, C)`` with ``out[:, r, c] = src[:, starts[c] + r, c]``."""
-    B, _, C = src.shape
-    rows = starts[None, :] + torch.arange(width, device=src.device)[:, None]
-    return torch.gather(src, 1, rows.expand(B, width, C))
+    return _skew(src, starts[None, :] + torch.arange(width, device=src.device)[:, None])
 
 
 def _input_skews(qp_p: torch.Tensor, level_p: torch.Tensor, depth: int, T: int) -> torch.Tensor:
     """The wave-input skew of ``q'`` ``(B, T, N)``: wave row ``w-1`` hands
     node i ``q'[clip(t - 1, 0, T - 2)]`` for its timestep ``t = w - 1 -
     L(i)`` (row t=0 carries ``q'[0]``, the hotstart forcing)."""
-    B, _, n = qp_p.shape
-    right_edge = qp_p[:, T - 2 : T - 1] if T >= 2 else qp_p[:, :1]
-    padded = torch.cat(
-        [
-            qp_p[:, :1].expand(B, depth + 1, n),
-            qp_p[:, : T - 1],
-            right_edge.expand(B, depth, n),
-        ],
-        dim=1,
-    )  # (B, T + 2*depth, n); row r <-> q' index clip(r - (depth+1), 0, T-2)
-    return _skew_by_level_runs(padded, depth - level_p, T + depth)
+    r = torch.arange(T + depth, device=qp_p.device)[:, None]
+    return _skew(qp_p, (r - level_p[None, :] - 1).clamp(0, max(T - 2, 0)))
+
+
+def _ext_skews(x_ext: torch.Tensor, s_ext: torch.Tensor, level_p: torch.Tensor, depth: int,
+               T: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The wave-input skews of the external inflow series ``(B, T, N)``:
+    wave row ``w-1`` hands node i ``a[t]`` for its timestep ``t = w - 1 -
+    L(i)``, zero outside ``[0, T-1]``. One index serves both."""
+    t = torch.arange(T + depth, device=x_ext.device)[:, None] - level_p[None, :]
+    rows, valid = t.clamp(0, T - 1), (t >= 0) & (t < T)
+    return _skew(x_ext, rows, valid), _skew(s_ext, rows, valid)
+
+
+def _reverse_index(levels: torch.Tensor, depth: int, T: int, n_waves: int):
+    """``(rows, valid)`` of the reverse wave schedule: row ``v-1`` of column
+    ``c`` (of level ``levels[c]``) reads timestep ``T - v + depth -
+    levels[c]``, valid inside ``[0, T-1]``."""
+    t = (T - 1 + depth) - torch.arange(n_waves, device=levels.device)[:, None] - levels[None, :]
+    return t.clamp(0, T - 1), (t >= 0) & (t < T)
 
 
 def _reverse_stream(a: torch.Tensor, levels: torch.Tensor, depth: int, n_waves: int) -> torch.Tensor:
-    """Stream ``a (B, T, C)`` into the reverse wave schedule: row ``v-1``
-    hands column ``c`` (of level ``levels[c]``) ``a[T - v + depth -
-    levels[c]]``, zeros outside ``[0, T-1]``."""
-    B, _, C = a.shape
-    padded = torch.cat(
-        [a.new_zeros(B, depth, C), a.flip(1), a.new_zeros(B, depth + 1, C)], dim=1
-    )  # row r <-> a[T-1-(r-depth)]
-    return _skew_by_level_runs(padded, levels, n_waves)
+    """Stream ``a (B, T, C)`` into the reverse wave schedule
+    (:func:`_reverse_index`), zeros outside ``[0, T-1]``."""
+    return _skew(a, *_reverse_index(levels, depth, a.shape[1], n_waves))
 
 
 def _unskew_reverse(lams: torch.Tensor, level_p: torch.Tensor, depth: int, T: int) -> torch.Tensor:
@@ -103,42 +118,56 @@ def _shift_down(a: torch.Tensor) -> torch.Tensor:
 
 
 class AnalyticRoute(torch.autograd.Function):
-    """The single-ring wavefront route ``q' (B, T, n) -> raw (B, T, n)`` (wf
+    """The wavefront route ``q' (B, T, n) -> raw (B, T, n)`` (wf or band-slot
     order, pre-clamp) with the analytic reverse-wavefront adjoint.
 
-    ``apply(qp_p, q_init, n, p_spatial, q_spatial, slope, length, x_storage,
-    network, physics, kernel)``: the tensors are the differentiable inputs
-    (``q_init`` ``(B, n)`` or None; the per-reach operands ``(n,)`` in wf
-    order); ``physics`` supplies the bounds and the timestep. The forward runs
+    ``apply(qp_p, q_init, x_ext, s_ext, n, p_spatial, q_spatial, slope,
+    length, x_storage, network, physics, kernel, mask_raw)``: the tensors are
+    the differentiable inputs (``q_init`` ``(B, n)`` or None; ``x_ext`` and
+    ``s_ext`` ``(B, T, n)`` external inflow series, the raw same-timestep and
+    the clamped previous-timestep sums of predecessors outside the table, or
+    both None; the per-reach operands ``(n,)``). ``network`` is a
+    :class:`~ddr_tpu_torch.routing.network.RiverNetwork` or a band of a
+    stacked frame (:class:`~ddr_tpu_torch.routing.stacked.BandTables`);
+    ``physics`` supplies the bounds and the timestep; ``mask_raw`` masks the
+    raw predecessor sums, as the band frame does. The forward runs
     :func:`~ddr_tpu_torch.routing.wave_kernel.wave_scan` and saves only
-    ``raw``; the backward runs
+    ``raw`` besides the inputs; the backward runs
     :func:`~ddr_tpu_torch.routing.reverse_kernel.reverse_scan`.
     ``kernel="reference"`` runs both scans' plain versions on any device.
     """
 
     @staticmethod
-    def forward(ctx, qp_p, q_init, n_mann, p_spatial, q_spatial, slope, length, x_storage,
-                network: RiverNetwork, physics: ReachPhysics, kernel):
+    def forward(ctx, qp_p, q_init, x_ext, s_ext, n_mann, p_spatial, q_spatial, slope, length,
+                x_storage, network, physics: ReachPhysics, kernel, mask_raw: bool):
         ops = (n_mann, p_spatial, q_spatial, slope, length, x_storage)
         phys = with_operands(physics, ops)
         _, T, _ = qp_p.shape
         level_p = network.level_p.long()
         qs = _input_skews(qp_p, level_p, network.depth, T).contiguous()
+        xe = se = None
+        if x_ext is not None:
+            xe, se = _ext_skews(x_ext, s_ext, level_p, network.depth, T)
         scan = wave_scan_reference if kernel == "reference" else wave_scan
         with record_function("ddr::forward_scan"):
-            ys = scan(qs, network, phys, q_init, T=T)
-        del qs
+            ys = scan(qs, network, phys, q_init, T=T, xe=xe, se=se, mask_raw=mask_raw)
+        del qs, xe, se
         # x_t[i] was emitted at wave t + L(i) + 1, i.e. ys row t + L(i)
         raw = _skew_by_level_runs(ys, level_p, T)
-        ctx.network, ctx.physics, ctx.kernel = network, physics, kernel
-        ctx.has_init = q_init is not None
-        ctx.save_for_backward(raw, qp_p, q_init if q_init is not None else raw.new_zeros(0), *ops)
+        ctx.network, ctx.physics, ctx.kernel, ctx.mask_raw = network, physics, kernel, mask_raw
+        ctx.has_init, ctx.has_ext = q_init is not None, x_ext is not None
+        empty = raw.new_zeros(0)
+        ctx.save_for_backward(
+            raw, qp_p, q_init if q_init is not None else empty,
+            x_ext if x_ext is not None else empty, s_ext if s_ext is not None else empty, *ops,
+        )
         return raw
 
     @staticmethod
     def backward(ctx, raw_bar):
-        raw, qp_p, q_init, *ops = ctx.saved_tensors
-        network, kernel, has_init = ctx.network, ctx.kernel, ctx.has_init
+        raw, qp_p, q_init, x_ext, s_ext, *ops = ctx.saved_tensors
+        network, kernel, mask_raw = ctx.network, ctx.kernel, ctx.mask_raw
+        has_init, has_ext = ctx.has_init, ctx.has_ext
         phys = with_operands(ctx.physics, ops)
         lb = phys.bounds.discharge
         B, T, n = raw.shape
@@ -151,11 +180,17 @@ class AnalyticRoute(torch.autograd.Function):
 
         with record_function("ddr::adjoint_prepasses"):
             # re-gathers of the residual: N x_t (c1's operand) and the clamped
-            # previous-timestep inflow sum (c2's operand)
+            # previous-timestep inflow sum (c2's operand), each with its
+            # external inflow
             raw_pad = F.pad(raw, (0, 1))
-            xpx = reduce_gathered(raw_pad[..., wf_col], network.wf_mask, buckets, n_deg0, lb, False, False)
+            xpx = reduce_gathered(raw_pad[..., wf_col], network.wf_mask, buckets, n_deg0, lb, False,
+                                  mask_raw)
             prev_pad = _shift_down(raw_pad)
-            s_full = reduce_gathered(prev_pad[..., wf_col], network.wf_mask, buckets, n_deg0, lb, True, False)
+            s_full = reduce_gathered(prev_pad[..., wf_col], network.wf_mask, buckets, n_deg0, lb, True,
+                                     mask_raw)
+            if has_ext:
+                xpx = xpx + x_ext
+                s_full = s_full + s_ext
             prev = prev_pad[..., :n]
             del raw_pad, prev_pad
             # the MC chain and its elementwise q_prev-derivative for all (t, i)
@@ -180,15 +215,25 @@ class AnalyticRoute(torch.autograd.Function):
             # dm is folded into the inflow-adjoint edge stream
             zce = F.pad(zc, (0, 1))[..., t_col]
             duce = dm_all.repeat_interleave(tw, dim=-1) * F.pad(uc, (0, 1))[..., t_col]
-            del uc, dm_all
-            # ONE stacked reverse stream over [gbar | ow | zce | duce] columns
+            if not has_ext:
+                del uc
+            del dm_all
+            # ONE reverse stream over [gbar | ow | zce | duce] columns, each
+            # block streamed straight into its columns
             with record_function("ddr::adjoint_stream"):
-                levels = torch.cat([level_p, level_p, level_p.repeat_interleave(tw),
-                                    level_p.repeat_interleave(tw)])
-                rows_s = _reverse_stream(
-                    torch.cat([raw_bar.to(raw.dtype), ow, zce, duce], dim=-1), levels, depth, T + depth
-                ).contiguous()
-            del ow, zce, duce, levels
+                W = T + depth
+                rows_s = raw.new_empty(B, W, 2 * n + 2 * n * tw)
+                node_idx = _reverse_index(level_p, depth, T, W)
+                edge_idx = node_idx if tw == 1 else _reverse_index(
+                    level_p.repeat_interleave(tw), depth, T, W)
+                off = 0
+                for block, idx in ((raw_bar.to(raw.dtype), node_idx), (ow, node_idx),
+                                   (zce, edge_idx), (duce, edge_idx)):
+                    width = block.shape[-1]
+                    rows_s[..., off : off + width] = _skew(block, *idx)
+                    off += width
+            # the loop variables too: they would keep duce and the index alive
+            del ow, zce, duce, node_idx, edge_idx, block, idx
 
         scan = reverse_scan_reference if kernel == "reference" else reverse_scan
         with record_function("ddr::reverse_scan"):
@@ -202,14 +247,14 @@ class AnalyticRoute(torch.autograd.Function):
             # (row 0 zeroed: no physics on the hotstart diagonal)
             lam_th = lam_all.clone()
             lam_th[:, 0] = 0.0
-            needs = ctx.needs_input_grad[2:8]
+            needs = ctx.needs_input_grad[4:10]
             with record_function("ddr::adjoint_pullback"):
                 theta_bar = physics_pullback(
                     q_prev_all, phys,
                     (lam_th * xpx, lam_th * s_full, lam_th * q_prev_all, lam_th * qpm1c), needs,
                 )
             del lam_th, xpx, s_full, q_prev_all, qpm1c
-            qp_bar = q_init_bar = None
+            qp_bar = q_init_bar = x_ext_bar = s_ext_bar = None
             if ctx.needs_input_grad[0]:
                 # row t of qp_emit holds q'bar_{t-1}; zc * lam at t = 0 is the
                 # hotstart q'_0 adjoint (b = q'_0 raw, c1_eff = 1)
@@ -219,7 +264,11 @@ class AnalyticRoute(torch.autograd.Function):
                 qp_bar[:, 0] += zc[:, 0] * lam_all[:, 0]
             if has_init and ctx.needs_input_grad[1]:
                 q_init_bar = _dmax(q_init, lb) * lam_all[:, 0]
-        return (qp_bar, q_init_bar, *theta_bar, None, None, None)
+            if has_ext and ctx.needs_input_grad[2]:
+                x_ext_bar = zc * lam_all  # row 0: the hotstart row's x_ext term
+            if has_ext and ctx.needs_input_grad[3]:
+                s_ext_bar = uc * lam_all
+        return (qp_bar, q_init_bar, x_ext_bar, s_ext_bar, *theta_bar, None, None, None, None)
 
 
 def wavefront_route_core(
@@ -250,7 +299,8 @@ def wavefront_route_core(
     qp_p = qp.float()[..., network.wf_perm.long()]
     if q_init is not None:
         q_init = q_init.float().expand(B, n).contiguous()
-    raw = AnalyticRoute.apply(qp_p, q_init, *reach_operands(physics), network, physics, kernel)
+    raw = AnalyticRoute.apply(qp_p, q_init, None, None, *reach_operands(physics), network, physics,
+                              kernel, False)
     runoff = maximum(raw, physics.bounds.discharge)
     final = runoff[:, -1]
     if single:

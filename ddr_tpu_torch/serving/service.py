@@ -9,8 +9,9 @@ as KAN -> denormalize -> batched ``route`` -> gauges. Requests are
 zero-padded into the fixed batch slot, so a pair always runs the same
 shapes; :meth:`ForecastService.warmup` builds the kernels and runs each pair
 once before traffic. On a card the route goes through the CUDA wave-scan
-kernel; the only synchronisation is the copy of a batch's answers back to the
-host, where they go to clients.
+kernel, once for a single-ring network and once a band for a deep one (the
+stacked band router); the only synchronisation is the copy of a batch's
+answers back to the host, where they go to clients.
 
 Not in this slice: the health watchdog, SLO tracking, the performance
 sentinel, the verification ledger, ensembles, the HTTP front, mesh mode,
@@ -32,8 +33,9 @@ import torch
 
 from ddr_tpu_torch.device import resolve_device
 from ddr_tpu_torch.routing.mc import Bounds, ChannelState, GaugeIndex, route
-from ddr_tpu_torch.routing.model import denormalize_spatial_parameters, prepare_batch
+from ddr_tpu_torch.routing.model import denormalize_spatial_parameters, engine_label, prepare_batch
 from ddr_tpu_torch.routing.network import RiverNetwork
+from ddr_tpu_torch.routing.stacked import StackedChunked
 from ddr_tpu_torch.serving.batcher import (
     ForecastRequest,
     MicroBatcher,
@@ -55,7 +57,7 @@ class NetworkEntry:
     rd: Any  # RoutingData
     forcing: np.ndarray | None  # (T_total, N) hourly lateral inflow, or None
     horizon: int  # hourly steps per forecast
-    network: RiverNetwork
+    network: RiverNetwork | StackedChunked
     channels: ChannelState
     gauge_index: GaugeIndex | None  # None = full-domain outputs
     attrs: torch.Tensor  # (N, n_attrs) KAN input on the device
@@ -125,11 +127,6 @@ class ForecastService:
         network, channels, gauge_index = prepare_batch(
             rd, slope_min=self.cfg.params.attribute_minimums["slope"], device=self.device
         )
-        if not network.single_ring:
-            raise NotImplementedError(
-                f"network {name!r} (depth {network.depth}) needs the stacked band "
-                "router, a later slice of the port"
-            )
         entry = NetworkEntry(
             name=name,
             rd=rd,
@@ -152,7 +149,7 @@ class ForecastService:
             self._ready = False
         log.info(
             f"registered network {name!r}: {rd.n_segments} reaches, depth "
-            f"{network.depth}, horizon {entry.horizon}h"
+            f"{network.depth}, {engine_label(network)}, horizon {entry.horizon}h"
         )
         return entry
 

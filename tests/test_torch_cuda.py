@@ -1,6 +1,9 @@
 """The port's CUDA kernels on the card, against their plain PyTorch versions.
 
-These tests need an NVIDIA card and skip without one. The file imports
+These tests need an NVIDIA card and skip without one. They cover both
+kernels on the single ring and on the bands of a stacked frame (external
+rows, ``mask_raw``, width-0 gather buckets, transposed width 16), and the
+stacked band router on the card: ``n_chunks`` launches of each kernel. The file imports
 neither ``jax`` nor ``ddr_tpu``, so it runs on a machine that has only the
 port's dependencies:
 
@@ -25,10 +28,12 @@ from ddr_tpu_torch.routing.model import prepare_batch
 from ddr_tpu_torch.routing.network import build_network
 from ddr_tpu_torch.routing.reverse_kernel import reverse_scan, reverse_scan_reference
 from ddr_tpu_torch.routing.wave_kernel import ReachPhysics, wave_scan, wave_scan_reference
-from chip_smoke import fan_out_network, reverse_streams
+from ddr_tpu_torch.routing.stacked import StackedChunked
+from chip_smoke import band_frame, band_scan_case, fan_out_network, random_physics, reverse_streams
 
 CASES = ("hotstart", "q_init", "T=1", "no-edges")
 REVERSE_CASES = ("tree", "fan-out", "T=1")
+BAND_CASES = ("hotstart", "q_init", "T=1")
 
 
 @pytest.fixture
@@ -172,3 +177,81 @@ def test_engine_raises_on_inputs_that_require_grad(card, init):
     for ref, got, label in zip(grads["reference"], grads[None], ("n", "q_spatial", "q_prime", "q_init")):
         assert torch.isfinite(got).all(), label
         _close(ref, got, f"{init}: gradient of {label}, kernels vs plain scans")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", BAND_CASES)
+def test_band_wave_scan_kernel_matches_reference(card, name):
+    frame = band_frame(card)
+    T, B = (1, 2) if name == "T=1" else (24, 3)
+    for c in range(frame.n_chunks):
+        band = frame.band(c)
+        phys = random_physics(frame.n_cap, c, card)
+        qs, xe, se, q_init = band_scan_case(band, B, T, c, name == "q_init", card)
+        kw = dict(T=T, xe=xe, se=se, mask_raw=True)
+        before = wave_scan.launches
+        ys = wave_scan(qs, band, phys, q_init, **kw)
+        torch.cuda.synchronize()
+        assert wave_scan.launches == before + 1
+        _close(wave_scan_reference(qs, band, phys, q_init, **kw), ys, f"{name}: band {c}, kernel vs plain")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [24, 1])
+def test_band_reverse_scan_kernel_matches_reference(card, T):
+    frame = band_frame(card)
+    assert frame.t_width > 1
+    for c in range(frame.n_chunks):
+        band = frame.band(c)
+        rows_s = reverse_streams(band, 2, T, c, card)
+        before = reverse_scan.launches
+        lams = reverse_scan(rows_s, band, T=T)
+        torch.cuda.synchronize()
+        assert reverse_scan.launches == before + 1
+        _close(reverse_scan_reference(rows_s, band, T=T), lams, f"T {T}: band {c}, kernel vs plain")
+
+
+@pytest.mark.cuda
+def test_stacked_route_on_the_card_runs_the_band_kernels(card):
+    """A basin deeper than the single-ring cap routes on the stacked band
+    router: ``n_chunks`` launches of each kernel, and answers and gradients
+    that match the plain scans'."""
+    basin = make_basin(n_segments=3000, n_gauges=4, n_days=2, seed=3, depth=1100)
+    net, ch, gauges = prepare_batch(basin.routing_data, 0.001, device=card)
+    assert isinstance(net, StackedChunked) and net.n_chunks >= 2
+    out = {}
+    for kernel in (None, "reference"):
+        params = {k: torch.tensor(v, dtype=torch.float32, device=card, requires_grad=True)
+                  for k, v in basin.true_params.items()}
+        q = torch.tensor(basin.q_prime[:24], device=card, requires_grad=True)
+        before = (wave_scan.launches, reverse_scan.launches)
+        res = mc.route(net, ch, params, q, gauges=gauges, kernel=kernel, device=card)
+        (res.runoff.sum() + res.final_discharge.sum()).backward()
+        torch.cuda.synchronize()
+        launched = net.n_chunks if kernel is None else 0
+        assert (wave_scan.launches, reverse_scan.launches) == (before[0] + launched, before[1] + launched)
+        out[kernel] = [res.runoff.detach(), res.final_discharge.detach(), params["n"].grad, q.grad]
+    for ref, got, label in zip(out["reference"], out[None], ("runoff", "final", "d/dn", "d/dq_prime")):
+        assert torch.isfinite(got).all(), label
+        _close(ref, got, f"stacked {label}, kernels vs plain scans")
+
+
+@pytest.mark.cuda
+def test_stacked_route_on_the_card_under_deterministic_algorithms(card):
+    """The boundary buffer's duplicate pad writes do not turn the stacked
+    route or its backward into an error when PyTorch is asked for
+    deterministic algorithms."""
+    basin = make_basin(n_segments=3000, n_gauges=4, n_days=2, seed=3, depth=1100)
+    net, ch, gauges = prepare_batch(basin.routing_data, 0.001, device=card)
+    params = {k: torch.tensor(v, dtype=torch.float32, device=card, requires_grad=True)
+              for k, v in basin.true_params.items()}
+    q = torch.as_tensor(basin.q_prime[:24], device=card)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        res = mc.route(net, ch, params, q, gauges=gauges, device=card)
+        res.runoff.sum().backward()
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(was)
+    assert torch.isfinite(res.runoff).all() and torch.isfinite(params["n"].grad).all()

@@ -33,6 +33,9 @@ def test_port_imports_no_jax_and_nothing_of_ddr_tpu():
         timeout=120, check=True,
     ).stdout.split("\n")[-2]
     n_mods, bad = out.split(" ", 1)
-    expected = len(list(pkgutil.walk_packages(ddr_tpu_torch.__path__, "ddr_tpu_torch.")))
-    assert int(n_mods) == expected and expected >= 20
+    names = {m.name for m in pkgutil.walk_packages(ddr_tpu_torch.__path__, "ddr_tpu_torch.")}
+    expected = len(names)
+    assert int(n_mods) == expected and expected >= 22
+    # the stacked band router's modules are among those the probe imported
+    assert {"ddr_tpu_torch.routing.chunked", "ddr_tpu_torch.routing.stacked"} <= names
     assert bad == "[]", f"the port imported {bad}"

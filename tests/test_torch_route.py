@@ -4,7 +4,8 @@ The same basin (the port's synthetic generator draws the JAX generator's
 stream), parameters and inflows go through JAX ``mc.route(...,
 kernel="xla")`` and the port's wavefront engine on the CPU, for gauge and
 full-domain outputs, in-band hotstart and carried state, one request and a
-batch. Tolerance: rtol 1e-5 with an absolute floor of 1e-5 x the largest
+batch; and a chain too deep for the single ring, through the stacked band
+router. Tolerance: rtol 1e-5 with an absolute floor of 1e-5 x the largest
 magnitude, as for the wave scan.
 """
 
@@ -19,11 +20,14 @@ import torch
 
 from ddr_tpu.geodatazoo.synthetic import make_basin as jax_make_basin
 from ddr_tpu.routing import mc as jax_mc
+from ddr_tpu.routing.chunked import build_routing_network as jax_build_routing_network
 from ddr_tpu.routing.model import prepare_batch as jax_prepare_batch
 from ddr_tpu_torch.geodatazoo.synthetic import make_basin
 from ddr_tpu_torch.routing import mc
 from ddr_tpu_torch.routing.model import dmc, prepare_batch
+from ddr_tpu_torch.routing.chunked import build_routing_network
 from ddr_tpu_torch.routing.network import build_network
+from ddr_tpu_torch.routing.stacked import StackedChunked
 from ddr_tpu_torch.validation.configs import Config, KanConfig
 
 SLOPE_MIN = 0.001
@@ -127,13 +131,36 @@ def test_dmc_carries_state_like_jax_route():
 
 
 def test_ineligible_network_raises_not_implemented():
-    n = 1100  # a chain deeper than the single-ring cap
-    net = build_network(np.arange(1, n), np.arange(0, n - 1), n, device="cpu")
+    """A chain deeper than the single-ring cap: as a plain network it is
+    refused (it needs the stacked frame); through ``build_routing_network``
+    it routes on the stacked band router and matches JAX."""
+    n = 1100
+    rows, cols = np.arange(1, n), np.arange(0, n - 1)
+    net = build_network(rows, cols, n, device="cpu")
     assert not net.single_ring
-    ch = mc.ChannelState(length=torch.ones(n), slope=torch.ones(n), x_storage=torch.ones(n))
-    params = {"n": torch.ones(n), "q_spatial": torch.ones(n), "p_spatial": torch.ones(n)}
-    with pytest.raises(NotImplementedError, match="stacked"):
-        mc.route(net, ch, params, torch.ones(2, n), device="cpu")
+    rng = np.random.default_rng(5)
+    ch_np = {"length": rng.uniform(800.0, 6000.0, n), "slope": rng.uniform(1e-3, 1e-2, n),
+             "x": np.full(n, 0.3)}
+    params_np = {"n": rng.uniform(0.02, 0.1, n), "q_spatial": rng.uniform(0.1, 0.9, n),
+                 "p_spatial": np.full(n, 21.0)}
+    q = rng.uniform(0.0, 2.0, (4, n)).astype(np.float32)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32))  # noqa: E731
+    ch = mc.ChannelState(length=t(ch_np["length"]), slope=t(ch_np["slope"]), x_storage=t(ch_np["x"]))
+    params = {k: t(v) for k, v in params_np.items()}
+    with pytest.raises(NotImplementedError, match="build_routing_network"):
+        mc.route(net, ch, params, t(q), device="cpu")
+
+    stacked = build_routing_network(rows, cols, n, device="cpu")
+    assert isinstance(stacked, StackedChunked) and stacked.depth == n - 1
+    res = mc.route(stacked, ch, params, t(q), device="cpu")
+    j = lambda a: jnp.asarray(np.asarray(a, np.float32))  # noqa: E731
+    ref = jax_mc.route(
+        jax_build_routing_network(rows, cols, n),
+        jax_mc.ChannelState(length=j(ch_np["length"]), slope=j(ch_np["slope"]), x_storage=j(ch_np["x"])),
+        {k: j(v) for k, v in params_np.items()}, j(q), kernel="xla",
+    )
+    _close(ref.runoff, res.runoff, "runoff of the 1100-deep chain")
+    _close(ref.final_discharge, res.final_discharge, "final discharge of the 1100-deep chain")
 
 
 def test_inputs_that_require_grad_raise():

@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --time-fp32   # only the fp32 forward kernel's times
 
 From the root of a checkout, with one CUDA card visible. Phases, each fatal
 on failure (non-zero exit, no result line):
@@ -50,7 +51,24 @@ on failure (non-zero exit, no result line):
            smaller stacked basin (65,536 reaches, depth 2048, 3 bands);
 9. timing  each band kernel at its main path's shape: one band, and all
            ``n_chunks`` bands of a route, against the bound counted per
-           band, and the plain version on one band.
+           band, and the plain version on one band;
+10. parity (bf16) the forward kernel with its ring in bfloat16 against its
+           plain version: the small single ring and the small 3-band frame
+           (hotstart, ``q_init``, ``T = 1``) and the serving shape, within
+           one bf16 epsilon, with the share of exactly equal elements;
+11. train  (bf16, regional) the regional basin's runoff in bf16 against
+           fp32 on the same weights (the JAX package's bound), 3 bf16 train
+           steps with ``collect_health`` and 16 health bands (one launch of
+           each kernel a step, no overflow, a finite ulp drift), 2 fp32
+           steps with the same health for comparison, the cost of the
+           health reductions, the first stage of the recovery ladder (a
+           violating bf16 step re-run on the fp32 twin from the pre-step
+           state), and the bf16 kernel's time at the training shape;
+12. train  (bf16, continental) the same on the continental basin
+           (``n_chunks`` launches a step), and the bf16 band kernel's time.
+The service of phases 3 and 7 runs with its health watchdog on, which must
+have seen every served batch and not be degraded; phase 8's gradient check
+also holds the bf16 kernels against the bf16 plain scans.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero without a card.
@@ -58,6 +76,7 @@ last ``{"ok": true, "device": {...}}``. Exits non-zero without a card.
 
 from __future__ import annotations
 
+import copy
 import gc
 import json
 import subprocess
@@ -79,6 +98,12 @@ REVERSE_FLOPS_PER_PAIR = 4
 REVERSE_FLOPS_PER_SLOT = 4
 RTOL = ATOL_SCALE = 1e-5  # parity tolerance: |a - b| <= 1e-5 |ref| + 1e-5 max|ref|
 GRAD_RTOL = 1e-4  # KAN gradients, kernels vs plain scans: the reductions over reaches differ
+# bf16 ring: one bf16 epsilon, since a powf ulp can flip one rounding and the
+# flip carries downstream; its KAN gradients rtol 1e-3; bf16 runoff against
+# fp32 within the JAX package's bound (tests/routing/test_pallas_kernel.py)
+BF16_RTOL, BF16_GRAD_RTOL = 2.0**-7, 1e-3
+BF16_MAX_REL, BF16_MEAN_REL = 0.3, 0.02
+HEALTH_BANDS = 16
 
 N_SEGMENTS, DEPTH, N_GAUGES, HORIZON, MAX_BATCH, N_BATCHES = 65536, 512, 8, 72, 8, 3
 TRAIN_DAYS, TRAIN_STEPS = 10, 3  # T = 240 h
@@ -321,6 +346,17 @@ def executed_batches(answers) -> int:
     return len({(a["execute_s"], a["device_ms"]) for a in answers})
 
 
+def check_watchdog(svc, batches, label) -> None:
+    """The service's health watchdog (on by default) observed every served
+    batch and is not degraded."""
+    status = svc.status()
+    print(f"{label} health watchdog: {status['batches']} batches observed, {status['violations']} "
+          f"violations, degraded {svc.degraded}, worst gauges {status['spatial']}")
+    if status["batches"] != batches or svc.degraded:
+        fail(f"{label}: the watchdog observed {status['batches']} of {batches} batches, "
+             f"degraded {svc.degraded}")
+
+
 def profile_batch(svc, name, starts) -> None:
     """One served batch under ``torch.profiler``: device time by operation,
     largest first, and the device's busy share of the batch's host time."""
@@ -462,6 +498,7 @@ def serve_deep(cfg, basin, smi, dev) -> dict:
         if batches < 3 or launches != batches * net.n_chunks:
             fail(f"expected n_chunks = {net.n_chunks} wave_scan launches per batch (>= 3 "
                  f"batches): {launches} launches, {batches} batches")
+        check_watchdog(svc, batches, "deep serve")
         out["launches"] = launches
         per_batch = {}
         for a in answers:
@@ -491,9 +528,10 @@ def serve_deep(cfg, basin, smi, dev) -> dict:
     return out
 
 
-def train_deep(cfg, basin, entry, kan, smi, dev) -> dict:
+def train_deep(cfg, basin, entry, kan, smi, dev) -> tuple[dict, tuple]:
     """Phase 8: ``observe`` and 3 train steps on the continental basin, with
-    the service's network, channels and gauges. Returns the launches."""
+    the service's network, channels and gauges. Returns the launches and
+    the batch."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -559,13 +597,15 @@ def train_deep(cfg, basin, entry, kan, smi, dev) -> dict:
         ("ddr::adjoint_physics", "ddr::adjoint_stream", "ddr::adjoint_pullback"),
     )
     print(f"  device busy {device_ms:.3f} ms ({100 * device_ms / host_ms:.1f}% of the host time)")
-    del batch, opt, step
-    return launches
+    del opt, step
+    return launches, batch
 
 
 def stacked_gradients(cfg, dev) -> None:
     """Phase 8, end: KAN gradients through the band kernels against those
-    through the plain scans, on the 65,536-reach, depth-2048 stacked basin."""
+    through the plain scans, on the 65,536-reach, depth-2048 stacked basin:
+    fp32 within ``GRAD_RTOL``, and bf16 (the bf16 kernels against the bf16
+    plain scans) within ``BF16_GRAD_RTOL``."""
     import numpy as np
     import torch
 
@@ -590,17 +630,20 @@ def stacked_gradients(cfg, dev) -> None:
     kan = new_kan(cfg, dev)
     train_args = (Bounds.from_config(p.attribute_minimums), p.parameter_ranges,
                   p.log_space_parameters, p.defaults, p.tau, cfg.experiment.warmup)
-    grads = {}
-    for kernel in (None, "reference"):
-        kan.zero_grad(set_to_none=True)
-        loss, _ = training.make_batch_loss(kan, *train_args, kernel=kernel, device=dev)(*batch)
-        loss.backward()
-        torch.cuda.synchronize()
-        grads[kernel] = {k: v.grad.detach().clone() for k, v in kan.named_parameters()}
-        print(f"stacked train loss through {kernel or 'the kernels'}: {float(loss.detach()):.6f}")
-    for k in grads[None]:
-        compare(grads["reference"][k], grads[None][k],
-                f"stacked KAN gradient {k}, kernels vs plain scans", rtol=GRAD_RTOL)
+    for dtype, rtol in (("fp32", GRAD_RTOL), ("bf16", BF16_GRAD_RTOL)):
+        grads = {}
+        for kernel in (None, "reference"):
+            kan.zero_grad(set_to_none=True)
+            loss, _ = training.make_batch_loss(kan, *train_args, kernel=kernel, device=dev,
+                                               dtype=dtype)(*batch)
+            loss.backward()
+            torch.cuda.synchronize()
+            grads[kernel] = {k: v.grad.detach().clone() for k, v in kan.named_parameters()}
+            print(f"stacked {dtype} train loss through {kernel or 'the kernels'}: "
+                  f"{float(loss.detach()):.6f}")
+        for k in grads[None]:
+            compare(grads["reference"][k], grads[None][k],
+                    f"stacked {dtype} KAN gradient {k}, kernels vs plain scans", rtol=rtol)
 
 
 def time_bands(cfg, entry, kan, smi, dev) -> dict:
@@ -674,6 +717,408 @@ def time_bands(cfg, entry, kan, smi, dev) -> dict:
     return out
 
 
+def compare_bf16(ref, out, label: str) -> float:
+    """:func:`compare` within one bf16 epsilon; also prints the share of
+    elements the kernel and the plain version give exactly alike."""
+    err = compare(ref, out, label, rtol=BF16_RTOL)
+    exact = float((ref == out).double().mean())
+    print(f"  {label}: {100 * exact:.3f}% of elements equal exactly")
+    return err
+
+
+def bf16_parity(net_s, phys_s, dev) -> tuple[float, float]:
+    """Phase 10: the bf16 ring against its plain version on the small single
+    ring and on the small 3-band frame; returns both max abs errors."""
+    import torch
+
+    from ddr_tpu_torch.routing.wave_kernel import wave_scan, wave_scan_reference
+
+    ring_err = band_err = 0.0
+    cases = (("hotstart", 3, 24, False), ("q_init", 3, 24, True), ("T=1", 2, 1, False))
+    with torch.no_grad():
+        for label, B, T, with_init in cases:
+            qs, qi = scan_case(net_s, phys_s, B, T, 7, with_init, dev)
+            ys = wave_scan(qs, net_s, phys_s, qi, T=T, compute_dtype="bf16")
+            torch.cuda.synchronize()
+            ring_err = max(ring_err, compare_bf16(
+                wave_scan_reference(qs, net_s, phys_s, qi, T=T, compute_dtype="bf16"), ys,
+                f"wave_scan/bf16 small/{label}"))
+        frame = band_frame(dev)
+        for c in range(frame.n_chunks):
+            band = frame.band(c)
+            phys = random_physics(frame.n_cap, 3 + c, dev)
+            for label, B, T, with_init in cases:
+                qs, xe, se, qi = band_scan_case(band, B, T, 7 + c, with_init, dev)
+                kw = dict(T=T, xe=xe, se=se, mask_raw=True, compute_dtype="bf16")
+                ys = wave_scan(qs, band, phys, qi, **kw)
+                torch.cuda.synchronize()
+                band_err = max(band_err, compare_bf16(wave_scan_reference(qs, band, phys, qi, **kw), ys,
+                                                      f"wave_scan/band-bf16 small band {c} {label}"))
+    return ring_err, band_err
+
+
+def bf16_against_fp32(cfg, kan, net, ch, gauges, attrs, q, label, hold, dev) -> None:
+    """The runoff of one window in bf16 against fp32, same weights and
+    inflow: max and mean relative error of the gauge runoff (the output a
+    train step or a forecast reads), held to the JAX package's bound where
+    ``hold``, and of the full-domain runoff, printed. Full-domain runoff
+    holds reaches whose small discharge is a difference of large terms; a
+    bf16 ring moves those by more than the bound, in the JAX package as in
+    the port (``tests/test_torch_bf16.py``)."""
+    import torch
+
+    from ddr_tpu_torch.routing.mc import Bounds, route
+    from ddr_tpu_torch.routing.model import denormalize_spatial_parameters
+
+    p = cfg.params
+    with torch.no_grad():
+        phys_params = denormalize_spatial_parameters(
+            kan(attrs), p.parameter_ranges, p.log_space_parameters, p.defaults, net.n)
+        kw = dict(bounds=Bounds.from_config(p.attribute_minimums), device=dev)
+        for where, g in (("gauge", gauges), ("full-domain", None)):
+            r32 = route(net, ch, phys_params, q, gauges=g, **kw).runoff
+            r16 = route(net, ch, phys_params, q, gauges=g, dtype="bf16", **kw).runoff
+            rel = (r16 - r32).abs() / (r32.abs() + 1e-6)
+            max_rel, mean_rel = float(rel.max()), float(rel.mean(dtype=torch.float64))
+            finite = bool(torch.isfinite(r16).all())
+            del r32, r16, rel
+            held = hold and where == "gauge"
+            print(f"bf16 vs fp32 {where} runoff, {label} (T {q.shape[0]}): max rel {max_rel:.4e}, mean rel "
+                  f"{mean_rel:.4e} (JAX bound {BF16_MAX_REL} / {BF16_MEAN_REL}"
+                  f"{', held' if held else ', printed only'})")
+            if not finite or (held and (max_rel > BF16_MAX_REL or mean_rel > BF16_MEAN_REL)):
+                fail(f"bf16 vs fp32 {where} runoff, {label}: max rel {max_rel}, mean rel {mean_rel}, "
+                     f"finite {finite}")
+
+def bf16_train(cfg, batch, n_launch, label, smi, dev) -> dict:
+    """Phases 11-12: 3 bf16 train steps with ``collect_health`` and
+    ``HEALTH_BANDS`` bands (``n_launch`` launches of each kernel a step, no
+    overflow, finite ulp drift), then 2 fp32 steps with the same health for
+    comparison. Returns the launches, step times and peak memory."""
+    import numpy as np
+    import torch
+
+    from ddr_tpu_torch import training
+    from ddr_tpu_torch.routing.mc import Bounds
+    from ddr_tpu_torch.routing.reverse_kernel import reverse_scan
+    from ddr_tpu_torch.routing.wave_kernel import wave_scan
+    from ddr_tpu_torch.scripts_utils import resolve_learning_rate
+
+    p = cfg.params
+    train_args = (Bounds.from_config(p.attribute_minimums), p.parameter_ranges,
+                  p.log_space_parameters, p.defaults, p.tau, cfg.experiment.warmup)
+    kan = new_kan(cfg, dev).train()
+    schedule = cfg.experiment.learning_rate
+    opt = training.make_optimizer(kan.parameters(), resolve_learning_rate(schedule, 1))
+    health_kw = dict(collect_health=True, health_bands=HEALTH_BANDS)
+    steps = {dtype: training.make_batch_train_step(kan, *train_args, opt, device=dev, dtype=dtype,
+                                                   **health_kw) for dtype in ("bf16", "fp32")}
+
+    def timed(dtype, i):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        loss, daily, health = steps[dtype](*batch)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        dev_ms = start.elapsed_time(end)
+        print(f"{label} {dtype} train step {i}: loss {float(loss):.6f}, overflow {health.overflow}, "
+              f"ulp_drift {health.ulp_drift}, pre-clip grad norm {float(health.grad_norm):.6e}, worst band "
+              f"{worst_of(health)}, device {dev_ms:.3f} ms (CUDA events), host "
+              f"{host_ms:.3f} ms on {smi}")
+        return float(loss), health, dev_ms
+
+    torch.cuda.reset_peak_memory_stats()
+    wave_scan.launches = reverse_scan.launches = 0
+    out = {"bf16_ms": [], "fp32_ms": []}
+    losses = []
+    for i in range(1, TRAIN_STEPS + 1):
+        training.set_learning_rate(opt, resolve_learning_rate(schedule, i))
+        loss, health, ms = timed("bf16", i)
+        losses.append(loss)
+        out["bf16_ms"].append(ms)
+        if int(health.overflow) != 0 or not np.isfinite(float(health.ulp_drift)):
+            fail(f"{label} bf16 step {i}: overflow {health.overflow}, ulp_drift {health.ulp_drift}")
+    launches = {"wave_scan": wave_scan.launches, "reverse_scan": reverse_scan.launches}
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{label} bf16 train: {TRAIN_STEPS} steps, launches {launches}, peak device memory "
+          f"{out['peak_gb']:.3f} GB on {smi}")
+    expect = TRAIN_STEPS * n_launch
+    if not all(np.isfinite(losses)):
+        fail(f"{label} bf16 train: losses {losses}")
+    if launches != {"wave_scan": expect, "reverse_scan": expect}:
+        fail(f"{label} bf16 train: expected {n_launch} launches of each kernel a step: {launches}")
+    out["launches"] = launches["wave_scan"]
+    for i in range(1, 3):
+        out["fp32_ms"].append(timed("fp32", i)[2])
+    return out
+
+
+def worst_of(health) -> str:
+    """The worst band and worst reaches of a step's spatial attribution."""
+    from ddr_tpu_torch.observability import HealthWatchdog
+
+    spatial = HealthWatchdog.spatial_summary(health) or {}
+    return f"{spatial.get('worst_band')} reaches {spatial.get('worst_idx', [])[:3]}"
+
+
+def recovery_reroute(cfg, batch, dev) -> None:
+    """Phase 11, end: the first stage of the recovery ladder, as ``ddr
+    train`` drives it (``ddr_tpu/scripts/train.py:511-536``). With
+    ``max_ulp_drift = 0`` a bf16 step violates on ``ulp-drift`` only; the
+    supervisor picks ``fp32-reroute``; the step is re-run on the fp32 twin
+    from a copy of the pre-step KAN and optimizer state, which the watchdog
+    must find clean."""
+    import torch
+
+    from ddr_tpu_torch import training
+    from ddr_tpu_torch.observability import (
+        HealthConfig,
+        HealthWatchdog,
+        RecoveryConfig,
+        RecoverySupervisor,
+    )
+    from ddr_tpu_torch.routing.mc import Bounds
+
+    p = cfg.params
+    train_args = (Bounds.from_config(p.attribute_minimums), p.parameter_ranges,
+                  p.log_space_parameters, p.defaults, p.tau, cfg.experiment.warmup)
+    kan = new_kan(cfg, dev).train()
+    opt = training.make_optimizer(kan.parameters(), 0.005)
+    health_kw = dict(collect_health=True, health_bands=HEALTH_BANDS)
+    step_bf16, step_fp32 = (training.make_batch_train_step(kan, *train_args, opt, device=dev, dtype=d,
+                                                           **health_kw) for d in ("bf16", "fp32"))
+    watchdog = HealthWatchdog(HealthConfig(max_ulp_drift=0.0))
+    supervisor = RecoverySupervisor(RecoveryConfig(enabled=True))
+    step_fp32(*batch)  # a healthy first step: the optimizer has state to restore
+    backup = copy.deepcopy((kan.state_dict(), opt.state_dict()))
+    _, _, health = step_bf16(*batch)
+    reasons = watchdog.observe(health, epoch=1, batch=1)
+    stage = supervisor.decide(reasons, fp32_available=True)
+    print(f"recovery: bf16 step ulp_drift {float(health.ulp_drift):.4f} -> reasons {reasons}, stage {stage}")
+    if reasons != ["ulp-drift"] or stage != "fp32-reroute":
+        fail(f"recovery: expected an ulp-drift violation and an fp32 re-route: {reasons}, {stage}")
+    kan.load_state_dict(backup[0])
+    opt.load_state_dict(backup[1])
+    loss, _, health = step_fp32(*batch)
+    torch.cuda.synchronize()
+    again = watchdog.check(health)
+    supervisor.record("fp32-reroute", reasons, epoch=1, batch=1, outcome="violated" if again else "clean")
+    if again:
+        fail(f"recovery: the fp32 re-run violated too: {again}")
+    watchdog.reset_streaks()
+    moved = max(float((kan.state_dict()[k] - v).abs().max()) for k, v in backup[0].items())
+    print(f"recovery: fp32 re-run clean (loss {float(loss):.6f}, parameters moved up to {moved:.3e} from "
+          f"the pre-step copy), supervisor {supervisor.summary()['counts']}, watchdog "
+          f"{ {k: watchdog.status()[k] for k in ('batches', 'violations', 'degraded')} }")
+    if not moved > 0.0:
+        fail("recovery: the fp32 re-run did not update the restored parameters")
+
+
+def time_health(T, n_gauges, field_shape, level, depth, out_map, clamp, label, smi, dev) -> float:
+    """The device cost of a train step's health reductions at its shapes:
+    the global stats over ``(T, G)`` runoff and ``(T, N)`` inflow, the
+    per-reach reductions over the full-domain field (clamped first where
+    ``clamp``, as the stacked router clamps its per-slot field for them),
+    the band fields and the worst reaches, in bf16. Inputs are random."""
+    import torch
+
+    from ddr_tpu_torch.geometry.trapezoidal import maximum
+    from ddr_tpu_torch.observability.health import (
+        compute_band_health,
+        compute_health,
+        compute_reach_stats,
+    )
+    from ddr_tpu_torch.routing.mc import band_ids
+
+    gen = torch.Generator(device=dev).manual_seed(43)
+    n = level.shape[0]
+    runoff = torch.rand(T, n_gauges, generator=gen, device=dev)
+    q = torch.rand(T, n, generator=gen, device=dev)
+    field = torch.rand(field_shape, generator=gen, device=dev)
+    ids, nb = band_ids(level, depth, HEALTH_BANDS)
+
+    def run():
+        compute_health(runoff, q, final_discharge=q[-1], compute_dtype="bf16")
+        reach = compute_reach_stats(maximum(field, 1e-4) if clamp else field, q, compute_dtype="bf16",
+                                    runoff_inv=out_map)
+        compute_band_health(reach, ids, nb, compute_dtype="bf16")
+
+    run()
+    ms = cuda_ms(run, 3)
+    print(f"timing health reductions, {label} (field {tuple(field_shape)}, inflow ({T}, {n}), "
+          f"{nb} bands): {ms:.3f} ms on {smi}")
+    del field, q
+    torch.cuda.empty_cache()
+    return ms
+
+
+def time_bf16_ring(cfg, kan, net, ch, attrs, smi, dev) -> dict:
+    """Phase 11: the bf16 kernel on the single ring at its main path's shape
+    (a train step: B 1, T 240) beside the fp32 kernel on the same input, in
+    turns (fp32, bf16, bf16, fp32), with its bound, its plain version and
+    its parity there; then both kernels at the serving shape for
+    comparison."""
+    import torch
+
+    from ddr_tpu_torch.routing.mc import Bounds, reach_physics
+    from ddr_tpu_torch.routing.model import denormalize_spatial_parameters
+    from ddr_tpu_torch.routing.wave_kernel import wave_scan, wave_scan_reference
+
+    p = cfg.params
+    out = {}
+    with torch.no_grad():
+        phys_params = denormalize_spatial_parameters(
+            kan(attrs), p.parameter_ranges, p.log_space_parameters, p.defaults, net.n)
+        phys = reach_physics(net, ch, phys_params, Bounds.from_config(p.attribute_minimums))
+        for shape, B, T in (("train", 1, TRAIN_DAYS * 24), ("serve", MAX_BATCH, HORIZON)):
+            qs, _ = scan_case(net, phys, B, T, 37, False, dev)
+
+            def run(dtype):
+                return wave_scan(qs, net, phys, None, T=T, compute_dtype=dtype)
+
+            for dtype in ("fp32", "bf16"):
+                run(dtype)
+            turns = [cuda_ms(lambda d=d: run(d), 10) for d in ("fp32", "bf16", "bf16", "fp32")]
+            ms16, ms32 = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+            print(f"timing wave_scan/bf16 vs fp32 at the {shape} shape (B {B}, W {T + net.depth}, "
+                  f"n {net.n}), in turns fp32/bf16/bf16/fp32: {' / '.join(f'{t:.3f}' for t in turns)} ms; "
+                  f"bf16 {ms16:.3f} ms = {100 * (ms16 / ms32 - 1):+.1f}% of fp32 on {smi}")
+            if shape != "train":
+                continue
+            ys = run("bf16")
+            ref = wave_scan_reference(qs, net, phys, None, T=T, compute_dtype="bf16")
+            out["err"] = compare_bf16(ref, ys, f"wave_scan/bf16 train shape (B {B}, T {T}, n {net.n})")
+            del ys, ref
+            out["plain_ms"] = cuda_ms(
+                lambda: wave_scan_reference(qs, net, phys, None, T=T, compute_dtype="bf16"), 1)
+            slots = int(net.wf_idx.numel())
+            n = net.n
+            bytes_ms = (4 * 2 * B * T * n + 4 * (3 * n + 3 * slots) + 4 * 6 * n) / HBM_BYTES_PER_S * 1e3
+            flops_ms = (B * (T - 1) * n * FLOPS_PER_PAIR + B * T * slots * FLOPS_PER_SLOT) / FP32_FLOP_PER_S * 1e3
+            out.update(ms=ms16, fp32_ms=ms32, bound=(bytes_ms, flops_ms))
+            print(f"timing wave_scan/bf16 (train shape): kernel {ms16:.3f} ms, plain {out['plain_ms']:.3f} ms, "
+                  f"bound {max(bytes_ms, flops_ms):.4f} ms (bytes {bytes_ms:.4f}, operations "
+                  f"{flops_ms:.4f}) on {smi}")
+    return out
+
+
+def time_bf16_bands(cfg, entry, kan, smi, dev) -> dict:
+    """Phase 12: the bf16 band kernel at its main path's shape (a train step:
+    B 1, T 240) on one band and on all ``n_chunks`` bands, beside the fp32
+    band kernel in turns, with the bound per band and summed, its plain
+    version on one band and its parity there."""
+    import torch
+
+    from ddr_tpu_torch.routing.mc import DT_SECONDS, Bounds
+    from ddr_tpu_torch.routing.model import denormalize_spatial_parameters
+    from ddr_tpu_torch.routing.stacked import band_physics, frame_operands
+    from ddr_tpu_torch.routing.wave_kernel import wave_scan, wave_scan_reference
+
+    p = cfg.params
+    net = entry.network
+    C = net.n_chunks
+    B, T = 1, TRAIN_DAYS * 24
+    with torch.no_grad():
+        phys_params = denormalize_spatial_parameters(
+            kan(entry.attrs), p.parameter_ranges, p.log_space_parameters, p.defaults, net.n)
+        ops_pad = frame_operands(entry.channels, phys_params, net.n, dev)
+        gidx = net.gidx.long()
+        bounds = Bounds.from_config(p.attribute_minimums)
+        phys = [band_physics(ops_pad, gidx[c], bounds, DT_SECONDS) for c in range(C)]
+        bands = [net.band(c) for c in range(C)]
+        qs, xe, se, _ = band_scan_case(bands[0], B, T, 41, False, dev)
+
+        def one(dtype, c=0):
+            return wave_scan(qs, bands[c], phys[c], None, T=T, xe=xe, se=se, mask_raw=True,
+                             compute_dtype=dtype)
+
+        def every_band(dtype):  # each output dropped at once, as the route drops its ys
+            for c in range(C):
+                one(dtype, c)
+
+        for dtype in ("fp32", "bf16"):
+            one(dtype)
+        turns = [cuda_ms(lambda d=d: one(d), 5) for d in ("fp32", "bf16", "bf16", "fp32")]
+        all_turns = [cuda_ms(lambda d=d: every_band(d), 2) for d in ("fp32", "bf16", "bf16", "fp32")]
+        ms16, ms32 = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+        all16, all32 = (all_turns[1] + all_turns[2]) / 2, (all_turns[0] + all_turns[3]) / 2
+        ys = one("bf16")
+        ref = wave_scan_reference(qs, bands[0], phys[0], None, T=T, xe=xe, se=se, mask_raw=True,
+                                  compute_dtype="bf16")
+        err = compare_bf16(ref, ys, f"wave_scan/band-bf16 train-shape band 0 (B {B}, T {T})")
+        del ys, ref
+        plain_ms = cuda_ms(lambda: wave_scan_reference(qs, bands[0], phys[0], None, T=T, xe=xe, se=se,
+                                                       mask_raw=True, compute_dtype="bf16"), 1)
+    fwd = [band_bounds(net, c, B, T)[0] for c in range(C)]
+    out = dict(ms=ms16, fp32_ms=ms32, all_ms=all16, all_fp32_ms=all32, plain_ms=plain_ms, bound=fwd[0],
+               all_bound_ms=sum(max(b) for b in fwd), err=err)
+    print(f"timing wave_scan/band-bf16 (B {B}, W {T + net.span_max}, n_cap {net.n_cap}), in turns "
+          f"fp32/bf16/bf16/fp32: one band {' / '.join(f'{t:.3f}' for t in turns)} ms, all {C} bands "
+          f"{' / '.join(f'{t:.3f}' for t in all_turns)} ms; bf16 one band {ms16:.3f} ms = "
+          f"{100 * (ms16 / ms32 - 1):+.1f}% of fp32; plain one band {plain_ms:.3f} ms; bound one band "
+          f"{max(fwd[0]):.4f} ms (bytes {fwd[0][0]:.4f}, operations {fwd[0][1]:.4f}), all bands "
+          f"{out['all_bound_ms']:.4f} ms on {smi}")
+    del qs, xe, se
+    torch.cuda.empty_cache()
+    return out
+
+def time_fp32_only() -> int:
+    """``python3 chip_smoke.py --time-fp32``: only the fp32 forward kernel's
+    times (CUDA events, 10 launches) at the serving shape (B 8, T 72), on
+    the regional single ring and on band 0 of the 3-band 65,536-reach,
+    depth-2048 frame, as one JSON line. It uses nothing that the port's
+    third slice did not have, so that two checkouts can be compared on one
+    card: copy this script into each and run them in turns (parent, change,
+    change, parent)."""
+    import torch
+
+    from ddr_tpu_torch.geodatazoo.synthetic import make_basin
+    from ddr_tpu_torch.routing import _build
+    from ddr_tpu_torch.routing.mc import DT_SECONDS, Bounds, reach_physics
+    from ddr_tpu_torch.routing.model import denormalize_spatial_parameters, prepare_batch
+    from ddr_tpu_torch.routing.stacked import band_physics, frame_operands
+    from ddr_tpu_torch.routing.wave_kernel import wave_scan
+    from ddr_tpu_torch.validation.configs import Config, KanConfig
+
+    dev = torch.device("cuda")
+    _build.build(_build.KERNELS)
+    cfg = Config(kan=KanConfig(input_var_names=[f"a{i}" for i in range(10)]))
+    p = cfg.params
+    bounds = Bounds.from_config(p.attribute_minimums)
+    kan = new_kan(cfg, dev)
+    out = {}
+    for label, depth in (("wave_scan", DEPTH), ("wave_scan/band", GRAD_DEPTH)):
+        rd = make_basin(n_segments=N_SEGMENTS, n_gauges=N_GAUGES, n_days=8, depth=depth, seed=0).routing_data
+        net, ch, _ = prepare_batch(rd, p.attribute_minimums["slope"], device=dev)
+        with torch.no_grad():
+            params = denormalize_spatial_parameters(
+                kan(torch.as_tensor(rd.normalized_spatial_attributes, device=dev)), p.parameter_ranges,
+                p.log_space_parameters, p.defaults, net.n)
+            if label == "wave_scan":
+                phys = reach_physics(net, ch, params, bounds)
+                qs, _ = scan_case(net, phys, MAX_BATCH, HORIZON, 13, False, dev)
+
+                def run():
+                    return wave_scan(qs, net, phys, None, T=HORIZON)
+            else:
+                band = net.band(0)
+                phys = band_physics(frame_operands(ch, params, net.n, dev), net.gidx[0].long(), bounds,
+                                    DT_SECONDS)
+                qs, xe, se, _ = band_scan_case(band, MAX_BATCH, HORIZON, 29, False, dev)
+
+                def run():
+                    return wave_scan(qs, band, phys, None, T=HORIZON, xe=xe, se=se, mask_raw=True)
+
+            for _ in range(2):
+                run()
+            out[label] = cuda_ms(run, 10)
+    print(nvidia_smi())
+    print(json.dumps(out))
+    return 0
+
+
 def nvidia_smi() -> str:
     """The card's name and power limit, as ``nvidia-smi`` reports them."""
     return subprocess.run(
@@ -692,6 +1137,8 @@ def main() -> int:
         print("chip_smoke: run from the root of a checkout (ddr_tpu_torch/ not beside the "
               "script)", file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--time-fp32"]:
+        return time_fp32_only()
     import numpy as np
 
     from ddr_tpu_torch import training
@@ -798,6 +1245,7 @@ def main() -> int:
         if launches < 1 or batches < 3 or launches != batches:
             fail(f"expected one wave_scan launch per batch (>= 3): {launches} launches, "
                  f"{batches} batches")
+        check_watchdog(svc, batches, "serve")
         per_batch = {}
         for a in answers:
             if a["runoff"].shape != (HORIZON, N_GAUGES) or not np.isfinite(a["runoff"]).all():
@@ -947,6 +1395,23 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ---- 10. bf16 parity on the small single ring and the small 3-band frame ----
+    bf16_ring_err, bf16_band_err = bf16_parity(net_s, phys_s, dev)
+
+    # ---- 11. bf16 on the regional basin, T = 240 h ----
+    kan_b = new_kan(cfg, dev)
+    bf16_against_fp32(cfg, kan_b, net_t, ch_t, gauges_t, batch[3], batch[4], f"regional (n {net_t.n})",
+                      True, dev)
+    regional16 = bf16_train(cfg, batch, 1, "regional", smi, dev)
+    time_health(T_train, gauges_t.n_gauges, (T_train, net_t.n), net_t.level, net_t.depth,
+                net_t.wf_inv.long(), False, "regional", smi, dev)
+    recovery_reroute(cfg, batch, dev)
+    ring16 = time_bf16_ring(cfg, kan_b, net_t, ch_t, batch[3], smi, dev)
+    bf16_ring_err = max(bf16_ring_err, ring16["err"])
+    del batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # ---- 6-9. the stacked band router ----
     band_wave_err, band_reverse_err = band_parity_small(dev)
     t0 = time.perf_counter()
@@ -957,13 +1422,29 @@ def main() -> int:
     served = serve_deep(cfg, deep, smi, dev)
     band_wave_err = max(band_wave_err, served["wave_err"])
     band_reverse_err = max(band_reverse_err, served["reverse_err"])
-    deep_launches = train_deep(cfg, deep, served["entry"], served["kan"], smi, dev)
+    deep_launches, deep_batch = train_deep(cfg, deep, served["entry"], served["kan"], smi, dev)
     gc.collect()
     torch.cuda.empty_cache()
+
+    # ---- 12. bf16 on the continental basin ----
+    net_d = served["entry"].network
+    bf16_against_fp32(cfg, served["kan"], net_d, served["entry"].channels, served["entry"].gauge_index,
+                      deep_batch[3], deep_batch[4], f"continental (n {net_d.n}, {net_d.n_chunks} bands)",
+                      False, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    deep16 = bf16_train(cfg, deep_batch, net_d.n_chunks, "continental", smi, dev)
+    del deep_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    time_health(TRAIN_DAYS * 24, N_GAUGES, (1, TRAIN_DAYS * 24, net_d.n_chunks * net_d.n_cap),
+                net_d.orig_level, net_d.depth, net_d.out_map.long(), True, "continental", smi, dev)
     stacked_gradients(cfg, dev)
     gc.collect()
     torch.cuda.empty_cache()
     band = time_bands(cfg, served["entry"], served["kan"], smi, dev)
+    band16 = time_bf16_bands(cfg, served["entry"], served["kan"], smi, dev)
+    bf16_band_err = max(bf16_band_err, band16["err"])
 
     def band_entry(name, source, replaces, launches, err, t):
         bytes_ms, flops_ms = t["bound"]
@@ -1007,6 +1488,23 @@ def main() -> int:
         band_entry("reverse_scan/band", "ddr_tpu_torch/csrc/reverse_scan.cu",
                    "ddr_tpu/routing/pallas_kernel.py:348",
                    deep_launches["reverse_scan"], band_reverse_err, band["reverse"]),
+        {
+            "name": "wave_scan/bf16",
+            "route": "cuda",
+            "source": "ddr_tpu_torch/csrc/wave_scan.cu",
+            "replaces": "ddr_tpu/routing/pallas_kernel.py:193",
+            "launches": regional16["launches"],
+            "max_abs_err": bf16_ring_err,
+            "ms": ring16["ms"],
+            "plain_ms": ring16["plain_ms"],
+            "bound_ms": max(ring16["bound"]),
+            "bound_by": "bytes" if ring16["bound"][0] >= ring16["bound"][1] else "operations",
+            "library_ms": None,
+            "fp32_ms_same_input": ring16["fp32_ms"],
+        },
+        {**band_entry("wave_scan/band-bf16", "ddr_tpu_torch/csrc/wave_scan.cu",
+                      "ddr_tpu/routing/pallas_kernel.py:193", deep16["launches"], bf16_band_err, band16),
+         "fp32_ms_same_input": band16["fp32_ms"], "fp32_ms_all_bands_same_input": band16["all_fp32_ms"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

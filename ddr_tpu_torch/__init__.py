@@ -13,7 +13,9 @@ wavefront engine with its hand-written CUDA wave-scan kernel,
 ``routing/wave_kernel.py`` + ``csrc/wave_scan.cu``, the KAN and a minimal
 ``ForecastService``), one train step (the analytic adjoint with its
 hand-written reverse-scan kernel, ``routing/reverse_kernel.py`` +
-``csrc/reverse_scan.cu``), and networks beyond the single-ring caps through
+``csrc/reverse_scan.cu``), networks beyond the single-ring caps through
 the stacked band router (``routing/stacked.py``), whose bands run both
-kernels.
+kernels, and bf16 routing (the forward kernel's bf16-ring instantiation)
+with the numerical-health stats, watchdog and recovery supervisor that gate
+it (``observability/``).
 """

@@ -1,17 +1,23 @@
 // The forward wavefront scan of Muskingum-Cunge routing, for Hopper (sm_90a).
 //
-// Replaces ddr_tpu/routing/pallas_kernel.py::fused_wave_scan with an fp32
-// ring and optional q_init, in two variants of one entry point:
+// Replaces ddr_tpu/routing/pallas_kernel.py::fused_wave_scan with optional
+// q_init, in the variants of one entry point:
 // * the single-ring engine: no external-inflow rows (xe = se = nullptr),
 //   mask_raw = 0;
 // * a band of the stacked band router (ddr_tpu/routing/stacked.py:409):
 //   external rows xe/se (pre-skewed (B, W, n), the raw and clamped inflow
 //   sums of predecessors in earlier bands) and mask_raw = 1 (the raw sum
-//   multiplies each slot by its mask, pallas_kernel.py:184-185).
-// With xe = se = nullptr and mask_raw = 0 every operation is the one the
-// single-ring kernel did before the band variant existed. Its plain version
-// is wave_scan_reference in ddr_tpu_torch/routing/wave_kernel.py, which also
-// documents the recurrence.
+//   multiplies each slot by its mask, pallas_kernel.py:184-185);
+// * either of them with the ring stored in fp32 (ring_bf16 = 0) or in
+//   bfloat16 (ring_bf16 = 1, compute_dtype="bf16", pallas_kernel.py:49-65):
+//   every ring load is upcast to fp32 before any arithmetic, x_pred, s_next
+//   and the carried s accumulate in fp32, and y is rounded once, to nearest
+//   even, at the ring store; ys carries that rounded value upcast.
+// The ring type is a template parameter: the fp32 instantiation runs the
+// same operations as before the bf16 one existed, and with xe = se =
+// nullptr and mask_raw = 0 the ones the single-ring kernel did before the
+// band variant. Its plain version is wave_scan_reference in
+// ddr_tpu_torch/routing/wave_kernel.py, which also documents the recurrence.
 //
 // What bounds it on the H100: bytes. The pre-skewed qs and ys are (B, W, n)
 // float32 with W = T + depth, but each reach is in its valid band for only T
@@ -32,9 +38,12 @@
 //   never one of them, and only the owning thread touches s[b][i] (the
 //   pair-to-thread mapping is the same every wave). A grid that cannot
 //   co-reside is refused by the launch, and the error is returned.
-// * The ring (B, R, n+1) lives in device memory; the wrapper zeroes it once.
-//   Column n is the always-zero sentinel that pad slots read and is never
-//   written. Ring loads bypass L1 (__ldcg): rows are rewritten by other SMs.
+// * The ring (B, R, n+1) lives in device memory; the wrapper zeroes it once
+//   (bf16 zero is the bit pattern 0x0000). Column n is the always-zero
+//   sentinel that pad slots read and is never written. Ring loads bypass L1
+//   (__ldcg): rows are rewritten by other SMs. __ldcg has no bf16 overload,
+//   so a bf16 slot is loaded as its unsigned short and reinterpreted. The
+//   bf16 ring halves only the ring's bytes, which stay in L2 anyway.
 // * The MC physics is hard-coded (trapezoidal velocity -> celerity ->
 //   Muskingum c1..c4), op for op as in the plain version; built without fast
 //   math and without FMA contraction.
@@ -47,6 +56,7 @@
 // in the barrier cost, ring locality and fusing the input/output skews.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace cg = cooperative_groups;
@@ -58,7 +68,7 @@ constexpr int kThreads = 256;
 struct WaveScanParams {
   const float* qs;        // (B, W, n) pre-skewed lateral inflow
   float* ys;              // (B, W, n) raw solve values, out
-  float* ring;            // (B, R, n + 1) scratch, zeroed by the caller
+  void* ring;             // (B, R, n + 1) float or bf16 scratch, zeroed by the caller
   float* s;               // (B, n) carried clamped inflow sum, zeroed by the caller
   const float* xe;        // (B, W, n) external raw inflow rows, or nullptr
   const float* se;        // (B, W, n) external clamped inflow rows, or nullptr
@@ -113,6 +123,22 @@ __device__ __forceinline__ void mc_coefficients(const WaveScanParams& p, int i, 
   c4 = 2.0f * p.dt / denom;
 }
 
+// Ring element access: a load through L2 only, upcast to fp32, and the one
+// rounding point of a store. The fp32 versions are the identity.
+__device__ __forceinline__ float ring_load(const float* a) { return __ldcg(a); }
+__device__ __forceinline__ float ring_load(const __nv_bfloat16* a) {
+  return __bfloat162float(__ushort_as_bfloat16(__ldcg(reinterpret_cast<const unsigned short*>(a))));
+}
+__device__ __forceinline__ void ring_round(float y, float& stored, float& upcast) {
+  stored = y;
+  upcast = y;
+}
+__device__ __forceinline__ void ring_round(float y, __nv_bfloat16& stored, float& upcast) {
+  stored = __float2bfloat16_rn(y);  // round to nearest even, as astype / .to(bfloat16)
+  upcast = __bfloat162float(stored);
+}
+
+template <typename RingT>
 __global__ void __launch_bounds__(kThreads) wave_scan_kernel(WaveScanParams p) {
   cg::grid_group grid = cg::this_grid();
   const long long pairs = static_cast<long long>(p.B) * p.n;
@@ -120,6 +146,7 @@ __global__ void __launch_bounds__(kThreads) wave_scan_kernel(WaveScanParams p) {
   const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const size_t row_len = static_cast<size_t>(p.n) + 1;
   const float lb = p.discharge_lb;
+  RingT* const ring = static_cast<RingT*>(p.ring);
 
   for (int w = 1; w <= p.W; ++w) {
     const int h1 = (w - 1) % p.R;  // row of wave w - 1's output
@@ -127,11 +154,12 @@ __global__ void __launch_bounds__(kThreads) wave_scan_kernel(WaveScanParams p) {
     for (long long idx = first; idx < pairs; idx += stride) {
       const int b = static_cast<int>(idx / p.n);
       const int i = static_cast<int>(idx - static_cast<long long>(b) * p.n);
-      float* ring_b = p.ring + static_cast<size_t>(b) * p.R * row_len;
+      RingT* ring_b = ring + static_cast<size_t>(b) * p.R * row_len;
       const size_t out = (static_cast<size_t>(b) * p.W + (w - 1)) * p.n + i;
       const int t = w - 1 - p.lvl[i];
       if (t < 0 || t >= p.T) {
-        ring_b[h * row_len + i] = 0.0f;
+        float zero_up;
+        ring_round(0.0f, ring_b[h * row_len + i], zero_up);
         p.ys[out] = 0.0f;
         continue;
       }
@@ -141,7 +169,7 @@ __global__ void __launch_bounds__(kThreads) wave_scan_kernel(WaveScanParams p) {
       for (int k = k0; k < k1; ++k) {
         int rot = h1 - p.wf_row[k];
         if (rot < 0) rot += p.R;
-        const float v = __ldcg(ring_b + rot * row_len + p.wf_col[k]);
+        const float v = ring_load(ring_b + rot * row_len + p.wf_col[k]);
         if (p.mask_raw) {
           x_pred += v * p.wf_mask[k];
         } else {
@@ -156,7 +184,7 @@ __global__ void __launch_bounds__(kThreads) wave_scan_kernel(WaveScanParams p) {
         y = p.q_init != nullptr ? max_nan(p.q_init[static_cast<size_t>(b) * p.n + i], lb)
                                 : q_row + 1.0f * x_pred;
       } else {
-        const float q_prev = max_nan(__ldcg(ring_b + h1 * row_len + i), lb);
+        const float q_prev = max_nan(ring_load(ring_b + h1 * row_len + i), lb);
         float c1, c2, c3, c4;
         mc_coefficients(p, i, q_prev, c1, c2, c3, c4);
         const float s_prev = p.s[static_cast<size_t>(b) * p.n + i];
@@ -164,12 +192,40 @@ __global__ void __launch_bounds__(kThreads) wave_scan_kernel(WaveScanParams p) {
         const float b_step = c2 * s_in + c3 * q_prev + c4 * max_nan(q_row, lb);
         y = b_step + c1 * x_pred;
       }
-      ring_b[h * row_len + i] = y;
-      p.ys[out] = y;
+      float y_up;
+      ring_round(y, ring_b[h * row_len + i], y_up);
+      p.ys[out] = y_up;
       p.s[static_cast<size_t>(b) * p.n + i] = s_next;
     }
     grid.sync();
   }
+}
+
+// One cooperative launch of the RingT instantiation, its grid sized to
+// co-residency.
+template <typename RingT>
+cudaError_t launch(WaveScanParams p, int device, cudaStream_t stream) {
+  cudaError_t err;
+  int coop = 0, sms = 0, per_sm = 0;
+  if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device)) != cudaSuccess)
+    return err;
+  if (!coop) return cudaErrorNotSupported;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, wave_scan_kernel<RingT>,
+                                                           kThreads, 0)) != cudaSuccess)
+    return err;
+  const long long pairs = static_cast<long long>(p.B) * p.n;
+  long long blocks = (pairs + kThreads - 1) / kThreads;
+  const long long resident = static_cast<long long>(per_sm) * sms;
+  if (blocks > resident) blocks = resident;
+  if (blocks < 1) blocks = 1;
+  void* args[] = {&p};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(wave_scan_kernel<RingT>),
+                                    dim3(static_cast<unsigned>(blocks)), dim3(kThreads), args, 0,
+                                    stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -177,44 +233,28 @@ __global__ void __launch_bounds__(kThreads) wave_scan_kernel(WaveScanParams p) {
 extern "C" {
 
 // Launches the scan on `stream` and returns the launch's cudaError_t (0 on
-// success). Does not synchronise; faults during the run surface at the
-// caller's next synchronisation.
-int ddr_wave_scan(const float* qs, float* ys, float* ring, float* s, const float* xe,
+// success). `ring` holds float (ring_bf16 = 0) or __nv_bfloat16 (ring_bf16 =
+// 1) elements; any other ring_bf16 is refused. Does not synchronise; faults
+// during the run surface at the caller's next synchronisation.
+int ddr_wave_scan(const float* qs, float* ys, void* ring, float* s, const float* xe,
                   const float* se, const int* lvl, const int* slot, const int* width, const int* wf_row, const int* wf_col,
                   const float* wf_mask, const float* q_init, const float* n_mann,
                   const float* p_spatial, const float* q_spatial, const float* slope,
                   const float* length, const float* x_storage, float depth_lb,
                   float bottom_width_lb, float velocity_lb, float discharge_lb, float dt, int B,
-                  int T, int n, int W, int R, int mask_raw, int device, void* stream) {
+                  int T, int n, int W, int R, int mask_raw, int ring_bf16, int device,
+                  void* stream) {
+  if (ring_bf16 != 0 && ring_bf16 != 1) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  int coop = 0, sms = 0, per_sm = 0;
-  if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device)) != cudaSuccess)
-    return err;
-  if (!coop) return cudaErrorNotSupported;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
-    return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, wave_scan_kernel, kThreads,
-                                                           0)) != cudaSuccess)
-    return err;
-  const long long pairs = static_cast<long long>(B) * n;
-  long long blocks = (pairs + kThreads - 1) / kThreads;
-  const long long resident = static_cast<long long>(per_sm) * sms;
-  if (blocks > resident) blocks = resident;
-  if (blocks < 1) blocks = 1;
-
   WaveScanParams p{qs,        ys,          ring,       s,      xe,           se,
                    lvl,       slot,        width,      wf_row, wf_col,       wf_mask,
                    q_init,    n_mann,      p_spatial,  q_spatial, slope,     length,
                    x_storage, depth_lb,    bottom_width_lb, velocity_lb, discharge_lb,
                    dt,        B,           T,          n,      W,            R,
                    mask_raw};
-  void* args[] = {&p};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(wave_scan_kernel),
-                                    dim3(static_cast<unsigned>(blocks)), dim3(kThreads), args, 0,
-                                    static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return ring_bf16 ? launch<__nv_bfloat16>(p, device, st) : launch<float>(p, device, st);
 }
 
 const char* ddr_cuda_error_string(int err) {

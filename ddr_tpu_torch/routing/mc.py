@@ -9,7 +9,10 @@ on the time-skewed wavefront schedule, differentiated by its analytic
 reverse-wavefront adjoint: the single-ring engine
 (:mod:`ddr_tpu_torch.routing.wavefront`) where its caps fit, the stacked band
 router (:mod:`ddr_tpu_torch.routing.stacked`) for deeper or wider networks
-(:func:`~ddr_tpu_torch.routing.chunked.build_routing_network` picks).
+(:func:`~ddr_tpu_torch.routing.chunked.build_routing_network` picks). Either
+runs with its history ring in fp32 or bf16 (``dtype``), and can return the
+numerical-health stats of the result
+(:mod:`ddr_tpu_torch.observability.health`).
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ __all__ = [
     "ChannelState",
     "GaugeIndex",
     "RouteResult",
+    "band_ids",
     "celerity",
     "denormalize",
     "muskingum_coefficients",
@@ -38,6 +42,16 @@ __all__ = [
 ]
 
 DT_SECONDS = 3600.0  # hourly routing step
+
+
+def band_ids(level: torch.Tensor, depth: int, n_bands: int) -> tuple[torch.Tensor, int]:
+    """Level-band id per node for the spatial health attribution: the
+    longest-path levels ``[0, depth]`` split into ``min(n_bands, depth + 1)``
+    equal-width bands, the one band definition every engine shares. Returns
+    ``(ids (N,) int32, effective band count)``."""
+    nb = max(1, min(int(n_bands), int(depth) + 1))
+    ids = torch.clamp_max((level.to(torch.int32) * nb) // (int(depth) + 1), nb - 1)
+    return ids.to(torch.int32), nb
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,10 +126,16 @@ class GaugeIndex:
 @dataclasses.dataclass(frozen=True)
 class RouteResult:
     """``runoff``: ``(..., T, G)`` gauge-aggregated or ``(..., T, N)``
-    full-domain discharge; ``final_discharge``: ``(..., N)`` carry state."""
+    full-domain discharge; ``final_discharge``: ``(..., N)`` carry state;
+    ``health``: the :class:`~ddr_tpu_torch.observability.health.HealthStats`
+    of the result when asked for; ``reach_stats``: the engines' per-reach
+    intermediate of the spatial attribution, which :func:`route` collapses
+    into ``health`` and drops."""
 
     runoff: torch.Tensor
     final_discharge: torch.Tensor
+    health: object = None
+    reach_stats: object = None
 
 
 def denormalize(
@@ -225,6 +245,10 @@ def route(
     kernel: str | None = None,
     device: str | torch.device = "cuda",
     adjoint: str = "analytic",
+    dtype: str = "fp32",
+    collect_health: bool = False,
+    health_bands: int = 0,
+    health_topk: int = 8,
 ) -> RouteResult:
     """Route lateral inflows through the network over a full time window.
 
@@ -253,9 +277,23 @@ def route(
     carries transposed tables, and the only one ported: ``"ad"``, autograd
     through the forward scan, raises).
 
+    ``dtype="bf16"`` stores the forward scans' history ring in bfloat16
+    (bf16-compute / fp32-accumulate: one rounding point a wave, at the ring
+    store; every sum and the backward in fp32). An unknown dtype raises.
+
+    ``collect_health=True`` adds ``RouteResult.health``: non-finite counts,
+    discharge extrema and the mass residual over ``runoff``, ``q_prime`` and
+    the final discharge, with the bf16 ``overflow``/``ulp_drift`` counters
+    under ``dtype="bf16"``. ``health_bands > 0`` adds the per-level-band
+    reductions and the top-``health_topk`` worst reaches (original order),
+    from per-reach reductions over the full-domain solve (time, and the
+    batch where there is one). The stats are device tensors: reading them
+    is the caller's synchronisation.
+
     Inputs must lie on ``device`` (default ``"cuda"``; raises without a card).
     """
     from ddr_tpu_torch.routing.stacked import StackedChunked, route_stacked
+    from ddr_tpu_torch.routing.wave_kernel import validate_dtype
     from ddr_tpu_torch.routing.wavefront import wavefront_route_core
 
     if adjoint == "ad":
@@ -265,6 +303,7 @@ def route(
         )
     if adjoint != "analytic":
         raise ValueError(f"unknown adjoint {adjoint!r} (use 'analytic')")
+    validate_dtype(dtype)
     dev = resolve_device(device)
     stacked = isinstance(network, StackedChunked)
     if not stacked and not network.single_ring:
@@ -282,20 +321,45 @@ def route(
     for t in tensors:
         if torch.is_tensor(t) and t.device.type != dev.type:
             raise ValueError(f"route on {dev} got a tensor on {t.device}")
+    level = network.orig_level if stacked else network.level
+    # networks with an empty level field (no reaches) have no band health
+    want_spatial = collect_health and health_bands > 0 and int(level.shape[0]) == network.n
+
+    def finish(result: RouteResult) -> RouteResult:
+        if not collect_health:
+            return result
+        from ddr_tpu_torch.observability.health import compute_band_health, compute_health
+
+        health = compute_health(result.runoff, q_prime, final_discharge=result.final_discharge,
+                                compute_dtype=dtype)
+        if result.reach_stats is not None:
+            ids, nb = band_ids(level, network.depth, health_bands)
+            health = dataclasses.replace(health, **compute_band_health(
+                result.reach_stats, ids, nb, top_k=health_topk, compute_dtype=dtype))
+        return dataclasses.replace(result, health=health, reach_stats=None)
+
     if stacked:
-        return route_stacked(network, channels, spatial_params, q_prime, q_init=q_init,
-                             gauges=gauges, bounds=bounds, dt=dt, kernel=kernel)
+        return finish(route_stacked(network, channels, spatial_params, q_prime, q_init=q_init,
+                                    gauges=gauges, bounds=bounds, dt=dt, kernel=kernel, dtype=dtype,
+                                    collect_reach_stats=want_spatial))
 
     perm = network.wf_perm.long()
     inv = network.wf_inv.long()
     physics = reach_physics(network, channels, spatial_params, bounds, dt)
     q_init_p = None if q_init is None else q_init[..., perm]
     runoff_p, final_p, _ = wavefront_route_core(
-        network, physics, q_prime, q_init_p, kernel=kernel
+        network, physics, q_prime, q_init_p, kernel=kernel, dtype=dtype
     )
+    reach = None
+    if want_spatial:
+        from ddr_tpu_torch.observability.health import compute_reach_stats
+
+        # runoff_p is the full-domain clamped solve in wf order; one gather
+        # each puts the reductions back on the original axis
+        reach = compute_reach_stats(runoff_p, q_prime, compute_dtype=dtype, runoff_inv=inv)
     if gauges is not None:
         gauges_p = dataclasses.replace(gauges, flat_idx=inv[gauges.flat_idx])
         runoff = gauges_p.aggregate(runoff_p)
     else:
         runoff = runoff_p[..., inv]
-    return RouteResult(runoff=runoff, final_discharge=final_p[..., inv])
+    return finish(RouteResult(runoff=runoff, final_discharge=final_p[..., inv], reach_stats=reach))

@@ -449,12 +449,19 @@ def route_stacked(
     bounds=None,
     dt: float = 3600.0,
     kernel: str | None = None,
+    dtype: str = "fp32",
+    collect_reach_stats: bool = False,
 ):
     """Route ``(T, N)`` or ``(B, T, N)`` inflows band by band; the contract
     of :func:`~ddr_tpu_torch.routing.mc.route`, all inputs and outputs in
     original node order. ``kernel`` as there: ``None`` runs the hand-written
     scans (their plain versions on the CPU), ``"reference"`` the plain
-    versions on any device.
+    versions on any device. ``dtype="bf16"`` runs every band's forward scan
+    on a bfloat16 ring, so the series a band publishes are the rounded raw
+    values. ``collect_reach_stats=True`` adds the original-order
+    :class:`~ddr_tpu_torch.observability.health.ReachStats` of the clamped
+    per-slot solve as ``RouteResult.reach_stats`` (sentinel slots drop out
+    of the ``out_map`` gather).
 
     Per band: the band's slots gather the per-reach operands, inflows and
     ``q_init`` (sentinel slots take length 1, slope 1, ``x`` 0, n/p/q 1 and
@@ -464,11 +471,12 @@ def route_stacked(
     runs the band; the band publishes its boundary sources' raw series.
     """
     from ddr_tpu_torch.routing.mc import Bounds, RouteResult
-    from ddr_tpu_torch.routing.wave_kernel import reach_operands
+    from ddr_tpu_torch.routing.wave_kernel import reach_operands, validate_dtype
     from ddr_tpu_torch.routing.wavefront import AnalyticRoute
 
     if kernel not in (None, "reference"):
         raise ValueError(f"unknown kernel {kernel!r} (use None or 'reference')")
+    validate_dtype(dtype)
     if bounds is None:
         bounds = Bounds()
     single = q_prime.dim() == 2
@@ -501,7 +509,7 @@ def route_stacked(
             x_ext, s_ext = x_ext[..., :n_cap], s_ext[..., :n_cap]
         raw = AnalyticRoute.apply(
             qp_c, qi_c, x_ext, s_ext, *reach_operands(physics), network.band(c), physics, kernel,
-            True,
+            True, dtype,
         )
         with record_function("ddr::band_publish"):
             # Pad slots all copy the always-zero pad column n_cap into the
@@ -516,6 +524,12 @@ def route_stacked(
     flat = torch.cat(raws, dim=-1)  # (B, T, C * n_cap), column c * n_cap + slot
     del raws
     out_map = network.out_map.long()
+    reach = None
+    if collect_reach_stats:
+        from ddr_tpu_torch.observability.health import compute_reach_stats
+
+        reach = compute_reach_stats(maximum(flat.detach(), lb), qp, compute_dtype=dtype,
+                                    runoff_inv=out_map)
     final = maximum(flat[:, -1].index_select(1, out_map), lb)
     if gauges is not None:
         # GaugeIndex.aggregate through out_map, clamping only the columns
@@ -526,4 +540,4 @@ def route_stacked(
         runoff = maximum(flat.index_select(2, out_map), lb)
     if single:
         runoff, final = runoff[0], final[0]
-    return RouteResult(runoff=runoff, final_discharge=final)
+    return RouteResult(runoff=runoff, final_discharge=final, reach_stats=reach)

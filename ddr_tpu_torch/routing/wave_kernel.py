@@ -1,9 +1,14 @@
 """The forward wave scan: a hand-written CUDA kernel and its plain version.
 
 Counterpart of ``ddr_tpu/routing/pallas_kernel.py``'s ``fused_wave_scan``
-with an fp32 ring, in its two fp32 uses: the single-ring engine (no external
-rows, ``mask_raw=False``) and a band of the stacked band router (external
-rows ``xe``/``se``, ``mask_raw=True``). Per wave ``w = 1..W`` every reach
+in its two uses: the single-ring engine (no external rows,
+``mask_raw=False``) and a band of the stacked band router (external rows
+``xe``/``se``, ``mask_raw=True``), each with the history ring stored in
+fp32 or, under ``compute_dtype="bf16"``, in bfloat16 (bf16-compute /
+fp32-accumulate, ``pallas_kernel.py:49-65``: every ring read is upcast
+before any arithmetic, every sum and the carried ``s`` stay fp32, and each
+wave's ``y`` is rounded once, at the ring store; ``ys`` carries the rounded
+values upcast). Per wave ``w = 1..W`` every reach
 ``i`` (wf or band-slot order) advances its in-flight timestep ``t = w - 1 -
 level[i]``:
 
@@ -35,16 +40,33 @@ from ddr_tpu_torch.routing.mc import Bounds, ChannelState, celerity, muskingum_c
 from ddr_tpu_torch.routing.network import RiverNetwork
 
 __all__ = [
+    "DTYPES",
     "ReachPhysics",
     "check_ring_table",
     "physics_coefficients",
     "physics_derivatives",
     "physics_pullback",
     "reduce_gathered",
+    "ring_dtype",
     "table_owner",
+    "validate_dtype",
     "wave_scan",
     "wave_scan_reference",
 ]
+
+#: The compute-dtype axis: the ring's storage type (every sum is fp32).
+DTYPES = ("fp32", "bf16")
+
+
+def validate_dtype(dtype: str) -> str:
+    if dtype not in DTYPES:
+        raise ValueError(f"unknown routing dtype {dtype!r} (use 'fp32' or 'bf16')")
+    return dtype
+
+
+def ring_dtype(compute_dtype: str, acc_dtype: torch.dtype = torch.float32) -> torch.dtype:
+    """Storage dtype of the history ring for a routing compute dtype."""
+    return torch.bfloat16 if validate_dtype(compute_dtype) == "bf16" else acc_dtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,12 +169,17 @@ def wave_scan_reference(
     xe: torch.Tensor | None = None,
     se: torch.Tensor | None = None,
     mask_raw: bool = False,
+    compute_dtype: str = "fp32",
 ) -> torch.Tensor:
     """The plain PyTorch wave scan: a Python loop over waves, vectorized
     over ``(B, n)``. ``qs`` is the pre-skewed ``(B, W, n)`` inflow, ``q_init``
     ``(B, n)`` or None, ``xe``/``se`` the pre-skewed ``(B, W, n)`` external
     inflow rows or None; returns the raw per-wave solve values ``(B, W,
-    n)``. ``network`` is a RiverNetwork or a band of a stacked frame."""
+    n)``. ``network`` is a RiverNetwork or a band of a stacked frame.
+    ``compute_dtype="bf16"`` stores the ring in bfloat16: ``.float()`` on
+    every ring read, one ``.to(torch.bfloat16)`` at the store, and ``ys``
+    set to the rounded value upcast (for fp32 both are no-ops)."""
+    ring_dt = ring_dtype(compute_dtype, qs.dtype)
     B, W, n = qs.shape
     R = network.wf_ring_rows
     row_len = n + 1
@@ -164,17 +191,17 @@ def wave_scan_reference(
     mask = network.wf_mask
     lvl = network.level_p.long()
 
-    ring = qs.new_zeros(B, R * row_len)
+    ring = qs.new_zeros(B, R * row_len, dtype=ring_dt)
     s_state = qs.new_zeros(B, n)
     ys = qs.new_empty(B, W, n)
     for w in range(1, W + 1):
         t_node = w - 1 - lvl
         h1 = (w - 1) % R
-        q_prev = maximum(ring[:, h1 * row_len : h1 * row_len + n], lb)
+        q_prev = maximum(ring[:, h1 * row_len : h1 * row_len + n].float(), lb)
         c1, c2, c3, c4 = physics_coefficients(q_prev, phys)
         rot = h1 - wf_row
         rot = torch.where(rot < 0, rot + R, rot)
-        gathered = ring[:, rot * row_len + wf_col]
+        gathered = ring[:, rot * row_len + wf_col].float()  # fp32 before any sum
         x_pred = reduce_gathered(gathered, mask, buckets, n_deg0, lb, False, mask_raw)
         s_next = reduce_gathered(gathered, mask, buckets, n_deg0, lb, True, mask_raw)
         if xe is not None:
@@ -192,8 +219,9 @@ def wave_scan_reference(
         ok = (t_node >= 0) & (t_node <= T - 1)
         y = torch.where(ok, y, torch.zeros_like(y))
         h = w % R
-        ring[:, h * row_len : h * row_len + n] = y  # column n stays the zero sentinel
-        ys[:, w - 1] = y
+        y_store = y.to(ring_dt)  # the one rounding point
+        ring[:, h * row_len : h * row_len + n] = y_store  # column n stays the zero sentinel
+        ys[:, w - 1] = y_store.float()
         s_state = s_next
     return ys
 
@@ -238,7 +266,7 @@ _ARGTYPES = (
     + [ctypes.c_void_p]  # q_init (NULL = hotstart)
     + [ctypes.c_void_p] * 6  # n, p, q, slope, length, x_storage
     + [ctypes.c_float] * 5  # depth_lb, bottom_width_lb, velocity_lb, discharge_lb, dt
-    + [ctypes.c_int] * 7  # B, T, n, W, R, mask_raw, device
+    + [ctypes.c_int] * 8  # B, T, n, W, R, mask_raw, ring_bf16, device
     + [ctypes.c_void_p]  # stream
 )
 
@@ -266,20 +294,25 @@ def wave_scan(
     xe: torch.Tensor | None = None,
     se: torch.Tensor | None = None,
     mask_raw: bool = False,
+    compute_dtype: str = "fp32",
 ) -> torch.Tensor:
     """The forward wave scan ``(B, W, n) -> (B, W, n)``: the CUDA kernel for
     CUDA tensors, :func:`wave_scan_reference` for CPU tensors. ``network``
     is a RiverNetwork or a band of a stacked frame
     (:meth:`~ddr_tpu_torch.routing.stacked.StackedChunked.band`).
+    ``compute_dtype`` is the ring's storage (``"fp32"`` or ``"bf16"``); the
+    inputs and ``ys`` are float32 either way.
 
     Per-reach operands are shared by the batch. Raises on anything the
     kernel does not take (other dtypes, shapes or devices, non-contiguous
-    inputs, out-of-range tables, one of ``xe``/``se`` without the other);
-    never falls back."""
+    inputs, out-of-range tables, one of ``xe``/``se`` without the other, an
+    unknown compute dtype); never falls back."""
+    ring_dt = ring_dtype(compute_dtype)
     if (xe is None) != (se is None):
         raise ValueError("pass both external rows xe and se, or neither")
     if qs.device.type == "cpu":
-        return wave_scan_reference(qs, network, phys, q_init, T=T, xe=xe, se=se, mask_raw=mask_raw)
+        return wave_scan_reference(qs, network, phys, q_init, T=T, xe=xe, se=se, mask_raw=mask_raw,
+                                   compute_dtype=compute_dtype)
     if qs.device.type != "cuda":
         raise ValueError(f"wave_scan takes CPU or CUDA tensors, got {qs.device}")
     if qs.dtype != torch.float32 or qs.dim() != 3:
@@ -315,7 +348,7 @@ def wave_scan(
 
     lib = _load_library()
     ys = torch.empty_like(qs)
-    ring = torch.zeros(B, R, n + 1, dtype=torch.float32, device=dev)
+    ring = torch.zeros(B, R, n + 1, dtype=ring_dt, device=dev)
     s_state = torch.zeros(B, n, dtype=torch.float32, device=dev)
     b = phys.bounds
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -326,7 +359,7 @@ def wave_scan(
         None if q_init is None else q_init.data_ptr(),
         *(t.data_ptr() for t in per_reach),
         b.depth, b.bottom_width, b.velocity, b.discharge, phys.dt,
-        B, T, n, W, R, int(bool(mask_raw)),
+        B, T, n, W, R, int(bool(mask_raw)), int(ring_dt == torch.bfloat16),
         dev.index if dev.index is not None else torch.cuda.current_device(),
         stream,
     )

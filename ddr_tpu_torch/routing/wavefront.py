@@ -46,6 +46,7 @@ from ddr_tpu_torch.routing.wave_kernel import (
     physics_pullback,
     reach_operands,
     reduce_gathered,
+    validate_dtype,
     wave_scan,
     wave_scan_reference,
     with_operands,
@@ -122,7 +123,7 @@ class AnalyticRoute(torch.autograd.Function):
     order, pre-clamp) with the analytic reverse-wavefront adjoint.
 
     ``apply(qp_p, q_init, x_ext, s_ext, n, p_spatial, q_spatial, slope,
-    length, x_storage, network, physics, kernel, mask_raw)``: the tensors are
+    length, x_storage, network, physics, kernel, mask_raw, dtype)``: the tensors are
     the differentiable inputs (``q_init`` ``(B, n)`` or None; ``x_ext`` and
     ``s_ext`` ``(B, T, n)`` external inflow series, the raw same-timestep and
     the clamped previous-timestep sums of predecessors outside the table, or
@@ -131,15 +132,19 @@ class AnalyticRoute(torch.autograd.Function):
     stacked frame (:class:`~ddr_tpu_torch.routing.stacked.BandTables`);
     ``physics`` supplies the bounds and the timestep; ``mask_raw`` masks the
     raw predecessor sums, as the band frame does. The forward runs
-    :func:`~ddr_tpu_torch.routing.wave_kernel.wave_scan` and saves only
-    ``raw`` besides the inputs; the backward runs
-    :func:`~ddr_tpu_torch.routing.reverse_kernel.reverse_scan`.
+    :func:`~ddr_tpu_torch.routing.wave_kernel.wave_scan` with its ring in
+    ``dtype`` (``"fp32"`` or ``"bf16"``) and saves only ``raw`` besides the
+    inputs: under bf16 that is the rounded series upcast, what the ring
+    held. The backward runs
+    :func:`~ddr_tpu_torch.routing.reverse_kernel.reverse_scan`, always in
+    fp32 over that residual, as the JAX backward does
+    (``ddr_tpu/routing/wavefront.py:183-190, 594-597``).
     ``kernel="reference"`` runs both scans' plain versions on any device.
     """
 
     @staticmethod
     def forward(ctx, qp_p, q_init, x_ext, s_ext, n_mann, p_spatial, q_spatial, slope, length,
-                x_storage, network, physics: ReachPhysics, kernel, mask_raw: bool):
+                x_storage, network, physics: ReachPhysics, kernel, mask_raw: bool, dtype: str):
         ops = (n_mann, p_spatial, q_spatial, slope, length, x_storage)
         phys = with_operands(physics, ops)
         _, T, _ = qp_p.shape
@@ -150,7 +155,8 @@ class AnalyticRoute(torch.autograd.Function):
             xe, se = _ext_skews(x_ext, s_ext, level_p, network.depth, T)
         scan = wave_scan_reference if kernel == "reference" else wave_scan
         with record_function("ddr::forward_scan"):
-            ys = scan(qs, network, phys, q_init, T=T, xe=xe, se=se, mask_raw=mask_raw)
+            ys = scan(qs, network, phys, q_init, T=T, xe=xe, se=se, mask_raw=mask_raw,
+                      compute_dtype=dtype)
         del qs, xe, se
         # x_t[i] was emitted at wave t + L(i) + 1, i.e. ys row t + L(i)
         raw = _skew_by_level_runs(ys, level_p, T)
@@ -268,7 +274,7 @@ class AnalyticRoute(torch.autograd.Function):
                 x_ext_bar = zc * lam_all  # row 0: the hotstart row's x_ext term
             if has_ext and ctx.needs_input_grad[3]:
                 s_ext_bar = uc * lam_all
-        return (qp_bar, q_init_bar, x_ext_bar, s_ext_bar, *theta_bar, None, None, None, None)
+        return (qp_bar, q_init_bar, x_ext_bar, s_ext_bar, *theta_bar, None, None, None, None, None)
 
 
 def wavefront_route_core(
@@ -277,6 +283,7 @@ def wavefront_route_core(
     q_prime: torch.Tensor,
     q_init: torch.Tensor | None,
     kernel: str | None = None,
+    dtype: str = "fp32",
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Route timesteps ``0..T-1`` by wavefront, entirely in ``wf_perm`` order.
 
@@ -290,9 +297,12 @@ def wavefront_route_core(
 
     ``kernel=None`` runs :func:`wave_scan` forward and :func:`reverse_scan`
     backward; ``"reference"`` runs their plain versions on any device.
+    ``dtype="bf16"`` stores the forward's ring in bfloat16 (bf16-compute /
+    fp32-accumulate); ``raw`` is then the rounded series upcast.
     """
     if kernel not in (None, "reference"):
         raise ValueError(f"unknown kernel {kernel!r} (use None or 'reference')")
+    validate_dtype(dtype)
     single = q_prime.dim() == 2
     qp = q_prime[None] if single else q_prime
     B, _, n = qp.shape
@@ -300,7 +310,7 @@ def wavefront_route_core(
     if q_init is not None:
         q_init = q_init.float().expand(B, n).contiguous()
     raw = AnalyticRoute.apply(qp_p, q_init, None, None, *reach_operands(physics), network, physics,
-                              kernel, False)
+                              kernel, False, dtype)
     runoff = maximum(raw, physics.bounds.discharge)
     final = runoff[:, -1]
     if single:

@@ -13,9 +13,18 @@ kernel, once for a single-ring network and once a band for a deep one (the
 stacked band router); the only synchronisation is the copy of a batch's
 answers back to the host, where they go to clients.
 
-Not in this slice: the health watchdog, SLO tracking, the performance
-sentinel, the verification ledger, ensembles, the HTTP front, mesh mode,
-checkpoint watching and program cards.
+The numerical-health watchdog is on by default (``HealthConfig.from_env()``,
+``DDR_HEALTH_ENABLED=0`` turns it off), as in the JAX service: every batch
+but the warmup's computes its health stats on the device over the live
+rows (pad rows masked out) of the runoff and of the request inflow before
+flow scaling, plus the worst output columns when ``top_k > 0``, and the
+watchdog thresholds them after the batch's copy to the host.
+:meth:`ForecastService.status` and :attr:`ForecastService.degraded` report
+it. Serving routes in fp32: the JAX service has no dtype axis.
+
+Not in this slice: SLO tracking, the performance sentinel, the
+verification ledger, ensembles, the HTTP front, mesh mode, checkpoint
+watching and program cards.
 """
 
 from __future__ import annotations
@@ -32,6 +41,12 @@ import numpy as np
 import torch
 
 from ddr_tpu_torch.device import resolve_device
+from ddr_tpu_torch.observability.health import (
+    HealthConfig,
+    HealthWatchdog,
+    compute_health,
+    compute_output_worst,
+)
 from ddr_tpu_torch.routing.mc import Bounds, ChannelState, GaugeIndex, route
 from ddr_tpu_torch.routing.model import denormalize_spatial_parameters, engine_label, prepare_batch
 from ddr_tpu_torch.routing.network import RiverNetwork
@@ -82,10 +97,13 @@ class ForecastService:
         cfg: Any,
         serve_cfg: ServeConfig | None = None,
         device: str | torch.device = "cuda",
+        health_cfg: HealthConfig | None = None,
     ) -> None:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.serve_cfg = serve_cfg or ServeConfig()
+        self.health_cfg = health_cfg or HealthConfig.from_env()
+        self.watchdog = HealthWatchdog(self.health_cfg)
         self.bounds = Bounds.from_config(cfg.params.attribute_minimums)
         self._networks: dict[str, NetworkEntry] = {}
         self._models: dict[str, torch.nn.Module] = {}
@@ -175,7 +193,7 @@ class ForecastService:
         for net, name in pairs:
             t0 = time.perf_counter()
             zeros = np.zeros((self.serve_cfg.max_batch, net.horizon, net.n_segments), np.float32)
-            self._run_batch(net, self._models[name], zeros)
+            self._run_batch(net, name, zeros, warmup=True)
             log.info(f"warmed ({net.name}, {name}) in {time.perf_counter() - t0:.2f}s")
         with self._lock:
             self._ready = True
@@ -248,12 +266,18 @@ class ForecastService:
     # ---- execution (batcher worker thread) ----
 
     def _run_batch(
-        self, net: NetworkEntry, kan: torch.nn.Module, qp: np.ndarray
+        self, net: NetworkEntry, model: str, qp: np.ndarray,
+        n_live: int | None = None, warmup: bool = False,
     ) -> tuple[np.ndarray, float | None]:
-        """Route one padded ``(max_batch, horizon, N)`` batch; returns the host
+        """Route one padded ``(max_batch, horizon, N)`` batch through the
+        registered model ``model``, its first ``n_live`` rows carrying
+        requests (default all); returns the host
         ``(max_batch, horizon, n_outputs)`` runoff and, on a card, the batch's
-        device milliseconds (CUDA events from upload to the last kernel)."""
+        device milliseconds (CUDA events from upload to the last kernel,
+        health stats included). Every batch but a warmup's feeds the health
+        watchdog."""
         p = self.cfg.params
+        kan = self._models[model]
         on_card = self.device.type == "cuda"
         if on_card:
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -264,29 +288,42 @@ class ForecastService:
             phys = denormalize_spatial_parameters(
                 raw, p.parameter_ranges, p.log_space_parameters, p.defaults, net.n_segments
             )
+            q_raw = q
             if net.flow_scale is not None:
                 q = q * net.flow_scale
             runoff = route(
                 net.network, net.channels, phys, q, gauges=net.gauge_index,
                 bounds=self.bounds, device=self.device,
             ).runoff
+            health = None
+            if self.health_cfg.enabled and not warmup:
+                # pad rows carry no request: masking them keeps the residual
+                # and q_min independent of batch occupancy
+                live = torch.arange(qp.shape[0], device=self.device) < (
+                    qp.shape[0] if n_live is None else n_live)
+                health = compute_health(runoff, q_raw, row_mask=live)
+                if self.health_cfg.top_k > 0:
+                    widx, wscore = compute_output_worst(runoff, self.health_cfg.top_k, row_mask=live)
+                    health = dataclasses.replace(health, worst_idx=widx, worst_score=wscore)
         if on_card:
             end.record()
         # the copy to the host waits for the batch: the one synchronisation,
         # where the answers leave for their clients
         out = runoff.cpu().numpy()
+        if health is not None:
+            self.watchdog.observe(health, network=net.name, model=model,
+                                  batch_size=int(qp.shape[0] if n_live is None else n_live))
         return out, (start.elapsed_time(end) if on_card else None)
 
     def _execute(self, key: tuple, reqs: list[ForecastRequest]) -> None:
         network_name, model_name = key
         net = self._networks[network_name]
-        kan = self._models[model_name]
         mb = self.serve_cfg.max_batch
         qp = np.zeros((mb, net.horizon, net.n_segments), dtype=np.float32)
         for i, r in enumerate(reqs):
             qp[i] = r.payload["q_prime"]
         t0 = time.perf_counter()
-        runoff, device_ms = self._run_batch(net, kan, qp)
+        runoff, device_ms = self._run_batch(net, model_name, qp, n_live=len(reqs))
         execute_s = time.perf_counter() - t0
         now = time.monotonic()
         for i, r in enumerate(reqs):
@@ -306,8 +343,20 @@ class ForecastService:
                     }
                 )
 
+    def status(self) -> dict:
+        """The health watchdog's rollup: batches observed, violations,
+        streaks, ``degraded``, the last reasons and worst output columns."""
+        return self.watchdog.status()
+
+    @property
+    def degraded(self) -> bool:
+        """True once the watchdog has seen ``bad_batches`` violating batches
+        in a row (or a stall): the service answers, but its numbers are
+        suspect."""
+        return self.watchdog.degraded
+
     def stats(self) -> dict:
-        return {"ready": self._ready, "queue": self._batcher.stats()}
+        return {"ready": self._ready, "queue": self._batcher.stats(), "health": self.status()}
 
     def close(self, drain: bool = True) -> None:
         self._batcher.close(drain=drain)

@@ -8,12 +8,18 @@ a pure function returning new parameters and optimizer state; this one
 updates the module and the optimizer in place, the PyTorch idiom for the same
 thing.
 
+With ``collect_health`` the step also returns the numerical-health stats of
+its route (:mod:`ddr_tpu_torch.observability.health`) with the pre-clip
+global gradient norm, which the watchdog and the recovery supervisor read.
+
 Alignment: for a D-day window (``(D-1) * 24`` hourly steps) the tau trim
 ``13 + tau : -11 + tau`` leaves ``D - 2`` daily blocks, compared against
 observation days ``1..D-2``.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 from torch.profiler import record_function
@@ -91,15 +97,23 @@ def make_batch_loss(
     warmup: int,
     kernel: str | None = None,
     device: str | torch.device = "cuda",
+    dtype: str = "fp32",
+    collect_health: bool = False,
+    health_bands: int = 0,
+    health_topk: int = 8,
 ):
     """The train step's differentiable loss: ``loss_fn(network, channels,
-    gauges, attrs, q_prime, obs_daily, obs_mask) -> (loss, daily)``.
+    gauges, attrs, q_prime, obs_daily, obs_mask) -> (loss, daily)``, or
+    ``(loss, daily, health)`` with ``collect_health``.
 
     ``attrs`` ``(N, A)`` are the z-scored KAN inputs, ``q_prime`` ``(T, N)``
     the hourly lateral inflow, ``obs_daily`` / ``obs_mask`` ``(D-2, G)`` the
-    aligned daily observations and their validity. ``kernel`` is ``route``'s:
-    ``None`` the CUDA scans on a card, ``"reference"`` their plain versions.
-    Everything must lie on ``device`` (default ``"cuda"``)."""
+    aligned daily observations and their validity. ``kernel``, ``dtype``,
+    ``collect_health``, ``health_bands`` and ``health_topk`` are ``route``'s:
+    ``kernel=None`` the CUDA scans on a card, ``"reference"`` their plain
+    versions; ``dtype="bf16"`` the bf16 ring, whose health stats carry the
+    ``overflow``/``ulp_drift`` counters. Everything must lie on ``device``
+    (default ``"cuda"``)."""
     dev = resolve_device(device)
 
     def loss_fn(network, channels, gauges, attrs, q_prime, obs_daily, obs_mask):
@@ -109,8 +123,12 @@ def make_batch_loss(
                 raw, parameter_ranges, log_space_parameters, defaults, channels.length.shape[0]
             )
         result = route(network, channels, spatial, q_prime, gauges=gauges, bounds=bounds,
-                       kernel=kernel, device=dev)
-        return masked_l1_daily(result.runoff, obs_daily, obs_mask, tau, warmup)
+                       kernel=kernel, device=dev, dtype=dtype, collect_health=collect_health,
+                       health_bands=health_bands, health_topk=health_topk)
+        loss, daily = masked_l1_daily(result.runoff, obs_daily, obs_mask, tau, warmup)
+        if collect_health:
+            return loss, daily, result.health
+        return loss, daily
 
     return loss_fn
 
@@ -126,10 +144,16 @@ def make_batch_train_step(
     optimizer: torch.optim.Optimizer,
     kernel: str | None = None,
     device: str | torch.device = "cuda",
+    dtype: str = "fp32",
+    collect_health: bool = False,
+    health_bands: int = 0,
+    health_topk: int = 8,
 ):
     """One training step on a batch whose network, channels and gauges are
     call-time arguments: ``step(network, channels, gauges, attrs, q_prime,
-    obs_daily, obs_mask) -> (loss, daily)`` (see :func:`make_batch_loss`).
+    obs_daily, obs_mask) -> (loss, daily)``, or ``(loss, daily, health)``
+    with ``collect_health`` (see :func:`make_batch_loss`; ``health.grad_norm``
+    is the pre-clip global norm, the raw explosion signal).
 
     Each call runs the loss and its backward, clips the gradients by their
     global norm (:func:`clip_by_global_norm` at the ``"clip_norm"`` of an
@@ -137,16 +161,20 @@ def make_batch_train_step(
     ``kan`` and ``optimizer`` are updated in place. ``loss`` and ``daily``
     come back detached."""
     loss_fn = make_batch_loss(kan, bounds, parameter_ranges, log_space_parameters, defaults,
-                              tau, warmup, kernel=kernel, device=device)
+                              tau, warmup, kernel=kernel, device=device, dtype=dtype,
+                              collect_health=collect_health, health_bands=health_bands,
+                              health_topk=health_topk)
 
     def step(network, channels, gauges, attrs, q_prime, obs_daily, obs_mask):
         optimizer.zero_grad(set_to_none=True)
-        loss, daily = loss_fn(network, channels, gauges, attrs, q_prime, obs_daily, obs_mask)
+        loss, daily, *health = loss_fn(network, channels, gauges, attrs, q_prime, obs_daily, obs_mask)
         loss.backward()
         with record_function("ddr::optimizer"):
             grads = [p.grad for g in optimizer.param_groups for p in g["params"] if p.grad is not None]
-            clip_by_global_norm(grads, optimizer.param_groups[0]["clip_norm"])
+            norm = clip_by_global_norm(grads, optimizer.param_groups[0]["clip_norm"])
             optimizer.step()
+        if collect_health:
+            return loss.detach(), daily.detach(), dataclasses.replace(health[0], grad_norm=norm)
         return loss.detach(), daily.detach()
 
     return step

@@ -2,8 +2,9 @@
 
 These tests need an NVIDIA card and skip without one. They cover both
 kernels on the single ring and on the bands of a stacked frame (external
-rows, ``mask_raw``, width-0 gather buckets, transposed width 16), and the
-stacked band router on the card: ``n_chunks`` launches of each kernel. The file imports
+rows, ``mask_raw``, width-0 gather buckets, transposed width 16), the
+forward kernel's bf16 ring on both, and the stacked band router on the card:
+``n_chunks`` launches of each kernel. The file imports
 neither ``jax`` nor ``ddr_tpu``, so it runs on a machine that has only the
 port's dependencies:
 
@@ -14,6 +15,8 @@ The kernels evaluate the same float32 operations as the plain versions
 without FMA contraction, but the card's ``powf`` and PyTorch's ``pow`` may
 differ by an ulp, the plain reverse scan may sum a node's successor slots in
 another order, and the recurrences carry that along the longest path.
+The bf16 ring: ``|a - b| <= 2**-7 |ref| + 1e-5 max|ref|``, one bf16 epsilon,
+since a ``powf`` ulp can flip one rounding and the flip carries downstream.
 """
 
 from __future__ import annotations
@@ -43,11 +46,11 @@ def card():
     return torch.device("cuda")
 
 
-def _close(ref, out, label):
+def _close(ref, out, label, rtol=1e-5):
     ref, out = ref.double().cpu().numpy(), out.double().cpu().numpy()
     assert np.isfinite(out).all(), label
     scale = max(np.abs(ref).max(), 1e-8)
-    np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5 * scale, err_msg=label)
+    np.testing.assert_allclose(out, ref, rtol=rtol, atol=1e-5 * scale, err_msg=label)
 
 
 def _case(name, dev):
@@ -255,3 +258,77 @@ def test_stacked_route_on_the_card_under_deterministic_algorithms(card):
     finally:
         torch.use_deterministic_algorithms(was)
     assert torch.isfinite(res.runoff).all() and torch.isfinite(params["n"].grad).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", CASES)
+def test_bf16_wave_scan_kernel_matches_reference(card, name):
+    net, phys, qs, q_init, T = _case(name, card)
+    before = wave_scan.launches
+    ys = wave_scan(qs, net, phys, q_init, T=T, compute_dtype="bf16")
+    torch.cuda.synchronize()
+    assert wave_scan.launches == before + 1
+    assert torch.equal(ys.to(torch.bfloat16).float(), ys)  # every value the rounded store
+    ref = wave_scan_reference(qs, net, phys, q_init, T=T, compute_dtype="bf16")
+    _close(ref, ys, f"{name}: bf16 kernel vs plain", rtol=2.0**-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", BAND_CASES)
+def test_bf16_band_wave_scan_kernel_matches_reference(card, name):
+    frame = band_frame(card)
+    T, B = (1, 2) if name == "T=1" else (24, 3)
+    for c in range(frame.n_chunks):
+        band = frame.band(c)
+        phys = random_physics(frame.n_cap, c, card)
+        qs, xe, se, q_init = band_scan_case(band, B, T, c, name == "q_init", card)
+        kw = dict(T=T, xe=xe, se=se, mask_raw=True, compute_dtype="bf16")
+        before = wave_scan.launches
+        ys = wave_scan(qs, band, phys, q_init, **kw)
+        torch.cuda.synchronize()
+        assert wave_scan.launches == before + 1
+        _close(wave_scan_reference(qs, band, phys, q_init, **kw), ys,
+               f"{name}: band {c}, bf16 kernel vs plain", rtol=2.0**-7)
+
+
+@pytest.mark.cuda
+def test_wave_scan_compute_dtype_axis_on_the_card(card):
+    """An unknown compute dtype raises before any launch; ``"fp32"`` is the
+    default kernel bit for bit; bf16 differs from it within the JAX bound."""
+    net, phys, qs, q_init, T = _case("q_init", card)
+    before = wave_scan.launches
+    with pytest.raises(ValueError, match="unknown routing dtype"):
+        wave_scan(qs, net, phys, q_init, T=T, compute_dtype="fp16")
+    assert wave_scan.launches == before
+    default = wave_scan(qs, net, phys, q_init, T=T)
+    fp32 = wave_scan(qs, net, phys, q_init, T=T, compute_dtype="fp32")
+    bf16 = wave_scan(qs, net, phys, q_init, T=T, compute_dtype="bf16")
+    torch.cuda.synchronize()
+    assert torch.equal(default, fp32) and not torch.equal(fp32, bf16)
+    rel = ((bf16 - fp32).abs() / (fp32.abs() + 1e-6)).double()
+    assert float(rel.max()) <= 0.3 and float(rel.mean()) <= 0.02
+
+
+@pytest.mark.cuda
+def test_bf16_route_and_health_on_the_card(card):
+    """``route(dtype="bf16", collect_health=True)`` on the card, single ring
+    and stacked: one (or ``n_chunks``) bf16 launch, answers and health as
+    the plain scans give them."""
+    for depth, n in ((24, 512), (1100, 3000)):
+        basin = make_basin(n_segments=n, n_gauges=4, n_days=2, seed=3, depth=depth)
+        net, ch, gauges = prepare_batch(basin.routing_data, 0.001, device=card)
+        params = {k: torch.as_tensor(v, dtype=torch.float32, device=card) for k, v in basin.true_params.items()}
+        q = torch.as_tensor(basin.q_prime[:24], device=card)
+        out = {}
+        with torch.no_grad():
+            for kernel in (None, "reference"):
+                before = wave_scan.launches
+                out[kernel] = mc.route(net, ch, params, q, gauges=gauges, kernel=kernel, device=card,
+                                       dtype="bf16", collect_health=True, health_bands=4)
+                torch.cuda.synchronize()
+                launched = (net.n_chunks if isinstance(net, StackedChunked) else 1) if kernel is None else 0
+                assert wave_scan.launches == before + launched
+        h = out[None].health
+        assert int(h.overflow) == 0 and int(h.nonfinite) == 0 and np.isfinite(float(h.ulp_drift))
+        _close(out["reference"].runoff, out[None].runoff, f"depth {depth}: bf16 runoff", rtol=2.0**-7)
+        _close(out["reference"].health.band_q_max, h.band_q_max, f"depth {depth}: band_q_max", rtol=2.0**-7)

@@ -35,7 +35,10 @@ def test_port_imports_no_jax_and_nothing_of_ddr_tpu():
     n_mods, bad = out.split(" ", 1)
     names = {m.name for m in pkgutil.walk_packages(ddr_tpu_torch.__path__, "ddr_tpu_torch.")}
     expected = len(names)
-    assert int(n_mods) == expected and expected >= 22
-    # the stacked band router's modules are among those the probe imported
-    assert {"ddr_tpu_torch.routing.chunked", "ddr_tpu_torch.routing.stacked"} <= names
+    assert int(n_mods) == expected and expected >= 25
+    # the stacked band router's and the health plane's modules are among
+    # those the probe imported
+    assert {"ddr_tpu_torch.routing.chunked", "ddr_tpu_torch.routing.stacked",
+            "ddr_tpu_torch.observability", "ddr_tpu_torch.observability.health",
+            "ddr_tpu_torch.observability.recovery"} <= names
     assert bad == "[]", f"the port imported {bad}"

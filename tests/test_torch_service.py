@@ -4,12 +4,15 @@ The service runs on the CPU (``device="cpu"``). Its answers are held against
 JAX ``Kan.apply -> denormalize_spatial_parameters -> mc.route`` on the same
 weights (carried across by ``kan_state_from_flax``), basin and inflow
 windows. Tolerance: rtol 1e-5 with an absolute floor of 1e-5 x the largest
-magnitude, as for the route. Also: entry points refuse to run without a card
-unless asked for the CPU, and the batcher's queue rules.
+magnitude, as for the route. Also: the health watchdog sees every served
+batch with its pad rows masked, and its stats match JAX's service program;
+entry points refuse to run without a card unless asked for the CPU; the
+batcher's queue rules.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 
@@ -159,3 +162,78 @@ def test_batcher_sheds_expired_requests():
             req.future.result(timeout=10)
     finally:
         mb.close()
+
+
+def test_watchdog_sees_every_served_batch_with_pad_rows_masked(tmp_path, monkeypatch):
+    """The watchdog is on by default: warmup feeds it nothing, every served
+    batch once. On one padded batch (3 live rows, a pad row of huge inflow)
+    the port's health stats equal those of JAX's service program (its
+    compiled ``(params, q_prime_batch, n_live) -> (runoff, health)``) within
+    rtol 1e-5, and equal the stats of the live rows alone, so the pad row
+    was masked out."""
+    from ddr_tpu.serving.config import ServeConfig as JaxServeConfig
+    from ddr_tpu.serving.service import ForecastService as JaxForecastService
+    from ddr_tpu.validation.configs import Config as JaxConfig
+    from ddr_tpu_torch.observability.health import compute_health, compute_output_worst
+
+    kw = dict(n_segments=96, n_gauges=4, n_days=2, seed=23, depth=10)
+    ours, ref = make_basin(**kw), jax_make_basin(**kw)
+    cfg = Config(kan=KanConfig(input_var_names=NAMES))
+    fk = FlaxKan(input_var_names=tuple(NAMES), learnable_parameters=("n", "q_spatial"))
+    variables = fk.init(jax.random.PRNGKey(0), jnp.asarray(ref.routing_data.normalized_spatial_attributes))
+    kan = Kan(NAMES, ("n", "q_spatial"))
+    kan.load_state_dict(kan_state_from_flax(jax.tree_util.tree_map(np.asarray, variables)))
+    for var in [v for v in os.environ if v.startswith("DDR_HEALTH_")]:
+        monkeypatch.delenv(var)
+
+    svc = ForecastService(cfg, ServeConfig(max_batch=4, horizon_hours=HORIZON), device="cpu")
+    seen = []
+    observe = svc.watchdog.observe
+    monkeypatch.setattr(svc.watchdog, "observe",
+                        lambda stats, **ctx: seen.append((stats, ctx)) or observe(stats, **ctx))
+    try:
+        svc.register_network("basin", ours.routing_data, forcing=ours.q_prime)
+        svc.register_model("default", kan)
+        svc.warmup()
+        assert svc.status()["batches"] == 0 and svc.health_cfg.enabled
+        answers = [f.result(timeout=120) for f in [svc.submit("basin", t0=t0) for t0 in (0, 3, 7, 11, 20)]]
+        batches = len({(a["execute_s"], a["device_ms"]) for a in answers})
+        status = svc.status()
+        assert status["batches"] == batches == len(seen) and status["violations"] == 0
+        assert not svc.degraded and svc.stats()["health"]["batches"] == batches
+        assert sum(ctx["batch_size"] for _, ctx in seen) == 5
+        assert status["spatial"]["worst_idx"] == [int(i) for i in seen[-1][0].worst_idx]
+
+        qp = np.zeros((4, HORIZON, 96), np.float32)
+        for i, t0 in enumerate((0, 5, 30)):
+            qp[i] = ours.q_prime[t0 : t0 + HORIZON]
+        qp[3] = 1e4  # a pad row: if it leaked in, q_max and the residual would show it
+        svc._run_batch(svc._networks["basin"], "default", qp, n_live=3)
+        stats, ctx = seen[-1]
+        assert ctx == {"network": "basin", "model": "default", "batch_size": 3}
+    finally:
+        svc.close()
+
+    jcfg = JaxConfig(name="t", geodataset="synthetic", mode="testing",
+                     kan={"input_var_names": NAMES},
+                     experiment={"start_time": "1981/10/01", "end_time": "1981/10/10"},
+                     params={"save_path": str(tmp_path)})
+    jsvc = JaxForecastService(jcfg, JaxServeConfig(max_batch=4, horizon_hours=HORIZON))
+    try:
+        jnet = jsvc.register_network("basin", ref.routing_data, forcing=ref.q_prime)
+        jsvc.register_model("default", fk, variables)
+        fn, _ = jsvc._serve_fn(jnet, jsvc.registry.get("default"))
+        jrunoff, jstats = fn(jsvc.registry.get("default").params, qp, np.int32(3))
+    finally:
+        jsvc.close(drain=False)
+    for f in ("q_min", "q_max", "mass_residual", "worst_score"):
+        _close(np.asarray(getattr(jstats, f)), getattr(stats, f).numpy(), f"health {f} vs JAX")
+    assert int(stats.nonfinite) == int(jstats.nonfinite) == 0
+    assert set(stats.worst_idx.tolist()) == set(np.asarray(jstats.worst_idx).tolist())
+    # the same stats from the live rows alone
+    live = torch.as_tensor(np.asarray(jrunoff)[:3])
+    alone = compute_health(live, torch.as_tensor(qp[:3]))
+    for f in ("q_min", "q_max", "mass_residual"):
+        _close(getattr(alone, f).numpy(), getattr(stats, f).numpy(), f"health {f} vs the live rows")
+    idx, _ = compute_output_worst(live, svc.health_cfg.top_k)
+    assert set(idx.tolist()) == set(stats.worst_idx.tolist())

@@ -65,7 +65,30 @@ on failure (non-zero exit, no result line):
            violating bf16 step re-run on the fp32 twin from the pre-step
            state), and the bf16 kernel's time at the training shape;
 12. train  (bf16, continental) the same on the continental basin
-           (``n_chunks`` launches a step), and the bf16 band kernel's time.
+           (``n_chunks`` launches a step), and the bf16 band kernel's time;
+13. parity (chunked) the forward kernel's variant of the unrolled
+           depth-chunked router (a band's own single ring with external rows
+           and unmasked raw sums) against its plain version, fp32 and bf16
+           (equal on every element), and ``reverse_scan`` over each band:
+           every band of a 2-band ``ChunkedNetwork`` and a band of local
+           depth 0, hotstart, ``q_init`` and ``T = 1``;
+14. serve  (chunked) the continental basin's ``ChunkedNetwork`` at the
+           2^26-cell cap (13 bands): 3 batches (B 8, T 72) of KAN ->
+           denormalize -> ``route`` with gauges, one ``wave_scan`` launch a
+           band a batch, gauge runoff held to the stacked router's within
+           1e-3, a profiled batch, and the variant on the largest band
+           (parity, times, bound) and on every band;
+15. train  (chunked) 3 fp32 train steps on it (one launch of each kernel a
+           band a step) and a profiled step, the KAN gradients against the
+           stacked router's within 2e-2, one bf16 step with health, the
+           bf16 variant's time beside fp32, and ``reverse_scan`` on the
+           largest band at the step's shape (parity, times, bound) and on
+           every band;
+16. numerics every float32 engine against the float64 step oracle on the
+           card (1 - NSE held to 1e-5), and the oracle's route time beside
+           the single-ring kernel's;
+17. AD     gradients through ``adjoint="ad"`` (the plain scan) against the
+           analytic adjoint on the kernels, within rtol 1e-5.
 The service of phases 3 and 7 runs with its health watchdog on, which must
 have seen every served batch and not be degraded; phase 8's gradient check
 also holds the bf16 kernels against the bf16 plain scans.
@@ -112,6 +135,16 @@ TRAIN_DAYS, TRAIN_STEPS = 10, 3  # T = 240 h
 # the gradient check, where the plain scans take seconds, not minutes.
 DEEP_SEGMENTS, DEEP_DEPTH = 2_900_000, 4000
 GRAD_SEGMENTS, GRAD_DEPTH = 65536, 2048
+# The unrolled depth-chunked router: the small networks of its kernel
+# variant's parity (make_deep_network(320, 80) at a budget of 8,000 ring
+# cells: 2 bands; a 28-reach chain at 120 cells, whose last band is a single
+# level), the engines' gradients held to the bound the JAX package holds
+# them to across engines (tests/routing/test_chunked.py), the float32 error
+# budget's shapes and limit, and the AD check's small basin.
+CHUNK_SMALL, CHUNK_SMALL_BUDGET, CHAIN_REACHES, CHAIN_BUDGET = (320, 80), 8000, 28, 120
+ENGINE_GRAD_RTOL, CHUNK_STACKED_MAX_REL = 2e-2, 1e-3
+NUMERICS_SHAPES, NUMERICS_MAX_ONE_MINUS_NSE = ((4000, 1024, 96), (6000, 2048, 96)), 1e-5
+AD_SEGMENTS, AD_DEPTH, AD_T = 512, 64, 24
 
 
 def fail(msg: str) -> None:
@@ -374,6 +407,28 @@ def profile_batch(svc, name, starts) -> None:
     print(f"  device busy {device_ms:.3f} ms ({100 * device_ms / host_ms:.1f}% of the host time)")
 
 
+def profile_band_step(step, batch, label) -> None:
+    """One more train step of a band router under ``torch.profiler``:
+    device time by range (the adjoint's sub-ranges read on their own) and by
+    operation, and the device's busy share of the step's host time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(*batch)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    print(f"profile of one {label} train step: host {host_ms:.3f} ms")
+    device_ms = device_profile(
+        prof, ("ddr::kan", "ddr::band_inputs", "ddr::forward_scan", "ddr::band_publish",
+               "ddr::adjoint_prepasses", "ddr::reverse_scan", "ddr::adjoint_postpasses",
+               "ddr::optimizer"),
+        ("ddr::adjoint_physics", "ddr::adjoint_stream", "ddr::adjoint_pullback"),
+    )
+    print(f"  device busy {device_ms:.3f} ms ({100 * device_ms / host_ms:.1f}% of the host time)")
+
+
 def band_parity_small(dev) -> tuple[float, float]:
     """Phase 6: both band kernels against their plain versions on the small
     frame; returns their max abs errors."""
@@ -534,7 +589,6 @@ def train_deep(cfg, basin, entry, kan, smi, dev) -> tuple[dict, tuple]:
     the batch."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from ddr_tpu_torch import training
     from ddr_tpu_torch.geodatazoo.synthetic import observe
@@ -584,19 +638,7 @@ def train_deep(cfg, basin, entry, kan, smi, dev) -> tuple[dict, tuple]:
         fail(f"deep train: losses {losses}, daily {tuple(daily.shape)}")
     if launches != {"wave_scan": expect, "reverse_scan": expect}:
         fail(f"expected n_chunks = {net.n_chunks} launches of each kernel a step: {launches}")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(*batch)
-        torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t0) * 1e3
-    print(f"profile of one deep train step: host {host_ms:.3f} ms")
-    device_ms = device_profile(
-        prof, ("ddr::kan", "ddr::band_inputs", "ddr::forward_scan", "ddr::band_publish",
-               "ddr::adjoint_prepasses", "ddr::reverse_scan", "ddr::adjoint_postpasses",
-               "ddr::optimizer"),
-        ("ddr::adjoint_physics", "ddr::adjoint_stream", "ddr::adjoint_pullback"),
-    )
-    print(f"  device busy {device_ms:.3f} ms ({100 * device_ms / host_ms:.1f}% of the host time)")
+    profile_band_step(step, batch, "deep")
     del opt, step
     return launches, batch
 
@@ -717,12 +759,15 @@ def time_bands(cfg, entry, kan, smi, dev) -> dict:
     return out
 
 
-def compare_bf16(ref, out, label: str) -> float:
+def compare_bf16(ref, out, label: str, exact: bool = False) -> float:
     """:func:`compare` within one bf16 epsilon; also prints the share of
-    elements the kernel and the plain version give exactly alike."""
+    elements the kernel and the plain version give exactly alike, and under
+    ``exact`` fails unless that share is 100%."""
     err = compare(ref, out, label, rtol=BF16_RTOL)
-    exact = float((ref == out).double().mean())
-    print(f"  {label}: {100 * exact:.3f}% of elements equal exactly")
+    share = float((ref == out).double().mean())
+    print(f"  {label}: {100 * share:.3f}% of elements equal exactly")
+    if exact and share != 1.0:
+        fail(f"{label}: {100 * share:.3f}% of elements equal, not all")
     return err
 
 
@@ -1063,6 +1108,548 @@ def time_bf16_bands(cfg, entry, kan, smi, dev) -> dict:
     del qs, xe, se
     torch.cuda.empty_cache()
     return out
+
+
+def small_chunked(dev):
+    """Phase 13's networks: ``make_deep_network(320, 80)`` banded by a cell
+    budget of 8,000 into 2 bands, and a 28-reach chain at 120 cells whose
+    last band is a single level (local depth 0: no in-band edge, no gather
+    table, one external predecessor)."""
+    import numpy as np
+
+    from ddr_tpu_torch.geodatazoo.synthetic import make_deep_network
+    from ddr_tpu_torch.routing.chunked import build_chunked_network
+
+    n, depth = CHUNK_SMALL
+    deep = build_chunked_network(*make_deep_network(n, depth, seed=2), n, cell_budget=CHUNK_SMALL_BUDGET,
+                                 device=dev)
+    m = CHAIN_REACHES
+    chain = build_chunked_network(np.arange(1, m), np.arange(0, m - 1), m, cell_budget=CHAIN_BUDGET,
+                                  device=dev)
+    last = chain.chunks[-1]
+    if deep.n_chunks < 2 or last.depth != 0 or last.n_edges or not chain.ext_cols[-1].numel():
+        fail(f"small chunked networks: {deep.n_chunks} bands; chain's last band depth {last.depth}, "
+             f"{last.n_edges} edges, {chain.ext_cols[-1].numel()} external edges")
+    return deep, chain
+
+
+def ext_parity_small(dev) -> tuple[float, float, float]:
+    """Phase 13: the ``wave_scan`` variant of the unrolled chunked router
+    (a band's own single ring, external rows ``xe``/``se``, unmasked raw
+    sums) against its plain version: every band of the small chunked
+    network and the chain's depth-0 band, hotstart, ``q_init`` and ``T =
+    1``; fp32 within ``RTOL``, bf16 equal on every element; and
+    ``reverse_scan`` over each of these bands (its backward) within
+    ``RTOL``. Returns the three max abs errors."""
+    import torch
+
+    from ddr_tpu_torch.routing.reverse_kernel import reverse_scan, reverse_scan_reference
+    from ddr_tpu_torch.routing.wave_kernel import wave_scan, wave_scan_reference
+
+    deep, chain = small_chunked(dev)
+    print(f"small chunked network: {deep.n_chunks} bands of {[c.n for c in deep.chunks]} reaches, local "
+          f"depths {[c.depth for c in deep.chunks]}, boundary {deep.n_boundary}; chain of "
+          f"{CHAIN_REACHES}: {chain.n_chunks} bands, the last of depth {chain.chunks[-1].depth}")
+    bands = [(f"band {c}", net) for c, net in enumerate(deep.chunks)] + [("depth-0 band", chain.chunks[-1])]
+    err32 = err16 = err_rev = 0.0
+    with torch.no_grad():
+        for i, (name, net) in enumerate(bands):
+            for label, B, T in (("B 3, T 24", 3, 24), ("T=1", 2, 1)):
+                rows_s = reverse_streams(net, B, T, 90 + i, dev)
+                lams = reverse_scan(rows_s, net, T=T)
+                torch.cuda.synchronize()
+                err_rev = max(err_rev, compare(reverse_scan_reference(rows_s, net, T=T), lams,
+                                               f"reverse_scan/ext small {name} {label}"))
+            phys = random_physics(net.n, 50 + i, dev)
+            for label, B, T, with_init in (("hotstart", 3, 24, False), ("q_init", 3, 24, True),
+                                           ("T=1", 2, 1, False)):
+                qs, xe, se, qi = band_scan_case(net, B, T, 60 + i, with_init, dev)
+                for dtype in ("fp32", "bf16"):
+                    kw = dict(T=T, xe=xe, se=se, compute_dtype=dtype)
+                    ys = wave_scan(qs, net, phys, qi, **kw)
+                    torch.cuda.synchronize()
+                    ref = wave_scan_reference(qs, net, phys, qi, **kw)
+                    what = f"wave_scan/ext{'-bf16' if dtype == 'bf16' else ''} small {name} {label}"
+                    if dtype == "fp32":
+                        err32 = max(err32, compare(ref, ys, what))
+                    else:
+                        err16 = max(err16, compare_bf16(ref, ys, what, exact=True))
+    return err32, err16, err_rev
+
+
+def chunk_physics(net, c, channels, phys_params, bounds):
+    """Band ``c``'s :class:`~ddr_tpu_torch.routing.wave_kernel.ReachPhysics`
+    in its wf order, gathered from original-order operands as
+    ``route_chunked`` gathers them."""
+    from ddr_tpu_torch.routing.mc import DT_SECONDS
+    from ddr_tpu_torch.routing.stacked import band_physics, frame_operands
+
+    ops = frame_operands(channels, phys_params, net.n, channels.length.device)
+    return band_physics(ops, net.gidx[c].long(), bounds, DT_SECONDS)
+
+
+def ext_bounds(net, B, T) -> tuple[float, float]:
+    """``(bytes ms, operations ms)`` of one chunked band's forward scan at
+    batch B and T timesteps, counted as the band rows are: ``qs``, ``xe``
+    and ``se`` read and ``ys`` written once per in-band (request, reach,
+    timestep), the tables and operands once; the ring is not counted."""
+    n = net.n
+    slots = int(net.wf_mask.sum()) if net.wf_mask.numel() else 0
+    bytes_moved = 4 * 4 * B * T * n + 4 * (3 * n + 3 * slots) + 4 * 6 * n
+    flops = B * (T - 1) * n * (FLOPS_PER_PAIR + 2) + B * T * slots * FLOPS_PER_SLOT
+    return bytes_moved / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+
+
+def reverse_ext_bounds(net, B, T) -> tuple[float, float]:
+    """``(bytes ms, operations ms)`` of one chunked band's reverse scan at
+    batch B and T timesteps, counted as the band rows are: the four streams
+    read and ``lams`` written once per in-band (request, reach, timestep),
+    the transposed tables once; operations for the reaches and their real
+    successor slots."""
+    n, tw = net.n, net.wf_t_width
+    t_slots = int((net.wf_t_col < n).sum())
+    bytes_moved = 4 * (B * T * n * (2 + 2 * tw) + B * T * n) + 4 * (2 * n * tw + n)
+    flops = B * T * (n * REVERSE_FLOPS_PER_PAIR + t_slots * REVERSE_FLOPS_PER_SLOT)
+    return bytes_moved / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+
+
+def gauge_rel(a, b) -> float:
+    """Max of ``|a - b| / (|b| + 1e-6)``, the JAX package's engine-parity
+    measure (``tests/routing/test_chunked.py``)."""
+    return float(((a.double() - b.double()).abs() / (b.double().abs() + 1e-6)).max())
+
+
+def serve_chunked(cfg, basin, entry, kan, smi, dev) -> dict:
+    """Phase 14: the continental basin on the unrolled depth-chunked router
+    at the memory cap: build its ``ChunkedNetwork``, route 3 batches (B 8,
+    T 72) of KAN -> denormalize -> ``route`` with gauges (one ``wave_scan``
+    launch a band a batch), hold the gauge runoff against the stacked
+    router's on the same inputs and weights, profile a batch, and hold the
+    kernel variant against its plain version on the largest band. Returns
+    the network, the launches, the error and the variant's times."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ddr_tpu_torch.routing.chunked import CHUNK_CELL_BUDGET, ChunkedNetwork, build_routing_network
+    from ddr_tpu_torch.routing.mc import Bounds, route
+    from ddr_tpu_torch.routing.model import denormalize_spatial_parameters, engine_label
+    from ddr_tpu_torch.routing.wave_kernel import wave_scan, wave_scan_reference
+
+    p = cfg.params
+    rd = basin.routing_data
+    t0 = time.perf_counter()
+    net = build_routing_network(rd.adjacency_rows, rd.adjacency_cols, rd.n_segments,
+                                cell_budget=CHUNK_CELL_BUDGET, device=dev)
+    build_s = time.perf_counter() - t0
+    if not isinstance(net, ChunkedNetwork):
+        fail(f"the continental basin with a cell budget did not build a ChunkedNetwork: {engine_label(net)}")
+    C = net.n_chunks
+    sizes = [c.n for c in net.chunks]
+    spans = [c.depth + 1 for c in net.chunks]
+    print(f"chunked network: {engine_label(net)}, band spans {min(spans)}-{max(spans)} levels "
+          f"({spans}), band sizes {min(sizes)}-{max(sizes)} reaches, boundary columns {net.n_boundary}, "
+          f"ring rows {[c.wf_ring_rows for c in net.chunks]} ({build_s:.2f}s to build on the host)")
+    stacked = entry.network
+    out = {"net": net}
+    windows = np.arange(MAX_BATCH * N_BATCHES) % (basin.q_prime.shape[0] - HORIZON + 1)
+
+    def batch_q(i):
+        starts = windows[i * MAX_BATCH : (i + 1) * MAX_BATCH]
+        return np.stack([basin.q_prime[s : s + HORIZON] for s in starts])
+
+    def serve(network, q_host):
+        with torch.no_grad():
+            params = denormalize_spatial_parameters(kan(entry.attrs), p.parameter_ranges,
+                                                    p.log_space_parameters, p.defaults, network.n)
+            q = torch.as_tensor(q_host, device=dev)
+            return route(network, entry.channels, params, q, gauges=entry.gauge_index,
+                         bounds=Bounds.from_config(p.attribute_minimums), device=dev).runoff
+
+    serve(net, batch_q(0))  # warm-up: allocator and library state
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wave_scan.launches = 0
+    answers = []
+    for i in range(N_BATCHES):
+        q_host = batch_q(i)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        runoff = serve(net, q_host)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        if runoff.shape != (MAX_BATCH, HORIZON, N_GAUGES) or not bool(torch.isfinite(runoff).all()):
+            fail(f"chunked batch {i}: runoff {tuple(runoff.shape)} not finite")
+        answers.append(runoff)
+        print(f"chunked batch {i + 1} (B {MAX_BATCH}, T {HORIZON}): device {start.elapsed_time(end):.3f} ms "
+              f"(CUDA events), host {host_ms:.3f} ms on {smi}")
+    launches = wave_scan.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"chunked serve: {N_BATCHES} batches, wave_scan.launches {launches} ({C} bands), peak device "
+          f"memory {peak_gb:.3f} GB on {smi}")
+    if launches != N_BATCHES * C:
+        fail(f"chunked serve: expected {C} wave_scan launches a batch: {launches} in {N_BATCHES} batches")
+    out.update(launches=launches, peak_gb=peak_gb)
+
+    rel = max(gauge_rel(answers[i], serve(stacked, batch_q(i))) for i in range(N_BATCHES))
+    print(f"chunked vs stacked gauge runoff, same inputs and weights: max rel {rel:.3e} "
+          f"(held to {CHUNK_STACKED_MAX_REL:g})")
+    if not rel <= CHUNK_STACKED_MAX_REL:
+        fail(f"chunked vs stacked gauge runoff: max rel {rel}")
+    del answers
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        serve(net, batch_q(0))
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    print(f"profile of one chunked batch: host {host_ms:.3f} ms")
+    device_ms = device_profile(prof, ("ddr::band_inputs", "ddr::forward_scan", "ddr::band_publish"))
+    print(f"  device busy {device_ms:.3f} ms ({100 * device_ms / host_ms:.1f}% of the host time)")
+    del prof
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the variant on the largest band at the serving shape, then every band
+    # one at a time (their inputs do not fit the card together)
+    bounds = Bounds.from_config(p.attribute_minimums)
+    with torch.no_grad():
+        params = denormalize_spatial_parameters(kan(entry.attrs), p.parameter_ranges,
+                                                p.log_space_parameters, p.defaults, net.n)
+        big = int(np.argmax(sizes))
+        B, T = MAX_BATCH, HORIZON
+        per_band, bound_all = [], 0.0
+        for c in [big] + [c for c in range(C) if c != big]:
+            band = net.chunks[c]
+            phys = chunk_physics(net, c, entry.channels, params, bounds)
+            qs, xe, se, _ = band_scan_case(band, B, T, 70 + c, False, dev)
+            kw = dict(T=T, xe=xe, se=se)
+            wave_scan(qs, band, phys, None, **kw)
+            per_band.append(cuda_ms(lambda: wave_scan(qs, band, phys, None, **kw), 2 if c != big else 5))
+            bound_all += max(ext_bounds(band, B, T))
+            if c == big:
+                ys = wave_scan(qs, band, phys, None, **kw)
+                torch.cuda.synchronize()
+                ref = wave_scan_reference(qs, band, phys, None, **kw)
+                out["err"] = compare(ref, ys, f"wave_scan/ext continental band {c} ({band.n} reaches, "
+                                              f"B {B}, T {T})")
+                del ys, ref
+                out["plain_ms"] = cuda_ms(lambda: wave_scan_reference(qs, band, phys, None, **kw), 1)
+                out["bound"] = ext_bounds(band, B, T)
+            del qs, xe, se
+            torch.cuda.empty_cache()
+    out.update(ms=per_band[0], all_ms=sum(per_band), all_bound_ms=bound_all)
+    bytes_ms, flops_ms = out["bound"]
+    print(f"timing wave_scan/ext (B {B}, T {T}): largest band ({sizes[big]} reaches, W "
+          f"{T + net.chunks[big].depth}) {out['ms']:.3f} ms, plain {out['plain_ms']:.3f} ms, bound "
+          f"{max(bytes_ms, flops_ms):.4f} ms (bytes {bytes_ms:.4f}, operations {flops_ms:.4f}); all {C} "
+          f"bands one at a time {out['all_ms']:.3f} ms against {bound_all:.4f} ms bound on {smi}")
+    return out
+
+
+def deep_batch_of(network, entry, basin, dev):
+    """The continental train batch ``(network, channels, gauges, attrs, q',
+    obs, mask)`` of an observed basin on ``network``."""
+    import numpy as np
+    import torch
+
+    obs = basin.obs_daily
+    return (network, entry.channels, entry.gauge_index, entry.attrs,
+            torch.as_tensor(basin.q_prime, device=dev), torch.as_tensor(np.nan_to_num(obs), device=dev),
+            torch.as_tensor(np.isfinite(obs), device=dev))
+
+
+def train_chunked(cfg, basin, entry, net, smi, dev) -> dict:
+    """Phase 15: 3 fp32 train steps (B 1, T 240) on the continental
+    ``ChunkedNetwork`` with one launch of each kernel a band a step, their
+    times and peak memory, and one profiled step; the KAN gradients against the stacked router's on
+    the same batch (``ENGINE_GRAD_RTOL``); then one bf16 step with
+    ``collect_health`` and ``HEALTH_BANDS`` bands that ends with finite
+    stats. Returns the launches, times and peak memory."""
+    import numpy as np
+    import torch
+
+    from ddr_tpu_torch import training
+    from ddr_tpu_torch.routing.mc import Bounds
+    from ddr_tpu_torch.routing.reverse_kernel import reverse_scan
+    from ddr_tpu_torch.routing.wave_kernel import wave_scan
+    from ddr_tpu_torch.scripts_utils import resolve_learning_rate
+
+    p = cfg.params
+    C = net.n_chunks
+    batch = deep_batch_of(net, entry, basin, dev)
+    train_args = (Bounds.from_config(p.attribute_minimums), p.parameter_ranges,
+                  p.log_space_parameters, p.defaults, p.tau, cfg.experiment.warmup)
+    grads = {}
+    for label, network in (("chunked", net), ("stacked", entry.network)):
+        kan = new_kan(cfg, dev)
+        loss, _ = training.make_batch_loss(kan, *train_args, device=dev)(network, *batch[1:])
+        loss.backward()
+        torch.cuda.synchronize()
+        grads[label] = {k: v.grad.detach().clone() for k, v in kan.named_parameters()}
+        print(f"continental train loss through the {label} router: {float(loss.detach()):.6f}")
+        del kan, loss
+        gc.collect()
+        torch.cuda.empty_cache()
+    worst = 0.0
+    for k in grads["chunked"]:
+        g_c, g_s = grads["chunked"][k], grads["stacked"][k]
+        worst = max(worst, gauge_rel(g_c, g_s))
+        compare(g_s, g_c, f"KAN gradient {k}, chunked vs stacked router", rtol=ENGINE_GRAD_RTOL)
+    print(f"chunked vs stacked KAN gradients: max |a - b| / (|b| + 1e-6) {worst:.3e}")
+    del grads
+
+    kan = new_kan(cfg, dev).train()
+    schedule = cfg.experiment.learning_rate
+    opt = training.make_optimizer(kan.parameters(), resolve_learning_rate(schedule, 1))
+    step = training.make_batch_train_step(kan, *train_args, opt, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    wave_scan.launches = reverse_scan.launches = 0
+    out = {"step_ms": []}
+    losses = []
+    for i in range(1, TRAIN_STEPS + 1):
+        training.set_learning_rate(opt, resolve_learning_rate(schedule, i))
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        loss, daily = step(*batch)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        losses.append(float(loss))
+        out["step_ms"].append(start.elapsed_time(end))
+        print(f"chunked train step {i}: loss {losses[-1]:.6f}, device {out['step_ms'][-1]:.3f} ms (CUDA "
+              f"events), host {host_ms:.3f} ms on {smi}")
+    out["launches"] = {"wave_scan": wave_scan.launches, "reverse_scan": reverse_scan.launches}
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"chunked train: {TRAIN_STEPS} steps, launches {out['launches']} ({C} bands), peak device memory "
+          f"{out['peak_gb']:.3f} GB on {smi}")
+    expect = TRAIN_STEPS * C
+    if not all(np.isfinite(losses)) or out["launches"] != {"wave_scan": expect, "reverse_scan": expect}:
+        fail(f"chunked train: losses {losses}, launches {out['launches']}, expected {C} of each a step")
+    profile_band_step(step, batch, "chunked")
+    del step
+
+    step16 = training.make_batch_train_step(kan, *train_args, opt, device=dev, dtype="bf16",
+                                            collect_health=True, health_bands=HEALTH_BANDS)
+    wave_scan.launches = reverse_scan.launches = 0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    loss, _, health = step16(*batch)
+    end.record()
+    torch.cuda.synchronize()
+    out["bf16_launches"] = wave_scan.launches
+    out["bf16_ms"] = start.elapsed_time(end)
+    stats = {k: getattr(health, k) for k in ("nonfinite", "q_min", "q_max", "mass_residual", "overflow",
+                                              "ulp_drift", "grad_norm")}
+    finite = all(bool(torch.isfinite(torch.as_tensor(v, dtype=torch.float64)).all()) for v in stats.values())
+    print(f"chunked bf16 train step with health: loss {float(loss):.6f}, device {out['bf16_ms']:.3f} ms, "
+          f"launches {wave_scan.launches}/{reverse_scan.launches}, "
+          f"{ {k: float(v) for k, v in stats.items()} }, worst band {worst_of(health)} on {smi}")
+    if not finite or int(health.nonfinite) != 0 or out["bf16_launches"] != C or reverse_scan.launches != C:
+        fail(f"chunked bf16 step: stats {stats}, launches {wave_scan.launches}/{reverse_scan.launches}")
+    del step16, opt, kan
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_ext_bf16(cfg, entry, net, kan, smi, dev) -> dict:
+    """Phase 15, end: the bf16 variant at its main path's shape (a train
+    step: B 1, T 240) on the largest continental band, beside the fp32
+    variant in turns, with its bound, its plain version and its parity there
+    (equal on every element); every band one at a time."""
+    import numpy as np
+    import torch
+
+    from ddr_tpu_torch.routing.mc import Bounds
+    from ddr_tpu_torch.routing.model import denormalize_spatial_parameters
+    from ddr_tpu_torch.routing.wave_kernel import wave_scan, wave_scan_reference
+
+    p = cfg.params
+    B, T = 1, TRAIN_DAYS * 24
+    sizes = [c.n for c in net.chunks]
+    big = int(np.argmax(sizes))
+    out = {}
+    with torch.no_grad():
+        params = denormalize_spatial_parameters(kan(entry.attrs), p.parameter_ranges, p.log_space_parameters,
+                                                p.defaults, net.n)
+        bounds = Bounds.from_config(p.attribute_minimums)
+        all16 = all32 = bound_all = 0.0
+        for c in [big] + [c for c in range(net.n_chunks) if c != big]:
+            band = net.chunks[c]
+            phys = chunk_physics(net, c, entry.channels, params, bounds)
+            qs, xe, se, _ = band_scan_case(band, B, T, 80 + c, False, dev)
+
+            def one(dtype):
+                return wave_scan(qs, band, phys, None, T=T, xe=xe, se=se, compute_dtype=dtype)
+
+            for dtype in ("fp32", "bf16"):
+                one(dtype)
+            reps = 5 if c == big else 2
+            turns = [cuda_ms(lambda d=d: one(d), reps) for d in ("fp32", "bf16", "bf16", "fp32")]
+            ms16, ms32 = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+            all16, all32 = all16 + ms16, all32 + ms32
+            bound_all += max(ext_bounds(band, B, T))
+            if c == big:
+                ref = wave_scan_reference(qs, band, phys, None, T=T, xe=xe, se=se, compute_dtype="bf16")
+                out["err"] = compare_bf16(ref, one("bf16"), f"wave_scan/ext-bf16 continental band {c} "
+                                                            f"(B {B}, T {T})", exact=True)
+                del ref
+                out["plain_ms"] = cuda_ms(lambda: wave_scan_reference(qs, band, phys, None, T=T, xe=xe, se=se,
+                                                                      compute_dtype="bf16"), 1)
+                out.update(ms=ms16, fp32_ms=ms32, bound=ext_bounds(band, B, T), turns=turns)
+            del qs, xe, se
+            torch.cuda.empty_cache()
+    out.update(all_ms=all16, all_fp32_ms=all32, all_bound_ms=bound_all)
+    bytes_ms, flops_ms = out["bound"]
+    print(f"timing wave_scan/ext-bf16 (B {B}, T {T}), largest band ({sizes[big]} reaches) in turns "
+          f"fp32/bf16/bf16/fp32: {' / '.join(f'{t:.3f}' for t in out['turns'])} ms; bf16 {out['ms']:.3f} ms "
+          f"= {100 * (out['ms'] / out['fp32_ms'] - 1):+.1f}% of fp32; plain {out['plain_ms']:.3f} ms; bound "
+          f"{max(bytes_ms, flops_ms):.4f} ms (bytes {bytes_ms:.4f}, operations {flops_ms:.4f}); all "
+          f"{net.n_chunks} bands one at a time bf16 {all16:.3f} ms, fp32 {all32:.3f} ms, bound "
+          f"{bound_all:.4f} ms on {smi}")
+    return out
+
+
+def time_reverse_ext(net, smi, dev) -> dict:
+    """Phase 15, end: ``reverse_scan`` at its main path's shape on the
+    chunked router (a train step's backward: B 1, T 240) on the largest
+    continental band, held against its plain version on the same streams,
+    timed beside it with its bound; then every band one at a time."""
+    import numpy as np
+    import torch
+
+    from ddr_tpu_torch.routing.reverse_kernel import reverse_scan, reverse_scan_reference
+
+    B, T = 1, TRAIN_DAYS * 24
+    sizes = [c.n for c in net.chunks]
+    big = int(np.argmax(sizes))
+    out, per_band, bound_all = {}, [], 0.0
+    with torch.no_grad():
+        for c in [big] + [c for c in range(net.n_chunks) if c != big]:
+            band = net.chunks[c]
+            rows_s = reverse_streams(band, B, T, 100 + c, dev)
+            lams = reverse_scan(rows_s, band, T=T)
+            torch.cuda.synchronize()
+            if c == big:
+                out["err"] = compare(reverse_scan_reference(rows_s, band, T=T), lams,
+                                     f"reverse_scan/ext continental band {c} ({band.n} reaches, B {B}, T {T}, "
+                                     f"t_width {band.wf_t_width})")
+                out["plain_ms"] = cuda_ms(lambda: reverse_scan_reference(rows_s, band, T=T), 1)
+                out["bound"] = reverse_ext_bounds(band, B, T)
+            del lams
+            per_band.append(cuda_ms(lambda: reverse_scan(rows_s, band, T=T), 5 if c == big else 2))
+            bound_all += max(reverse_ext_bounds(band, B, T))
+            del rows_s
+            torch.cuda.empty_cache()
+    out.update(ms=per_band[0], all_ms=sum(per_band), all_bound_ms=bound_all)
+    bytes_ms, flops_ms = out["bound"]
+    print(f"timing reverse_scan/ext (B {B}, T {T}): largest band ({sizes[big]} reaches, W "
+          f"{T + net.chunks[big].depth}) {out['ms']:.3f} ms, plain {out['plain_ms']:.3f} ms, bound "
+          f"{max(bytes_ms, flops_ms):.4f} ms (bytes {bytes_ms:.4f}, operations {flops_ms:.4f}); all "
+          f"{net.n_chunks} bands one at a time {out['all_ms']:.3f} ms against {bound_all:.4f} ms bound on {smi}")
+    return out
+
+
+def numerics_basin(n, depth, T, dtype, dev, seed=0):
+    """The error budget's basin (``ddr_tpu_torch.benchmarks.numerics``):
+    topology, channels, parameters and inflow in ``dtype`` on ``dev``."""
+    import numpy as np
+    import torch
+
+    from ddr_tpu_torch.geodatazoo.synthetic import make_deep_network
+    from ddr_tpu_torch.routing.mc import ChannelState
+
+    rows, cols = make_deep_network(n, depth, seed=seed)
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)  # noqa: E731
+    channels = ChannelState(length=t(rng.uniform(1000, 5000, n)), slope=t(rng.uniform(1e-3, 1e-2, n)),
+                            x_storage=torch.full((n,), 0.3, dtype=dtype, device=dev))
+    params = {k: torch.full((n,), v, dtype=dtype, device=dev)
+              for k, v in (("n", 0.05), ("q_spatial", 0.5), ("p_spatial", 21.0))}
+    q = t(np.random.default_rng(seed + 1).uniform(0.01, 1.0, (T, n)))
+    return rows, cols, channels, params, q
+
+
+def engine_numerics(smi, dev) -> dict:
+    """Phase 16: every float32 engine against the float64 step oracle on
+    the card (``measure_engine_errors``, ``chunk_bands=4``), 1 - NSE held to
+    ``NUMERICS_MAX_ONE_MINUS_NSE``; then the oracle's cost: one float64 step
+    route beside one single-ring kernel route on the same input."""
+    import torch
+
+    from ddr_tpu_torch.benchmarks.numerics import measure_engine_errors
+    from ddr_tpu_torch.routing.mc import route
+    from ddr_tpu_torch.routing.network import build_network
+
+    out = {"errors": {}}
+    for n, depth, T in NUMERICS_SHAPES:
+        t0 = time.perf_counter()
+        errors = measure_engine_errors(n, depth, T, chunk_bands=4, device=dev)
+        out["errors"][(n, depth, T)] = errors
+        print(f"engine numerics (n {n}, depth {depth}, T {T}; {time.perf_counter() - t0:.1f}s):")
+        for engine, (rel, one_nse) in errors.items():
+            print(f"  {engine:<18} rel_max {rel:.3e}  1-NSE {one_nse:.3e}")
+            if not one_nse <= NUMERICS_MAX_ONE_MINUS_NSE:
+                fail(f"engine numerics {engine} at (n {n}, depth {depth}, T {T}): 1-NSE {one_nse}")
+    # measure_engine_errors has just routed both at this shape: no warm-up
+    n, depth, T = NUMERICS_SHAPES[0]
+    with torch.no_grad():
+        for label, dtype, kw in (("step engine, float64", torch.float64, {"engine": "step"}),
+                                 ("single ring on the kernel, float32", torch.float32, {})):
+            rows, cols, channels, params, q = numerics_basin(n, depth, T, dtype, dev)
+            net = build_network(rows, cols, n, fused=False if kw else None, device=dev)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            res = route(net, channels, params, q, device=dev, **kw)
+            end.record()
+            torch.cuda.synchronize()
+            out[label] = start.elapsed_time(end)
+            print(f"timing route (n {n}, depth {depth}, T {T}), {label}: {out[label]:.3f} ms (CUDA events), "
+                  f"host {(time.perf_counter() - t0) * 1e3:.3f} ms, runoff {res.runoff.dtype} on {smi}")
+    return out
+
+
+def ad_against_analytic(dev) -> None:
+    """Phase 17: gradients of a weighted loss w.r.t. ``n``, ``q_spatial``
+    and ``q'`` on a small single ring, once by autograd through the plain
+    scan (``adjoint="ad", kernel="reference"``) and once by the analytic
+    adjoint on the kernels, within ``RTOL`` (the JAX package's
+    ``tests/routing/test_adjoint.py``); ``adjoint="ad"`` with the kernels
+    must raise."""
+    import numpy as np
+    import torch
+
+    from ddr_tpu_torch.geodatazoo.synthetic import make_basin
+    from ddr_tpu_torch.routing.mc import route
+    from ddr_tpu_torch.routing.model import prepare_batch
+
+    basin = make_basin(n_segments=AD_SEGMENTS, n_gauges=4, n_days=2, seed=3, depth=AD_DEPTH)
+    net, ch, gauges = prepare_batch(basin.routing_data, 0.001, device=dev)
+    w = torch.as_tensor(np.random.default_rng(5).normal(size=(AD_T, AD_SEGMENTS)).astype(np.float32), device=dev)
+    try:
+        route(net, ch, {k: torch.as_tensor(v, device=dev) for k, v in basin.true_params.items()},
+              torch.as_tensor(basin.q_prime[:AD_T], device=dev), adjoint="ad", device=dev)
+        fail("adjoint='ad' on the kernels did not raise")
+    except ValueError as e:
+        print(f"adjoint='ad' with kernel=None on the card raises: {e}")
+    grads = {}
+    for adjoint, kernel in (("analytic", None), ("ad", "reference")):
+        params = {k: torch.tensor(v, dtype=torch.float32, device=dev, requires_grad=True)
+                  for k, v in basin.true_params.items()}
+        q = torch.tensor(basin.q_prime[:AD_T], device=dev, requires_grad=True)
+        res = route(net, ch, params, q, adjoint=adjoint, kernel=kernel, device=dev)
+        ((res.runoff * w).sum() + res.final_discharge.sum()).backward()
+        torch.cuda.synchronize()
+        grads[adjoint] = {"n": params["n"].grad, "q_spatial": params["q_spatial"].grad, "q_prime": q.grad}
+    for k in grads["ad"]:
+        compare(grads["ad"][k], grads["analytic"][k],
+                f"gradient d/d{k}, analytic adjoint on the kernels vs ad through the plain scan "
+                f"(n {net.n}, depth {net.depth}, T {AD_T})")
+
 
 def time_fp32_only() -> int:
     """``python3 chip_smoke.py --time-fp32``: only the fp32 forward kernel's
@@ -1445,6 +2032,29 @@ def main() -> int:
     band = time_bands(cfg, served["entry"], served["kan"], smi, dev)
     band16 = time_bf16_bands(cfg, served["entry"], served["kan"], smi, dev)
     bf16_band_err = max(bf16_band_err, band16["err"])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 13-15. the unrolled depth-chunked router ----
+    t0 = time.perf_counter()
+    ext_err, ext16_err, rev_ext_err = ext_parity_small(dev)
+    chunked = serve_chunked(cfg, deep, served["entry"], served["kan"], smi, dev)
+    ext_err = max(ext_err, chunked["err"])
+    chunked_train = train_chunked(cfg, deep, served["entry"], chunked["net"], smi, dev)
+    ext16 = time_ext_bf16(cfg, served["entry"], chunked["net"], served["kan"], smi, dev)
+    ext16_err = max(ext16_err, ext16["err"])
+    rev_ext = time_reverse_ext(chunked["net"], smi, dev)
+    rev_ext_err = max(rev_ext_err, rev_ext["err"])
+    del chunked["net"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"chunked phases: {time.perf_counter() - t0:.1f}s")
+
+    # ---- 16-17. engine numerics against the float64 step oracle; AD ----
+    t0 = time.perf_counter()
+    engine_numerics(smi, dev)
+    ad_against_analytic(dev)
+    print(f"numerics and AD phases: {time.perf_counter() - t0:.1f}s")
 
     def band_entry(name, source, replaces, launches, err, t):
         bytes_ms, flops_ms = t["bound"]
@@ -1505,6 +2115,15 @@ def main() -> int:
         {**band_entry("wave_scan/band-bf16", "ddr_tpu_torch/csrc/wave_scan.cu",
                       "ddr_tpu/routing/pallas_kernel.py:193", deep16["launches"], bf16_band_err, band16),
          "fp32_ms_same_input": band16["fp32_ms"], "fp32_ms_all_bands_same_input": band16["all_fp32_ms"]},
+        band_entry("wave_scan/ext", "ddr_tpu_torch/csrc/wave_scan.cu",
+                   "ddr_tpu/routing/pallas_kernel.py:193",
+                   chunked["launches"] + chunked_train["launches"]["wave_scan"], ext_err, chunked),
+        {**band_entry("wave_scan/ext-bf16", "ddr_tpu_torch/csrc/wave_scan.cu",
+                      "ddr_tpu/routing/pallas_kernel.py:193", chunked_train["bf16_launches"], ext16_err, ext16),
+         "fp32_ms_same_input": ext16["fp32_ms"], "fp32_ms_all_bands_same_input": ext16["all_fp32_ms"]},
+        band_entry("reverse_scan/ext", "ddr_tpu_torch/csrc/reverse_scan.cu",
+                   "ddr_tpu/routing/pallas_kernel.py:348", chunked_train["launches"]["reverse_scan"],
+                   rev_ext_err, rev_ext),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -53,6 +53,7 @@ __all__ = [
     "HealthStats",
     "HealthWatchdog",
     "ReachStats",
+    "assemble_reach_stats",
     "compute_band_health",
     "compute_health",
     "compute_health_host",
@@ -217,6 +218,35 @@ def compute_reach_stats(runoff: torch.Tensor, q_prime: torch.Tensor, compute_dty
         out_mass=inv(out_mass, runoff_inv),
         in_mass=inv(in_mass, q_prime_inv),
         overflow=None if overflow is None else inv(overflow, runoff_inv),
+    )
+
+
+def assemble_reach_stats(nonfinite: torch.Tensor, q_min: torch.Tensor, q_max: torch.Tensor,
+                         out_mass: torch.Tensor, q_prime: torch.Tensor, inv: torch.Tensor | None = None,
+                         q_prime_inv: torch.Tensor | None = None) -> ReachStats:
+    """:class:`ReachStats` from per-reach reductions already accumulated
+    (the step engine's carried accumulators, where the full ``(T, N)``
+    field never exists); the lateral-inflow half is reduced here over every
+    leading axis of ``q_prime``. ``inv``/``q_prime_inv`` re-align the column
+    orders as in :func:`compute_reach_stats`. The step engine has no bf16
+    ring, so ``overflow`` is ``None``."""
+    with torch.no_grad():
+        qp = q_prime.detach()
+        qp_dims = tuple(range(qp.dim() - 1))
+        qp_finite = torch.isfinite(qp)
+        nf_qp = (~qp_finite).sum(dim=qp_dims, dtype=torch.int32)
+        in_mass = torch.where(qp_finite, qp, 0.0).sum(dim=qp_dims)
+
+    def align(a, index):
+        return a if index is None else a[index.long()]
+
+    return ReachStats(
+        nonfinite=align(nonfinite.to(torch.int32), inv) + align(nf_qp, q_prime_inv),
+        q_min=align(q_min, inv),
+        q_max=align(q_max, inv),
+        out_mass=align(out_mass, inv),
+        in_mass=align(in_mass, q_prime_inv),
+        overflow=None,
     )
 
 

@@ -1,31 +1,38 @@
 """Muskingum-Cunge routing: physics and the ``route`` entry point.
 
-The port of ``ddr_tpu/routing/mc.py`` for the serving and training paths.
-Per timestep the engine solves
+The port of ``ddr_tpu/routing/mc.py``. Per timestep the engines solve
 
     (I - diag(c1) N) Q_{t+1} = c2 * (N @ Q_t) + c3 * Q_t + c4 * Q'
 
-on the time-skewed wavefront schedule, differentiated by its analytic
-reverse-wavefront adjoint: the single-ring engine
-(:mod:`ddr_tpu_torch.routing.wavefront`) where its caps fit, the stacked band
-router (:mod:`ddr_tpu_torch.routing.stacked`) for deeper or wider networks
-(:func:`~ddr_tpu_torch.routing.chunked.build_routing_network` picks). Either
-runs with its history ring in fp32 or bf16 (``dtype``), and can return the
-numerical-health stats of the result
-(:mod:`ddr_tpu_torch.observability.health`).
+either on the time-skewed wavefront schedule, differentiated by its analytic
+reverse-wavefront adjoint (or by autograd through the plain scan): the
+single-ring engine (:mod:`ddr_tpu_torch.routing.wavefront`) where its caps
+fit, the stacked band router (:mod:`ddr_tpu_torch.routing.stacked`) for
+deeper or wider networks
+(:func:`~ddr_tpu_torch.routing.chunked.build_routing_network` picks), the
+unrolled depth-chunked router (:mod:`ddr_tpu_torch.routing.chunked`) under an
+explicit cell budget; or one timestep at a time on the step engine
+(:func:`route_step`, the level-scheduled solve of
+:mod:`ddr_tpu_torch.routing.solver`), which computes in its inputs' dtype:
+the float64 oracle of the others, and the engine of networks without
+wavefront tables. The wavefront engines run their history ring in fp32 or
+bf16 (``dtype``); every engine can return the numerical-health stats of the
+result (:mod:`ddr_tpu_torch.observability.health`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
 
 import numpy as np
 import torch
 
 from ddr_tpu_torch.device import resolve_device
-from ddr_tpu_torch.geometry.trapezoidal import clip, rdiv, trapezoidal_geometry
+from ddr_tpu_torch.geometry.trapezoidal import clip, maximum, rdiv, trapezoidal_geometry
 from ddr_tpu_torch.routing.network import RiverNetwork
+from ddr_tpu_torch.routing.solver import fused_solve, solve_lower_triangular
 
 __all__ = [
     "DT_SECONDS",
@@ -36,10 +43,14 @@ __all__ = [
     "band_ids",
     "celerity",
     "denormalize",
+    "hotstart_discharge",
     "muskingum_coefficients",
     "reach_physics",
     "route",
+    "route_step",
 ]
+
+log = logging.getLogger(__name__)
 
 DT_SECONDS = 3600.0  # hourly routing step
 
@@ -233,6 +244,120 @@ def reach_physics(
     )
 
 
+def hotstart_discharge(network: RiverNetwork, q_prime_t0: torch.Tensor, discharge_lb: float,
+                       permuted: bool = False) -> torch.Tensor:
+    """Cold-start discharge: the solve ``(I - N) Q0 = q'_0`` (the topological
+    accumulation of lateral inflows), clamped. ``permuted=True`` takes and
+    returns the fused schedule's level-contiguous order. Differentiable."""
+    ones = torch.ones_like(q_prime_t0)
+    if permuted:
+        q0 = fused_solve(network.level_starts, ones, q_prime_t0, network.pred, network.down)
+    else:
+        q0 = solve_lower_triangular(network, ones, q_prime_t0)
+    return maximum(q0, discharge_lb)
+
+
+def route_step(
+    network: RiverNetwork,
+    channels: ChannelState,
+    n_mann: torch.Tensor,
+    p_spatial: torch.Tensor,
+    q_spatial: torch.Tensor,
+    q_t: torch.Tensor,
+    q_prime_t: torch.Tensor,
+    bounds: Bounds,
+    dt: float = DT_SECONDS,
+    permuted: bool = False,
+) -> torch.Tensor:
+    """One Muskingum-Cunge step from ``q_t`` (``(..., N)``); ``q_prime_t``
+    must already be clamped to the discharge bound. ``permuted=True`` takes
+    every per-reach tensor in the fused schedule's order and solves there."""
+    c = celerity(q_t, n_mann, p_spatial, q_spatial, channels, bounds)[0]
+    c1, c2, c3, c4 = muskingum_coefficients(channels.length, c, channels.x_storage, dt)
+    i_t = network.upstream_sum_perm(q_t) if permuted else network.upstream_sum(q_t)
+    b = c2 * i_t + c3 * q_t + c4 * q_prime_t
+    if permuted:
+        q_t1 = fused_solve(network.level_starts, c1, b, network.pred, network.down)
+    else:
+        q_t1 = solve_lower_triangular(network, c1, b)
+    return maximum(q_t1, bounds.discharge)
+
+
+def _route_steps(network: RiverNetwork, channels: ChannelState, spatial_params: dict,
+                 q_prime: torch.Tensor, q_init, gauges, bounds: Bounds, dt: float,
+                 want_spatial: bool) -> RouteResult:
+    """The step engine over ``q_prime`` ``(..., T, N)``: the hotstart (or
+    ``q_init``), then ``T - 1`` :func:`route_step` calls, in the inputs'
+    dtype. On a fused network every per-reach tensor is permuted once into
+    the level-contiguous order and only the outputs are mapped back. With
+    gauges the per-reach health reductions ride four ``(..., N)``
+    accumulators, as the JAX scan carry does; without them they reduce the
+    full field."""
+    from ddr_tpu_torch.observability.health import assemble_reach_stats, compute_reach_stats
+
+    dev, lb = q_prime.device, bounds.discharge
+
+    def operand(a):
+        return a if torch.is_tensor(a) else torch.as_tensor(a, dtype=q_prime.dtype, device=dev)
+
+    n_mann, p_spatial, q_spatial = (operand(spatial_params[k]) for k in ("n", "p_spatial", "q_spatial"))
+    permuted = network.fused
+    inv = None
+    if permuted:
+        perm, inv = network.perm.long(), network.inv_perm.long()
+
+        def by_perm(a):
+            return a if a.dim() == 0 else a[..., perm]
+
+        channels = channels.permuted(perm)
+        n_mann, p_spatial, q_spatial = by_perm(n_mann), by_perm(p_spatial), by_perm(q_spatial)
+        q_prime = q_prime[..., perm]
+        q_init = None if q_init is None else q_init[..., perm]
+        if gauges is not None:
+            gauges = dataclasses.replace(gauges, flat_idx=inv[gauges.flat_idx])
+
+    if q_init is None:
+        q = hotstart_discharge(network, q_prime[..., 0, :], lb, permuted=permuted)
+    else:
+        q = maximum(q_init, lb).expand(q_prime[..., 0, :].shape)
+
+    def emit(x):
+        return gauges.aggregate(x) if gauges is not None else x
+
+    carry = want_spatial and gauges is not None
+    if carry:
+        big = torch.finfo(q.dtype).max
+        qd = q.detach()
+        fin = torch.isfinite(qd)
+        acc = [(~fin).to(torch.int32), torch.where(fin, qd, big), torch.where(fin, qd, -big),
+               torch.where(fin, qd, 0.0)]
+    outs = [emit(q)]
+    for t in range(q_prime.shape[-2] - 1):
+        q = route_step(network, channels, n_mann, p_spatial, q_spatial, q,
+                       maximum(q_prime[..., t, :], lb), bounds, dt, permuted=permuted)
+        outs.append(emit(q))
+        if carry:
+            qd = q.detach()
+            fin = torch.isfinite(qd)
+            acc = [acc[0] + (~fin).to(torch.int32), torch.minimum(acc[1], torch.where(fin, qd, big)),
+                   torch.maximum(acc[2], torch.where(fin, qd, -big)), acc[3] + torch.where(fin, qd, 0.0)]
+    runoff = torch.stack(outs, dim=-2)
+    reach = None
+    if carry:
+        lead = tuple(range(q.dim() - 1))  # a batch reduces like time
+        nf, qmin, qmax, qsum = acc
+        if lead:
+            nf, qmin, qmax, qsum = nf.sum(lead, dtype=torch.int32), qmin.amin(lead), qmax.amax(lead), qsum.sum(lead)
+        reach = assemble_reach_stats(nf, qmin, qmax, qsum, q_prime, inv=inv, q_prime_inv=inv)
+    if permuted:
+        q = q[..., inv]
+        if gauges is None:
+            runoff = runoff[..., inv]
+    if want_spatial and gauges is None:
+        reach = compute_reach_stats(runoff, q_prime, q_prime_inv=inv)
+    return RouteResult(runoff=runoff, final_discharge=q, reach_stats=reach)
+
+
 def route(
     network,
     channels: ChannelState,
@@ -242,9 +367,11 @@ def route(
     gauges: GaugeIndex | None = None,
     bounds: Bounds = Bounds(),
     dt: float = DT_SECONDS,
+    engine: str | None = None,
     kernel: str | None = None,
     device: str | torch.device = "cuda",
-    adjoint: str = "analytic",
+    adjoint: str | None = None,
+    remat_physics: bool = True,
     dtype: str = "fp32",
     collect_health: bool = False,
     health_bands: int = 0,
@@ -260,26 +387,41 @@ def route(
     consumes ``q_prime[t-1]``. ``gauges`` aggregates the output columns;
     ``None`` returns every reach.
 
-    ``kernel`` selects the scans: ``None`` runs
+    ``network`` picks the engine, as in the JAX package: a
+    :class:`~ddr_tpu_torch.routing.stacked.StackedChunked` routes through
+    :func:`~ddr_tpu_torch.routing.stacked.route_stacked`, a
+    :class:`~ddr_tpu_torch.routing.chunked.ChunkedNetwork` through
+    :func:`~ddr_tpu_torch.routing.chunked.route_chunked` (both: ``engine``
+    ``None`` or ``"wavefront"``); a
+    :class:`~ddr_tpu_torch.routing.network.RiverNetwork` on the wavefront
+    engine where it carries the tables (``engine=None`` picks it), else on
+    the step engine (``engine="step"``), which computes in the inputs'
+    dtype and also routes networks of depth 0. When ``engine=None`` sends a
+    network of depth > 0 to the step engine (one level-scheduled solve a
+    timestep, no kernel: orders of magnitude slower than the wavefront
+    engines on a deep network), a warning names the engine and how to reach
+    a wavefront one.
+
+    ``kernel`` selects the wavefront engines' scans: ``None`` runs
     :func:`~ddr_tpu_torch.routing.wave_kernel.wave_scan` forward and
     :func:`~ddr_tpu_torch.routing.reverse_kernel.reverse_scan` backward (the
     CUDA kernels on a card, their plain versions on the CPU), ``"reference"``
     the plain PyTorch versions on any device (a yardstick, never the main
-    path).
+    path). The step engine has no kernel: both are accepted there.
 
-    ``network`` is a single-ring :class:`RiverNetwork` or a
-    :class:`~ddr_tpu_torch.routing.stacked.StackedChunked`, which routes
-    through :func:`~ddr_tpu_torch.routing.stacked.route_stacked`.
+    ``adjoint`` selects the wavefront engines' backward: ``"analytic"`` (the
+    default where ``None``) is the reverse-wavefront adjoint on the kernels,
+    ``"ad"`` autograd through the plain forward scan, which on CUDA tensors
+    needs ``kernel="reference"`` (the CUDA kernel has no autograd rule, and
+    no fallback hides that). ``remat_physics`` recomputes the per-wave MC
+    chain in the AD backward instead of storing it. The step engine
+    differentiates through its solver, so an explicit ``adjoint`` there
+    raises.
 
-    Gradients flow to ``q_prime``, ``q_init``, ``spatial_params`` and the
-    channel tensors through the analytic reverse-wavefront adjoint
-    (``adjoint="analytic"``, the JAX package's default wherever the network
-    carries transposed tables, and the only one ported: ``"ad"``, autograd
-    through the forward scan, raises).
-
-    ``dtype="bf16"`` stores the forward scans' history ring in bfloat16
+    ``dtype="bf16"`` stores the wavefront scans' history ring in bfloat16
     (bf16-compute / fp32-accumulate: one rounding point a wave, at the ring
-    store; every sum and the backward in fp32). An unknown dtype raises.
+    store; every sum and the backward in fp32); the step engine raises on
+    it. An unknown dtype raises.
 
     ``collect_health=True`` adds ``RouteResult.health``: non-finite counts,
     discharge extrema and the mass residual over ``runoff``, ``q_prime`` and
@@ -292,36 +434,25 @@ def route(
 
     Inputs must lie on ``device`` (default ``"cuda"``; raises without a card).
     """
+    from ddr_tpu_torch.routing.chunked import ChunkedNetwork, route_chunked
     from ddr_tpu_torch.routing.stacked import StackedChunked, route_stacked
     from ddr_tpu_torch.routing.wave_kernel import validate_dtype
     from ddr_tpu_torch.routing.wavefront import wavefront_route_core
 
-    if adjoint == "ad":
-        raise NotImplementedError(
-            "adjoint='ad' (autograd through the forward scan) is not ported; the "
-            "analytic adjoint is the port's backward (ROADMAP A.7)"
-        )
-    if adjoint != "analytic":
-        raise ValueError(f"unknown adjoint {adjoint!r} (use 'analytic')")
+    if adjoint not in (None, "analytic", "ad"):
+        raise ValueError(f"unknown adjoint {adjoint!r} (use 'analytic', 'ad', or None)")
+    if kernel not in (None, "reference"):
+        raise ValueError(f"unknown kernel {kernel!r} (use None or 'reference')")
     validate_dtype(dtype)
     dev = resolve_device(device)
-    stacked = isinstance(network, StackedChunked)
-    if not stacked and not network.single_ring:
-        engine = "the step engine (ROADMAP A.7)" if network.depth == 0 else (
-            "the stacked band router: build it with build_routing_network"
-        )
-        raise NotImplementedError(
-            f"network (depth={network.depth}, n={network.n}) is not single-ring "
-            f"eligible; it needs {engine}"
-        )
-    tensors = [network.gidx if stacked else network.level, q_prime, *spatial_params.values(),
-               channels.length]
+    banded = isinstance(network, (StackedChunked, ChunkedNetwork))
+    level = network.orig_level if isinstance(network, StackedChunked) else network.level
+    tensors = [level, q_prime, *spatial_params.values(), channels.length]
     if q_init is not None:
         tensors.append(q_init)
     for t in tensors:
         if torch.is_tensor(t) and t.device.type != dev.type:
             raise ValueError(f"route on {dev} got a tensor on {t.device}")
-    level = network.orig_level if stacked else network.level
     # networks with an empty level field (no reaches) have no band health
     want_spatial = collect_health and health_bands > 0 and int(level.shape[0]) == network.n
 
@@ -338,17 +469,48 @@ def route(
                 result.reach_stats, ids, nb, top_k=health_topk, compute_dtype=dtype))
         return dataclasses.replace(result, health=health, reach_stats=None)
 
-    if stacked:
-        return finish(route_stacked(network, channels, spatial_params, q_prime, q_init=q_init,
-                                    gauges=gauges, bounds=bounds, dt=dt, kernel=kernel, dtype=dtype,
-                                    collect_reach_stats=want_spatial))
+    if banded:
+        if engine not in (None, "wavefront"):
+            raise ValueError(f"a {type(network).__name__} always routes via its banded wavefront")
+        router = route_stacked if isinstance(network, StackedChunked) else route_chunked
+        return finish(router(network, channels, spatial_params, q_prime, q_init=q_init,
+                             gauges=gauges, bounds=bounds, dt=dt, kernel=kernel, dtype=dtype,
+                             adjoint=adjoint or "analytic", remat_physics=remat_physics,
+                             collect_reach_stats=want_spatial))
+
+    if engine is None:
+        engine = "wavefront" if network.wavefront else "step"
+        if engine == "step" and network.depth > 0:
+            log.warning(
+                f"route: a network of depth {network.depth} without wavefront tables routes on "
+                "the step engine (one level-scheduled solve a timestep, no kernel); build it with "
+                "build_routing_network for a wavefront engine, or pass engine='step'"
+            )
+    if engine == "step":
+        if adjoint is not None:
+            raise ValueError(
+                "adjoint applies to the wavefront routing family; the step engine "
+                "differentiates through its own triangular-solve backward"
+            )
+        if dtype != "fp32":
+            raise ValueError(
+                "dtype='bf16' applies to the wavefront routing family; the step engine "
+                "computes in its inputs' dtype"
+            )
+        return finish(_route_steps(network, channels, spatial_params, q_prime, q_init, gauges,
+                                   bounds, dt, want_spatial))
+    if engine != "wavefront":
+        raise ValueError(f"unknown engine {engine!r} (use 'wavefront' or 'step')")
+    if not network.wavefront:
+        raise ValueError("network was built without wavefront tables")
 
     perm = network.wf_perm.long()
     inv = network.wf_inv.long()
     physics = reach_physics(network, channels, spatial_params, bounds, dt)
     q_init_p = None if q_init is None else q_init[..., perm]
     runoff_p, final_p, _ = wavefront_route_core(
-        network, physics, q_prime, q_init_p, kernel=kernel, dtype=dtype
+        network, physics, q_prime, q_init_p, kernel=kernel, dtype=dtype,
+        adjoint=adjoint or "analytic", remat_physics=remat_physics,
     )
     reach = None
     if want_spatial:

@@ -25,8 +25,8 @@ from ddr_tpu_torch.routing.mc import (
     denormalize,
     route,
 )
-from ddr_tpu_torch.routing.chunked import build_routing_network
-from ddr_tpu_torch.routing.network import RiverNetwork
+from ddr_tpu_torch.routing.chunked import ChunkedNetwork, build_routing_network
+from ddr_tpu_torch.routing.network import RiverNetwork, build_network
 from ddr_tpu_torch.routing.stacked import StackedChunked
 
 __all__ = [
@@ -41,10 +41,13 @@ __all__ = [
 def engine_label(network: Any) -> str:
     """The name of the engine a built network routes on, as the JAX package
     prints it: ``stacked-chunked-wavefront[K-band-scan]``,
-    ``single-ring-wavefront`` or ``step`` (not ported)."""
+    ``depth-chunked-wavefront[K-band]``, ``single-ring-wavefront`` or
+    ``step``."""
     if isinstance(network, StackedChunked):
         return f"stacked-chunked-wavefront[{network.n_chunks}-band-scan]"
-    if getattr(network, "single_ring", False):
+    if isinstance(network, ChunkedNetwork):
+        return f"depth-chunked-wavefront[{network.n_chunks}-band]"
+    if getattr(network, "wavefront", False):
         return "single-ring-wavefront"
     return "step"
 
@@ -76,15 +79,24 @@ def prepare_channels(
 
 
 def prepare_batch(
-    rd: RoutingData, slope_min: float, device: str | torch.device = "cuda"
+    rd: RoutingData, slope_min: float, device: str | torch.device = "cuda",
+    fused: bool | None = None, chunked: bool = True,
 ) -> tuple[RiverNetwork | StackedChunked, ChannelState, GaugeIndex | None]:
     """RoutingData -> (network, channel state, gauge index) on ``device``.
-    The network is the one :func:`~ddr_tpu_torch.routing.chunked.build_routing_network`
-    picks: single-ring where its caps fit, the stacked band frame for deeper
-    or wider networks."""
-    network = build_routing_network(
-        rd.adjacency_rows, rd.adjacency_cols, rd.n_segments, device=device
-    )
+    By default the network is the one
+    :func:`~ddr_tpu_torch.routing.chunked.build_routing_network` picks:
+    single-ring where its caps fit, the stacked band frame for deeper or
+    wider networks. An explicit ``fused``, or ``chunked=False``, builds a
+    plain :class:`~ddr_tpu_torch.routing.network.RiverNetwork` with
+    :func:`~ddr_tpu_torch.routing.network.build_network` (``fused``
+    forwarded), which a deep network then routes on the step engine."""
+    if fused is None and chunked:
+        network = build_routing_network(
+            rd.adjacency_rows, rd.adjacency_cols, rd.n_segments, device=device
+        )
+    else:
+        network = build_network(rd.adjacency_rows, rd.adjacency_cols, rd.n_segments, fused=fused,
+                                device=device)
     channels, gauges = prepare_channels(rd, slope_min, device=device)
     return network, channels, gauges
 

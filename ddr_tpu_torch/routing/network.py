@@ -1,15 +1,13 @@
-"""River-network topology: the wavefront tables on a torch device.
+"""River-network topology: the solve schedules and wavefront tables on a torch device.
 
 The port's own copy of ``ddr_tpu/routing/network.py``'s numpy builders
-(longest-path levels, the degree-bucketed wavefront gather tables, their
-transpose, the single-ring eligibility rule), producing a
-:class:`RiverNetwork` whose tables are int32/float32 tensors on one device.
+(longest-path levels, the step engine's level-scheduled solve tables, the
+degree-bucketed wavefront gather tables, their transpose, the single-ring
+eligibility rule), producing a :class:`RiverNetwork` whose tables are
+int32/float32 tensors on one device.
 
 An edge (src -> tgt) means reach ``src`` drains into reach ``tgt``; ``rows``
 are targets and ``cols`` sources (the binsparse COO convention).
-
-Only the wavefront schedule is built: the fused/step-engine fields of the JAX
-network have no consumer in this port yet.
 """
 
 from __future__ import annotations
@@ -18,6 +16,7 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch.nn import functional as F
 
 from ddr_tpu_torch.device import resolve_device
 
@@ -25,6 +24,7 @@ __all__ = [
     "RiverNetwork",
     "build_network",
     "compute_levels",
+    "level_schedule",
     "single_ring_eligible",
 ]
 
@@ -32,12 +32,29 @@ __all__ = [
 # routes on the stacked band router (routing/stacked.py).
 WAVEFRONT_MAX_IN_DEGREE = 64
 WAVEFRONT_MAX_DEPTH = 1024
+# Fused (level-contiguous gather) solve schedule limits: river networks have
+# in-degree <= 4 and out-degree 1; the level loop runs once per level.
+FUSED_MAX_IN_DEGREE = 8
+FUSED_MAX_OUT_DEGREE = 4
+FUSED_MAX_DEPTH = 512
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class RiverNetwork:
-    """Static river topology with the single-ring wavefront tables.
+    """Static river topology: the step engine's solve schedules and the
+    wavefront tables.
 
+    The step engine's triangular solve (:mod:`ddr_tpu_torch.routing.solver`)
+    has two schedules. The *rectangle* (always built): edges grouped by
+    target level into the ``(n_rows, width)`` tables ``lvl_src``/``lvl_tgt``
+    (original order, oversized levels split into several rows, pads hold the
+    sentinel ``n``). The *fused* one (``fused``): reaches permuted
+    level-contiguously (``perm``/``inv_perm``, level ``L`` at ``level_starts[L]
+    : level_starts[L + 1]``), predecessors and successors in the padded
+    gather tables ``pred``/``down`` (permuted space, sentinel ``n``).
+    ``edge_src``/``edge_tgt`` are the flat edge list.
+
+    The wavefront tables exist when ``wavefront`` is set (empty otherwise).
     Node order ``wf_perm`` sorts reaches by (in-degree bucket, level, id);
     ``wf_inv`` is its inverse. Per node in wf order, ``wf_slot`` and
     ``wf_width`` give the node's run of predecessor slots in the flat
@@ -58,6 +75,17 @@ class RiverNetwork:
     depth: int
     n_edges: int
     single_ring: bool
+    edge_src: torch.Tensor  # (E,) int32, original order
+    edge_tgt: torch.Tensor  # (E,) int32
+    lvl_src: torch.Tensor  # (n_rows, width) int32, sentinel n
+    lvl_tgt: torch.Tensor  # (n_rows, width) int32, sentinel n
+    perm: torch.Tensor  # (n,) int32 level-contiguous order, empty unless fused
+    inv_perm: torch.Tensor  # (n,) int32, empty unless fused
+    pred: torch.Tensor  # (n, U) int32 predecessors, permuted space, sentinel n
+    down: torch.Tensor  # (n, D) int32 successors, permuted space, sentinel n
+    level_starts: tuple  # first permuted index of each level, and n
+    fused: bool
+    wavefront: bool
     level: torch.Tensor  # (n,) int32, original order
     level_p: torch.Tensor  # (n,) int32, wf order
     wf_perm: torch.Tensor  # (n,) int32
@@ -79,6 +107,17 @@ class RiverNetwork:
     @property
     def device(self) -> torch.device:
         return self.level.device
+
+    def upstream_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``N @ x`` over the last axis, original order: the upstream sum of
+        each reach, one ``index_add`` over the edge list."""
+        return x.new_zeros(x.shape).index_add_(
+            -1, self.edge_tgt.long(), x.index_select(-1, self.edge_src.long()))
+
+    def upstream_sum_perm(self, x_perm: torch.Tensor) -> torch.Tensor:
+        """``N @ x`` in the fused permuted space: one gather of the padded
+        predecessor table (the sentinel reads an appended zero)."""
+        return F.pad(x_perm, (0, 1))[..., self.pred.long()].sum(-1)
 
 
 def _ranges(starts: np.ndarray, ends: np.ndarray) -> np.ndarray:
@@ -135,6 +174,61 @@ def compute_levels(rows: np.ndarray, cols: np.ndarray, n: int) -> np.ndarray:
     if n_done < n:
         raise ValueError(f"adjacency contains a cycle: {n - n_done} nodes unreachable")
     return level
+
+
+def level_schedule(
+    rows: np.ndarray,
+    cols: np.ndarray,
+    n: int,
+    level: np.ndarray | None = None,
+    e_cap: int | None = None,
+) -> tuple[np.ndarray, np.ndarray, int]:
+    """Edges grouped by target level and padded to a ``(n_rows, width)``
+    rectangle (pads hold the sentinel ``n``); returns ``(lvl_src, lvl_tgt,
+    depth)``. A level with more than ``e_cap`` edges (default ``max(1024, 2 *
+    mean)``) is split into several rows: its edges are independent, since
+    every source sits at a lower level. Solvers size their loop by
+    ``lvl_src.shape[0]``, which can exceed ``depth``."""
+    rows = np.asarray(rows, dtype=np.int64)
+    cols = np.asarray(cols, dtype=np.int64)
+    if level is None:
+        level = compute_levels(rows, cols, n)
+    depth = int(level.max()) if n else 0
+    if rows.size == 0 or depth == 0:
+        return np.zeros((0, 1), dtype=np.int64), np.zeros((0, 1), dtype=np.int64), 0
+
+    tgt_level = level[rows]  # every edge's target has level >= 1
+    order = np.argsort(tgt_level, kind="stable")
+    s_src, s_tgt = cols[order], rows[order]
+    counts = np.bincount(tgt_level[order], minlength=depth + 1)[1:]  # levels 1..depth
+    if e_cap is None:
+        e_cap = max(1024, 2 * int(np.ceil(counts.sum() / depth)))
+    chunks = np.maximum(1, -(-counts // e_cap))  # rows per level
+    width = int(min(int(counts.max()), e_cap))
+    row_base = np.concatenate([[0], np.cumsum(chunks)])
+    n_rows = int(row_base[-1])
+
+    lvl_src = np.full((n_rows, width), n, dtype=np.int64)
+    lvl_tgt = np.full((n_rows, width), n, dtype=np.int64)
+    pos_in_level = _ranges(np.zeros(depth, dtype=np.int64), counts.astype(np.int64))
+    level_of_edge = np.repeat(np.arange(depth), counts)
+    row_pos = row_base[level_of_edge] + pos_in_level // width
+    col_pos = pos_in_level % width
+    lvl_src[row_pos, col_pos] = s_src
+    lvl_tgt[row_pos, col_pos] = s_tgt
+    return lvl_src, lvl_tgt, depth
+
+
+def _padded_adjacency_table(point: np.ndarray, neighbor: np.ndarray, n: int, width: int) -> np.ndarray:
+    """``(n, max(width, 1))``: each node's neighbors, padded with the sentinel ``n``."""
+    table = np.full((n, max(width, 1)), n, dtype=np.int64)
+    order = np.argsort(point, kind="stable")
+    pt, nb = point[order], neighbor[order]
+    starts = np.searchsorted(pt, np.arange(n + 1))
+    counts = starts[1:] - starts[:-1]
+    col = np.arange(len(pt)) - starts[:-1].repeat(counts)
+    table[pt, col] = nb
+    return table
 
 
 def single_ring_eligible(depth: int, max_in: int, n: int) -> bool:
@@ -260,34 +354,78 @@ def build_network(
     rows: np.ndarray,
     cols: np.ndarray,
     n: int,
+    fused: bool | None = None,
+    wavefront: bool | None = None,
+    level: np.ndarray | None = None,
     device: str | torch.device = "cuda",
 ) -> RiverNetwork:
-    """Build the wavefront tables from a COO adjacency onto ``device``.
+    """Build the solve schedules and the wavefront tables from a COO
+    adjacency onto ``device``, by the JAX package's rules.
 
-    Tables are built whenever their flat int32 ring indices fit;
-    ``single_ring`` records whether the single-ring engine may route the
-    network (:func:`single_ring_eligible`, the JAX package's rule).
+    ``fused=None`` builds the fused solve schedule where the network's
+    depth and degrees fit its limits; ``True`` insists (and raises where
+    they do not fit), ``False`` skips it. ``wavefront=None`` builds the
+    wavefront tables where the single-ring caps fit
+    (:func:`single_ring_eligible`); ``True`` builds them past the caps (a
+    band of the depth-chunked router), still refusing flat ring indices that
+    overflow int32; ``False`` skips them, so a deep network can be built for
+    the step engine. ``single_ring`` records the caps' verdict either way.
+    ``level`` passes a layering the caller already has.
     """
     dev = resolve_device(device)
     rows = np.asarray(rows, dtype=np.int64)
     cols = np.asarray(cols, dtype=np.int64)
-    level = compute_levels(rows, cols, n) if n else np.zeros(0, dtype=np.int32)
-    depth = int(level.max()) if n else 0
+    if level is None:
+        level = compute_levels(rows, cols, n) if n else np.zeros(0, dtype=np.int32)
+    lvl_src, lvl_tgt, depth = level_schedule(rows, cols, n, level=level)
     in_deg = np.bincount(rows, minlength=n) if rows.size else np.zeros(n, dtype=np.int64)
+    out_deg = np.bincount(cols, minlength=n) if cols.size else np.zeros(n, dtype=np.int64)
     max_in = int(in_deg.max()) if n else 0
-    if not (depth + 2) * (n + 1) < 2**31:
+    max_out = int(out_deg.max()) if n else 0
+
+    eligible = (depth <= FUSED_MAX_DEPTH and max_in <= FUSED_MAX_IN_DEGREE
+                and max_out <= FUSED_MAX_OUT_DEGREE)
+    if fused is None:
+        fused = eligible
+    elif fused and not eligible:
+        raise ValueError(
+            f"network exceeds fused-schedule limits (depth={depth}, in={max_in}, out={max_out})"
+        )
+    if fused:
+        perm = np.lexsort((np.arange(n), level))  # level-major, stable within a level
+        inv = np.empty(n, dtype=np.int64)
+        inv[perm] = np.arange(n)
+        counts = np.bincount(level, minlength=depth + 1)
+        level_starts = tuple(np.concatenate([[0], np.cumsum(counts)]).tolist())
+        pred = _padded_adjacency_table(inv[rows], inv[cols], n, max_in)
+        down = _padded_adjacency_table(inv[cols], inv[rows], n, max_out)
+    else:
+        perm = inv = np.zeros(0, dtype=np.int64)
+        pred = down = np.zeros((0, 1), dtype=np.int64)
+        level_starts = ()
+
+    single_ring = single_ring_eligible(depth, max_in, n)
+    if wavefront is None:
+        wavefront = single_ring
+    elif wavefront and not (depth + 2) * (n + 1) < 2**31:
         raise ValueError(
             f"wavefront ring indices overflow int32 (depth={depth}, n={n}); "
-            "build_routing_network gives such a network the stacked band router"
+            "build_routing_network gives such a network a band router"
         )
-
-    wf_perm, wf_inv, wf_idx, wf_mask, buckets, runs = _wavefront_tables(
-        rows, cols, n, level, in_deg
-    )
-    wf_t_idx, wf_t_width = _transposed_wavefront_tables(rows, cols, n, level, wf_inv)
-    gap_max = int((level[rows] - level[cols]).max()) if rows.size else 0
-    ring_rows = min(depth, gap_max) + 2
-    slot, width = _node_slots(n, buckets)
+    if wavefront:
+        wf_perm, wf_inv, wf_idx, wf_mask, buckets, runs = _wavefront_tables(
+            rows, cols, n, level, in_deg
+        )
+        wf_t_idx, wf_t_width = _transposed_wavefront_tables(rows, cols, n, level, wf_inv)
+        gap_max = int((level[rows] - level[cols]).max()) if rows.size else 0
+        ring_rows = min(depth, gap_max) + 2
+        slot, width = _node_slots(n, buckets)
+        level_p = level[wf_perm]
+    else:
+        wf_perm = wf_inv = wf_idx = wf_t_idx = slot = width = level_p = np.zeros(0, dtype=np.int64)
+        wf_mask = np.zeros(0, dtype=np.float32)
+        buckets = runs = ()
+        wf_t_width = ring_rows = 0
     row_len = n + 1
     wf_row = wf_idx // row_len
     wf_t_row = wf_t_idx // row_len
@@ -299,9 +437,20 @@ def build_network(
         n=int(n),
         depth=depth,
         n_edges=int(rows.size),
-        single_ring=single_ring_eligible(depth, max_in, n),
+        single_ring=single_ring,
+        edge_src=i32(cols),
+        edge_tgt=i32(rows),
+        lvl_src=i32(lvl_src),
+        lvl_tgt=i32(lvl_tgt),
+        perm=i32(perm),
+        inv_perm=i32(inv),
+        pred=i32(pred),
+        down=i32(down),
+        level_starts=level_starts,
+        fused=bool(fused),
+        wavefront=bool(wavefront),
         level=i32(level),
-        level_p=i32(level[wf_perm]),
+        level_p=i32(level_p),
         wf_perm=i32(wf_perm),
         wf_inv=i32(wf_inv),
         wf_idx=i32(wf_idx),

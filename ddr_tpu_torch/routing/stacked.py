@@ -451,12 +451,14 @@ def route_stacked(
     kernel: str | None = None,
     dtype: str = "fp32",
     collect_reach_stats: bool = False,
+    adjoint: str = "analytic",
+    remat_physics: bool = True,
 ):
     """Route ``(T, N)`` or ``(B, T, N)`` inflows band by band; the contract
     of :func:`~ddr_tpu_torch.routing.mc.route`, all inputs and outputs in
-    original node order. ``kernel`` as there: ``None`` runs the hand-written
-    scans (their plain versions on the CPU), ``"reference"`` the plain
-    versions on any device. ``dtype="bf16"`` runs every band's forward scan
+    original node order. ``kernel``, ``adjoint`` and ``remat_physics`` as
+    there: ``None`` runs the hand-written scans (their plain versions on the
+    CPU), ``"reference"`` the plain versions on any device. ``dtype="bf16"`` runs every band's forward scan
     on a bfloat16 ring, so the series a band publishes are the rounded raw
     values. ``collect_reach_stats=True`` adds the original-order
     :class:`~ddr_tpu_torch.observability.health.ReachStats` of the clamped
@@ -467,12 +469,12 @@ def route_stacked(
     ``q_init`` (sentinel slots take length 1, slope 1, ``x`` 0, n/p/q 1 and
     zero inflow, as in the JAX router, so their physics stays finite; their
     values are never gathered, published or selected); the boundary buffer
-    gives ``x_ext``/``s_ext``; :class:`~ddr_tpu_torch.routing.wavefront.AnalyticRoute`
+    gives ``x_ext``/``s_ext``; :func:`~ddr_tpu_torch.routing.wavefront.route_raw`
     runs the band; the band publishes its boundary sources' raw series.
     """
     from ddr_tpu_torch.routing.mc import Bounds, RouteResult
-    from ddr_tpu_torch.routing.wave_kernel import reach_operands, validate_dtype
-    from ddr_tpu_torch.routing.wavefront import AnalyticRoute
+    from ddr_tpu_torch.routing.wave_kernel import validate_dtype
+    from ddr_tpu_torch.routing.wavefront import route_raw
 
     if kernel not in (None, "reference"):
         raise ValueError(f"unknown kernel {kernel!r} (use None or 'reference')")
@@ -507,10 +509,8 @@ def route_stacked(
             # the dropped slot n_cap
             x_ext, s_ext = boundary_ext_series(bnd, ext_cols[c], ext_tgt[c], n_cap + 1, lb)
             x_ext, s_ext = x_ext[..., :n_cap], s_ext[..., :n_cap]
-        raw = AnalyticRoute.apply(
-            qp_c, qi_c, x_ext, s_ext, *reach_operands(physics), network.band(c), physics, kernel,
-            True, dtype,
-        )
+        raw = route_raw(qp_c, qi_c, x_ext, s_ext, network.band(c), physics, kernel, True, dtype,
+                        adjoint, remat_physics)
         with record_function("ddr::band_publish"):
             # Pad slots all copy the always-zero pad column n_cap into the
             # scratch column n_boundary: their duplicate writes land only

@@ -1,9 +1,11 @@
 """The forward wave scan: a hand-written CUDA kernel and its plain version.
 
 Counterpart of ``ddr_tpu/routing/pallas_kernel.py``'s ``fused_wave_scan``
-in its two uses: the single-ring engine (no external rows,
-``mask_raw=False``) and a band of the stacked band router (external rows
-``xe``/``se``, ``mask_raw=True``), each with the history ring stored in
+in its three uses: the single-ring engine (no external rows,
+``mask_raw=False``), a band of the stacked band router (external rows
+``xe``/``se``, ``mask_raw=True``) and a band of the unrolled depth-chunked
+router (a single ring with external rows, ``mask_raw=False``), each with
+the history ring stored in
 fp32 or, under ``compute_dtype="bf16"``, in bfloat16 (bf16-compute /
 fp32-accumulate, ``pallas_kernel.py:49-65``: every ring read is upcast
 before any arithmetic, every sum and the carried ``s`` stay fp32, and each
@@ -24,7 +26,8 @@ level[i]``:
 
 :func:`wave_scan` launches ``csrc/wave_scan.cu`` for CUDA tensors and runs
 :func:`wave_scan_reference` only for CPU tensors. ``wave_scan.launches``
-counts kernel launches. The analytic adjoint reads the same chain through
+counts kernel launches. :func:`wave_scan_autograd` is the plain scan
+again with an out-of-place ring, for ``adjoint="ad"``. The analytic adjoint reads the same chain through
 :func:`physics_derivatives` and :func:`physics_pullback`.
 """
 
@@ -34,6 +37,8 @@ import ctypes
 import dataclasses
 
 import torch
+from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ddr_tpu_torch.geometry.trapezoidal import maximum
 from ddr_tpu_torch.routing.mc import Bounds, ChannelState, celerity, muskingum_coefficients
@@ -51,6 +56,7 @@ __all__ = [
     "table_owner",
     "validate_dtype",
     "wave_scan",
+    "wave_scan_autograd",
     "wave_scan_reference",
 ]
 
@@ -159,6 +165,43 @@ def reduce_gathered(gathered, wf_mask, buckets, n_deg0, lb, clamped, mask_raw):
     return torch.cat(parts, dim=-1)
 
 
+def _wave(prev_row, gathered, s_state, q_row, xe_row, se_row, t_node, T, q_init, phys, network,
+          mask_raw, coefficients=physics_coefficients):
+    """One wave of the scan over ``(B, n)``, from the previous wave's ring row
+    ``prev_row`` and the gathered predecessor slots ``gathered`` ``(B, E)``
+    (both upcast to fp32): returns ``(y, s_next)``, the raw solve values
+    (zero outside ``0 <= t < T``) and the next wave's clamped inflow sums.
+    ``coefficients`` evaluates the MC chain (a checkpointed one in the
+    autograd scan)."""
+    lb = phys.bounds.discharge
+    buckets = network.wf_buckets
+    n_deg0 = buckets[0][0] if buckets else network.n
+    q_prev = maximum(prev_row, lb)
+    c1, c2, c3, c4 = coefficients(q_prev, phys)
+    x_pred = reduce_gathered(gathered, network.wf_mask, buckets, n_deg0, lb, False, mask_raw)
+    s_next = reduce_gathered(gathered, network.wf_mask, buckets, n_deg0, lb, True, mask_raw)
+    if xe_row is not None:
+        x_pred = x_pred + xe_row
+    s_in = s_state if se_row is None else s_state + se_row
+    b_step = c2 * s_in + c3 * q_prev + c4 * maximum(q_row, lb)
+    is_hot = t_node == 0
+    b = torch.where(is_hot, q_row, b_step)
+    c1_eff = torch.where(is_hot, torch.ones_like(c1), c1)
+    y = b + c1_eff * x_pred
+    if q_init is not None:
+        y = torch.where(is_hot, maximum(q_init, lb), y)
+    ok = (t_node >= 0) & (t_node <= T - 1)
+    return torch.where(ok, y, torch.zeros_like(y)), s_next
+
+
+def _ring_slots(network, R: int, h1: int) -> torch.Tensor:
+    """Flat ring index ``rot * (n + 1) + col`` of every gather slot at a
+    wave whose previous output row is ``h1``."""
+    rot = h1 - network.wf_row.long()
+    rot = torch.where(rot < 0, rot + R, rot)
+    return rot * (network.n + 1) + network.wf_col.long()
+
+
 def wave_scan_reference(
     qs: torch.Tensor,
     network: RiverNetwork,
@@ -183,47 +226,69 @@ def wave_scan_reference(
     B, W, n = qs.shape
     R = network.wf_ring_rows
     row_len = n + 1
-    lb = phys.bounds.discharge
-    buckets = network.wf_buckets
-    n_deg0 = buckets[0][0] if buckets else n
-    wf_row = network.wf_row.long()
-    wf_col = network.wf_col.long()
-    mask = network.wf_mask
     lvl = network.level_p.long()
 
     ring = qs.new_zeros(B, R * row_len, dtype=ring_dt)
     s_state = qs.new_zeros(B, n)
     ys = qs.new_empty(B, W, n)
     for w in range(1, W + 1):
-        t_node = w - 1 - lvl
         h1 = (w - 1) % R
-        q_prev = maximum(ring[:, h1 * row_len : h1 * row_len + n].float(), lb)
-        c1, c2, c3, c4 = physics_coefficients(q_prev, phys)
-        rot = h1 - wf_row
-        rot = torch.where(rot < 0, rot + R, rot)
-        gathered = ring[:, rot * row_len + wf_col].float()  # fp32 before any sum
-        x_pred = reduce_gathered(gathered, mask, buckets, n_deg0, lb, False, mask_raw)
-        s_next = reduce_gathered(gathered, mask, buckets, n_deg0, lb, True, mask_raw)
-        if xe is not None:
-            x_pred = x_pred + xe[:, w - 1]
-
-        q_row = qs[:, w - 1]
-        s_in = s_state if se is None else s_state + se[:, w - 1]
-        b_step = c2 * s_in + c3 * q_prev + c4 * maximum(q_row, lb)
-        is_hot = t_node == 0
-        b = torch.where(is_hot, q_row, b_step)
-        c1_eff = torch.where(is_hot, torch.ones_like(c1), c1)
-        y = b + c1_eff * x_pred
-        if q_init is not None:
-            y = torch.where(is_hot, maximum(q_init, lb), y)
-        ok = (t_node >= 0) & (t_node <= T - 1)
-        y = torch.where(ok, y, torch.zeros_like(y))
+        gathered = ring[:, _ring_slots(network, R, h1)].float()  # fp32 before any sum
+        y, s_state = _wave(
+            ring[:, h1 * row_len : h1 * row_len + n].float(), gathered, s_state, qs[:, w - 1],
+            None if xe is None else xe[:, w - 1], None if se is None else se[:, w - 1],
+            w - 1 - lvl, T, q_init, phys, network, mask_raw,
+        )
         h = w % R
         y_store = y.to(ring_dt)  # the one rounding point
         ring[:, h * row_len : h * row_len + n] = y_store  # column n stays the zero sentinel
         ys[:, w - 1] = y_store.float()
-        s_state = s_next
     return ys
+
+
+def wave_scan_autograd(
+    qs: torch.Tensor,
+    network: RiverNetwork,
+    phys: ReachPhysics,
+    q_init: torch.Tensor | None = None,
+    *,
+    T: int,
+    xe: torch.Tensor | None = None,
+    se: torch.Tensor | None = None,
+    mask_raw: bool = False,
+    compute_dtype: str = "fp32",
+    remat_physics: bool = True,
+) -> torch.Tensor:
+    """:func:`wave_scan_reference` in a form autograd can differentiate
+    (``adjoint="ad"``): the ring is a list of ``(B, n + 1)`` rows, each wave
+    appends a new row instead of writing into the ring, and the gather reads
+    their concatenation, so its forward equals the reference bit for bit.
+    ``remat_physics`` checkpoints each wave's MC chain: the backward
+    recomputes it from ``q_prev`` instead of storing its intermediates."""
+    ring_dt = ring_dtype(compute_dtype, qs.dtype)
+    B, W, n = qs.shape
+    R = network.wf_ring_rows
+    lvl = network.level_p.long()
+    coefficients = physics_coefficients
+    if remat_physics:
+        def coefficients(q_prev, phys):
+            return checkpoint(physics_coefficients, q_prev, phys, use_reentrant=False)
+
+    ring = [qs.new_zeros(B, n + 1, dtype=ring_dt)] * R
+    s_state = qs.new_zeros(B, n)
+    ys = []
+    for w in range(1, W + 1):
+        h1 = (w - 1) % R
+        gathered = torch.cat(ring, dim=1)[:, _ring_slots(network, R, h1)].float()
+        y, s_state = _wave(
+            ring[h1][:, :n].float(), gathered, s_state, qs[:, w - 1],
+            None if xe is None else xe[:, w - 1], None if se is None else se[:, w - 1],
+            w - 1 - lvl, T, q_init, phys, network, mask_raw, coefficients,
+        )
+        y_store = y.to(ring_dt)
+        ring[w % R] = F.pad(y_store, (0, 1))
+        ys.append(y_store.float())
+    return torch.stack(ys, dim=1)
 
 
 def check_ring_table(row: torch.Tensor, col: torch.Tensor, ring_rows: int, n: int, what: str) -> None:

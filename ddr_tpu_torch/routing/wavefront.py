@@ -14,10 +14,14 @@ slice only to bound XLA's compile time).
 The same engine runs each band of the stacked band router
 (:mod:`ddr_tpu_torch.routing.stacked`): a band is a table object with the
 kernels' field names, external inflow rows ``x_ext``/``s_ext`` from earlier
-bands, and masked raw sums (``mask_raw``), as the JAX band frame has them.
+bands, and masked raw sums (``mask_raw``), as the JAX band frame has them;
+and each band of the unrolled depth-chunked router
+(:mod:`ddr_tpu_torch.routing.chunked`), a network of its own with external
+rows and unmasked raw sums.
 
-The backward is not autograd through the scan: :class:`AnalyticRoute` is the
-JAX package's ``_analytic_route`` custom VJP. The adjoint of the recurrence
+The default backward is not autograd through the scan: :class:`AnalyticRoute`
+is the JAX package's ``_analytic_route`` custom VJP (``adjoint="ad"``, autograd
+through the plain scan, is its in-framework check: :func:`route_raw`). The adjoint of the recurrence
 is itself a wavefront over the TRANSPOSED network run in reverse time
 (``tau = T-1-t``, ``M(i) = depth - L(i)``): the adjoint of reach ``i`` at
 timestep ``t`` is computable at reverse wave ``v = tau + M(i) + 1``. Its
@@ -48,11 +52,12 @@ from ddr_tpu_torch.routing.wave_kernel import (
     reduce_gathered,
     validate_dtype,
     wave_scan,
+    wave_scan_autograd,
     wave_scan_reference,
     with_operands,
 )
 
-__all__ = ["AnalyticRoute", "wavefront_route_core"]
+__all__ = ["AnalyticRoute", "route_raw", "wavefront_route_core"]
 
 
 def _skew(src: torch.Tensor, rows: torch.Tensor, valid: torch.Tensor | None = None) -> torch.Tensor:
@@ -277,6 +282,43 @@ class AnalyticRoute(torch.autograd.Function):
         return (qp_bar, q_init_bar, x_ext_bar, s_ext_bar, *theta_bar, None, None, None, None, None)
 
 
+def route_raw(qp_p, q_init, x_ext, s_ext, network, physics: ReachPhysics, kernel, mask_raw: bool,
+              dtype: str, adjoint: str = "analytic", remat_physics: bool = True) -> torch.Tensor:
+    """The raw ``(B, T, n)`` solve of one wavefront network or band, in its
+    own order, differentiable by either adjoint: ``"analytic"`` through
+    :class:`AnalyticRoute` (the scans ``kernel`` selects), ``"ad"`` by
+    autograd through :func:`~ddr_tpu_torch.routing.wave_kernel.wave_scan_autograd`,
+    the plain scan. The CUDA kernel has no autograd rule, so ``"ad"`` with
+    ``kernel=None`` on CUDA tensors raises instead of leaving the kernel
+    quietly (JAX's auto-selection would fall back to its XLA scan there);
+    on the CPU ``kernel=None`` means the plain versions anyway."""
+    if adjoint == "analytic":
+        if network.wf_t_width <= 0:
+            raise ValueError(
+                "adjoint='analytic' needs the network's transposed wavefront tables "
+                "(wf_t_*); rebuild the network or pass adjoint='ad'"
+            )
+        return AnalyticRoute.apply(qp_p, q_init, x_ext, s_ext, *reach_operands(physics), network,
+                                   physics, kernel, mask_raw, dtype)
+    if adjoint != "ad":
+        raise ValueError(f"unknown adjoint {adjoint!r} (use 'analytic' or 'ad')")
+    if kernel is None and qp_p.device.type != "cpu":
+        raise ValueError(
+            "adjoint='ad' differentiates the plain scan: the CUDA kernel has no autograd "
+            "rule, so pass kernel='reference' (or use adjoint='analytic' on the kernels)"
+        )
+    T = qp_p.shape[1]
+    level_p = network.level_p.long()
+    qs = _input_skews(qp_p, level_p, network.depth, T)
+    xe = se = None
+    if x_ext is not None:
+        xe, se = _ext_skews(x_ext, s_ext, level_p, network.depth, T)
+    with record_function("ddr::forward_scan"):
+        ys = wave_scan_autograd(qs, network, physics, q_init, T=T, xe=xe, se=se, mask_raw=mask_raw,
+                                compute_dtype=dtype, remat_physics=remat_physics)
+    return _skew_by_level_runs(ys, level_p, T)
+
+
 def wavefront_route_core(
     network: RiverNetwork,
     physics: ReachPhysics,
@@ -284,6 +326,8 @@ def wavefront_route_core(
     q_init: torch.Tensor | None,
     kernel: str | None = None,
     dtype: str = "fp32",
+    adjoint: str = "analytic",
+    remat_physics: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Route timesteps ``0..T-1`` by wavefront, entirely in ``wf_perm`` order.
 
@@ -293,7 +337,8 @@ def wavefront_route_core(
     in-band from ``q_prime[0]``. Returns ``(runoff, final, raw)`` in wf order
     with ``q_prime``'s leading shape: ``raw`` is the pre-clamp solve value and
     ``runoff = max(raw, lb)``. Differentiable in ``q_prime``, ``q_init`` and
-    the per-reach operands through :class:`AnalyticRoute`.
+    the per-reach operands, by the adjoint :func:`route_raw` runs
+    (``"analytic"`` or ``"ad"``; ``remat_physics`` applies to ``"ad"``).
 
     ``kernel=None`` runs :func:`wave_scan` forward and :func:`reverse_scan`
     backward; ``"reference"`` runs their plain versions on any device.
@@ -309,8 +354,8 @@ def wavefront_route_core(
     qp_p = qp.float()[..., network.wf_perm.long()]
     if q_init is not None:
         q_init = q_init.float().expand(B, n).contiguous()
-    raw = AnalyticRoute.apply(qp_p, q_init, None, None, *reach_operands(physics), network, physics,
-                              kernel, False, dtype)
+    raw = route_raw(qp_p, q_init, None, None, network, physics, kernel, False, dtype, adjoint,
+                    remat_physics)
     runoff = maximum(raw, physics.bounds.discharge)
     final = runoff[:, -1]
     if single:

@@ -3,8 +3,11 @@
 These tests need an NVIDIA card and skip without one. They cover both
 kernels on the single ring and on the bands of a stacked frame (external
 rows, ``mask_raw``, width-0 gather buckets, transposed width 16), the
-forward kernel's bf16 ring on both, and the stacked band router on the card:
-``n_chunks`` launches of each kernel. The file imports
+forward kernel's bf16 ring on both, the stacked band router on the card
+(``n_chunks`` launches of each kernel), the unrolled chunked router's
+variant (a band's own ring with external rows and unmasked raw sums, a band
+of local depth 0) and its route, and the step engine in float64 on the
+card. The file imports
 neither ``jax`` nor ``ddr_tpu``, so it runs on a machine that has only the
 port's dependencies:
 
@@ -27,12 +30,20 @@ import torch
 
 from ddr_tpu_torch.geodatazoo.synthetic import make_basin, make_deep_network
 from ddr_tpu_torch.routing import mc
+from ddr_tpu_torch.routing.chunked import ChunkedNetwork, build_routing_network
 from ddr_tpu_torch.routing.model import prepare_batch
 from ddr_tpu_torch.routing.network import build_network
 from ddr_tpu_torch.routing.reverse_kernel import reverse_scan, reverse_scan_reference
 from ddr_tpu_torch.routing.wave_kernel import ReachPhysics, wave_scan, wave_scan_reference
 from ddr_tpu_torch.routing.stacked import StackedChunked
-from chip_smoke import band_frame, band_scan_case, fan_out_network, random_physics, reverse_streams
+from chip_smoke import (
+    band_frame,
+    band_scan_case,
+    fan_out_network,
+    random_physics,
+    reverse_streams,
+    small_chunked,
+)
 
 CASES = ("hotstart", "q_init", "T=1", "no-edges")
 REVERSE_CASES = ("tree", "fan-out", "T=1")
@@ -61,7 +72,7 @@ def _case(name, dev):
     else:
         n, T = 256, 1 if name == "T=1" else 12
         rows, cols = make_deep_network(n, 16, seed=rng)
-    net = build_network(rows, cols, n, device=dev)
+    net = build_network(rows, cols, n, wavefront=True, device=dev)  # tables at depth 0 too
     B, W = 3, T + net.depth
 
     def f32(a):
@@ -150,16 +161,17 @@ def test_route_on_the_card_runs_the_kernel(card):
 @pytest.mark.cuda
 @pytest.mark.parametrize("init", ["hotstart", "q_init"])
 def test_engine_raises_on_inputs_that_require_grad(card, init):
-    """Inputs that require grad: ``adjoint="ad"`` raises (autograd through the
-    forward scan is not ported); the analytic adjoint launches each kernel
-    once, and its gradients are finite and match the plain scans'. The
+    """Inputs that require grad: ``adjoint="ad"`` on the kernels raises
+    (autograd runs through the plain scan only: ``kernel="reference"``); the
+    analytic adjoint launches each kernel once, and its gradients are finite
+    and match the plain scans'. The
     ``q_init`` case puts some initial states below the discharge bound and
     some on it."""
     basin = make_basin(n_segments=512, n_gauges=4, n_days=2, seed=3, depth=24)
     net, ch, gauges = prepare_batch(basin.routing_data, 0.001, device=card)
     q = torch.tensor(basin.q_prime[:24], device=card, requires_grad=True)
     params = {k: torch.tensor(v, dtype=torch.float32, device=card) for k, v in basin.true_params.items()}
-    with pytest.raises(NotImplementedError, match="adjoint='ad'"):
+    with pytest.raises(ValueError, match="kernel='reference'"):
         mc.route(net, ch, params, q, gauges=gauges, adjoint="ad", device=card)
     q_init = np.random.default_rng(4).uniform(0.0, 3.0, 512).astype(np.float32)
     q_init[::5] = 0.0
@@ -332,3 +344,79 @@ def test_bf16_route_and_health_on_the_card(card):
         assert int(h.overflow) == 0 and int(h.nonfinite) == 0 and np.isfinite(float(h.ulp_drift))
         _close(out["reference"].runoff, out[None].runoff, f"depth {depth}: bf16 runoff", rtol=2.0**-7)
         _close(out["reference"].health.band_q_max, h.band_q_max, f"depth {depth}: band_q_max", rtol=2.0**-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("name", BAND_CASES)
+def test_ext_wave_scan_kernel_matches_reference(card, name, dtype):
+    """The unrolled chunked router's variant (a band's own single ring,
+    external rows, unmasked raw sums) on every band of a small
+    ``ChunkedNetwork`` and on a band of local depth 0."""
+    deep, chain = small_chunked(card)
+    T, B = (1, 2) if name == "T=1" else (24, 3)
+    for i, net in enumerate([*deep.chunks, chain.chunks[-1]]):
+        phys = random_physics(net.n, i, card)
+        qs, xe, se, q_init = band_scan_case(net, B, T, i, name == "q_init", card)
+        kw = dict(T=T, xe=xe, se=se, compute_dtype=dtype)
+        before = wave_scan.launches
+        ys = wave_scan(qs, net, phys, q_init, **kw)
+        torch.cuda.synchronize()
+        assert wave_scan.launches == before + 1
+        ref = wave_scan_reference(qs, net, phys, q_init, **kw)
+        if dtype == "bf16":
+            assert torch.equal(ys, ref), f"{name}: band {i} ({net.depth=}), bf16 kernel vs plain"
+        else:
+            _close(ref, ys, f"{name}: band {i} ({net.depth=}), kernel vs plain")
+
+
+@pytest.mark.cuda
+def test_chunked_route_on_the_card_runs_a_kernel_per_band(card):
+    """A ``ChunkedNetwork`` routes with one launch of each kernel a band,
+    with answers and gradients that match the plain scans'."""
+    basin = make_basin(n_segments=3000, n_gauges=4, n_days=2, seed=3, depth=1100)
+    rd = basin.routing_data
+    net = build_routing_network(rd.adjacency_rows, rd.adjacency_cols, rd.n_segments, cell_budget=400_000,
+                                device=card)
+    _, ch, gauges = prepare_batch(rd, 0.001, device=card)
+    assert isinstance(net, ChunkedNetwork) and net.n_chunks >= 2
+    out = {}
+    for kernel in (None, "reference"):
+        params = {k: torch.tensor(v, dtype=torch.float32, device=card, requires_grad=True)
+                  for k, v in basin.true_params.items()}
+        q = torch.tensor(basin.q_prime[:24], device=card, requires_grad=True)
+        before = (wave_scan.launches, reverse_scan.launches)
+        res = mc.route(net, ch, params, q, gauges=gauges, kernel=kernel, device=card)
+        (res.runoff.sum() + res.final_discharge.sum()).backward()
+        torch.cuda.synchronize()
+        launched = net.n_chunks if kernel is None else 0
+        assert (wave_scan.launches, reverse_scan.launches) == (before[0] + launched, before[1] + launched)
+        out[kernel] = [res.runoff.detach(), res.final_discharge.detach(), params["n"].grad, q.grad]
+    for ref, got, label in zip(out["reference"], out[None], ("runoff", "final", "d/dn", "d/dq_prime")):
+        assert torch.isfinite(got).all(), label
+        _close(ref, got, f"chunked {label}, kernels vs plain scans")
+
+
+@pytest.mark.cuda
+def test_step_engine_on_the_card_computes_in_the_inputs_dtype(card):
+    """The step engine runs on the card in float64 and float32 alike, and
+    its float64 route is the oracle of the single-ring kernel route."""
+    rows, cols = make_deep_network(400, 40, seed=1)
+    net = build_network(rows, cols, 400, device=card)
+    rng = np.random.default_rng(2)
+    runoff = {}
+    for dtype in (torch.float64, torch.float32):
+        t = lambda a: torch.as_tensor(a, dtype=dtype, device=card)  # noqa: E731
+        ch = mc.ChannelState(length=t(rng.uniform(1000, 5000, 400)), slope=t(rng.uniform(1e-3, 1e-2, 400)),
+                             x_storage=t(np.full(400, 0.3)))
+        params = {k: t(np.full(400, v)) for k, v in (("n", 0.05), ("q_spatial", 0.5), ("p_spatial", 21.0))}
+        q = t(rng.uniform(0.01, 1.0, (24, 400)))
+        step = mc.route(net, ch, params, q, engine="step", device=card)
+        assert step.runoff.dtype == dtype and step.runoff.device.type == "cuda"
+        runoff[dtype] = step.runoff
+        rng = np.random.default_rng(2)
+    before = wave_scan.launches
+    wave = mc.route(net, ch, params, q, device=card).runoff
+    assert wave_scan.launches == before + 1
+    oracle = runoff[torch.float64]
+    assert float(((wave.double() - oracle).abs() / (oracle.abs() + 1e-6)).max()) < 1e-4

@@ -88,10 +88,14 @@ def test_deep_generator_matches_jax_stream():
 
 
 def test_no_edge_network_builds_empty_tables():
-    net = build_network(np.zeros(0, np.int64), np.zeros(0, np.int64), 6, device="cpu")
+    empty = np.zeros(0, np.int64)
+    net = build_network(empty, empty, 6, wavefront=True, device="cpu")
     assert net.depth == 0 and net.wf_ring_rows == 2 and net.wf_buckets == ()
-    assert net.wf_idx.numel() == 0 and (net.wf_width == 0).all()
+    assert net.wf_idx.numel() == 0 and (net.wf_width == 0).all() and net.wf_width.numel() == 6
     assert not net.single_ring  # as in the JAX package: no single-ring engine at depth 0
+    # left to the JAX rule, a depth-0 network gets no wavefront tables: the step engine routes it
+    plain, ref = build_network(empty, empty, 6, device="cpu"), jax_build_network(empty, empty, 6)
+    assert not plain.wavefront and not ref.wavefront and plain.wf_ring_rows == ref.wf_ring_rows == 0
 
 
 def test_levels_and_eligibility():

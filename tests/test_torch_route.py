@@ -22,6 +22,7 @@ from ddr_tpu.geodatazoo.synthetic import make_basin as jax_make_basin
 from ddr_tpu.routing import mc as jax_mc
 from ddr_tpu.routing.chunked import build_routing_network as jax_build_routing_network
 from ddr_tpu.routing.model import prepare_batch as jax_prepare_batch
+from ddr_tpu.routing.network import build_network as jax_build_network
 from ddr_tpu_torch.geodatazoo.synthetic import make_basin
 from ddr_tpu_torch.routing import mc
 from ddr_tpu_torch.routing.model import dmc, prepare_batch
@@ -131,9 +132,11 @@ def test_dmc_carries_state_like_jax_route():
 
 
 def test_ineligible_network_raises_not_implemented():
-    """A chain deeper than the single-ring cap: as a plain network it is
-    refused (it needs the stacked frame); through ``build_routing_network``
-    it routes on the stacked band router and matches JAX."""
+    """A chain deeper than the single-ring cap: as a plain network it has no
+    wavefront tables, and ``route`` gives it the step engine, as JAX does
+    (an explicit ``engine="wavefront"`` is refused); through
+    ``build_routing_network`` it routes on the stacked band router. Both
+    match JAX."""
     n = 1100
     rows, cols = np.arange(1, n), np.arange(0, n - 1)
     net = build_network(rows, cols, n, device="cpu")
@@ -147,37 +150,40 @@ def test_ineligible_network_raises_not_implemented():
     t = lambda a: torch.as_tensor(np.asarray(a, np.float32))  # noqa: E731
     ch = mc.ChannelState(length=t(ch_np["length"]), slope=t(ch_np["slope"]), x_storage=t(ch_np["x"]))
     params = {k: t(v) for k, v in params_np.items()}
-    with pytest.raises(NotImplementedError, match="build_routing_network"):
-        mc.route(net, ch, params, t(q), device="cpu")
-
+    assert not net.wavefront
+    with pytest.raises(ValueError, match="without wavefront tables"):
+        mc.route(net, ch, params, t(q), engine="wavefront", device="cpu")
+    j = lambda a: jnp.asarray(np.asarray(a, np.float32))  # noqa: E731
+    jch = jax_mc.ChannelState(length=j(ch_np["length"]), slope=j(ch_np["slope"]), x_storage=j(ch_np["x"]))
+    jparams = {k: j(v) for k, v in params_np.items()}
     stacked = build_routing_network(rows, cols, n, device="cpu")
     assert isinstance(stacked, StackedChunked) and stacked.depth == n - 1
-    res = mc.route(stacked, ch, params, t(q), device="cpu")
-    j = lambda a: jnp.asarray(np.asarray(a, np.float32))  # noqa: E731
-    ref = jax_mc.route(
-        jax_build_routing_network(rows, cols, n),
-        jax_mc.ChannelState(length=j(ch_np["length"]), slope=j(ch_np["slope"]), x_storage=j(ch_np["x"])),
-        {k: j(v) for k, v in params_np.items()}, j(q), kernel="xla",
-    )
-    _close(ref.runoff, res.runoff, "runoff of the 1100-deep chain")
-    _close(ref.final_discharge, res.final_discharge, "final discharge of the 1100-deep chain")
+    for label, ours, theirs in (("step engine", net, jax_build_network(rows, cols, n)),
+                                ("stacked router", stacked, jax_build_routing_network(rows, cols, n))):
+        res = mc.route(ours, ch, params, t(q), device="cpu")
+        ref = jax_mc.route(theirs, jch, jparams, j(q), kernel="xla")
+        _close(ref.runoff, res.runoff, f"runoff of the 1100-deep chain, {label}")
+        _close(ref.final_discharge, res.final_discharge, f"final discharge of the 1100-deep chain, {label}")
 
 
 def test_inputs_that_require_grad_raise():
-    """Inputs that require grad: ``adjoint="ad"`` and unknown adjoints raise;
-    the analytic adjoint (the default) gives finite gradients to every
-    parameter, the inflows and the channel lengths."""
+    """Inputs that require grad: unknown adjoints raise; the analytic
+    adjoint (the default) and ``adjoint="ad"`` (autograd through the plain
+    scan) give finite gradients to every parameter, the inflows and the
+    channel lengths, and the same ones."""
     ours, _ = _basins()
     params = {k: torch.as_tensor(v).requires_grad_(True) for k, v in _params(ours).items()}
     net, ch, g = prepare_batch(ours.routing_data, SLOPE_MIN, device="cpu")
     ch = dataclasses.replace(ch, length=ch.length.clone().requires_grad_(True))
     q = torch.as_tensor(ours.q_prime[:T]).requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="adjoint='ad'"):
-        mc.route(net, ch, params, q, gauges=g, adjoint="ad", device="cpu")
     with pytest.raises(ValueError, match="unknown adjoint"):
         mc.route(net, ch, params, q, gauges=g, adjoint="bogus", device="cpu")
-    res = mc.route(net, ch, params, q, gauges=g, device="cpu")
-    (res.runoff.sum() + res.final_discharge.sum()).backward()
-    for name, t in [*params.items(), ("q_prime", q), ("length", ch.length)]:
-        assert t.grad is not None and t.grad.shape == t.shape, name
-        assert torch.isfinite(t.grad).all() and t.grad.abs().sum() > 0, name
+    leaves = [*params.values(), q, ch.length]
+    grads = {}
+    for adjoint in ("analytic", "ad"):
+        res = mc.route(net, ch, params, q, gauges=g, adjoint=adjoint, device="cpu")
+        grads[adjoint] = torch.autograd.grad(res.runoff.sum() + res.final_discharge.sum(), leaves)
+    for name, t, ga, gd in zip([*params, "q_prime", "length"], leaves, *grads.values()):
+        assert ga.shape == t.shape, name
+        assert torch.isfinite(ga).all() and ga.abs().sum() > 0, name
+        _close(ga.numpy(), gd.numpy(), f"d/d{name}, analytic vs ad")

@@ -167,6 +167,11 @@ def test_build_routing_network_picks_the_jax_engine(name):
 
 
 def test_explicit_cell_budget_names_the_unported_unrolled_router():
-    with pytest.raises(NotImplementedError, match="A.7"):
-        build_routing_network(np.arange(1, 1100), np.arange(0, 1099), 1100, cell_budget=500,
-                              device="cpu")
+    """An explicit cell budget selects the unrolled depth-chunked router,
+    with the JAX builder's banding."""
+    rows, cols = np.arange(1, 1100), np.arange(0, 1099)
+    ours = build_routing_network(rows, cols, 1100, cell_budget=500, device="cpu")
+    ref = jax_build_routing_network(rows, cols, 1100, cell_budget=500)
+    assert type(ours).__name__ == type(ref).__name__ == "ChunkedNetwork"
+    assert ours.n_chunks == ref.n_chunks > 1
+    assert engine_label(ours) == f"depth-chunked-wavefront[{ref.n_chunks}-band]"

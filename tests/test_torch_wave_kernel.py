@@ -84,7 +84,7 @@ def _case(name, device="cpu"):
     else:
         n, T = 64, 1 if name == "T=1" else 12
         rows, cols = _random_dag(rng, n)
-    net = build_network(rows, cols, n, device=device)
+    net = build_network(rows, cols, n, wavefront=True, device=device)  # tables at depth 0 too
     W = T + net.depth
     B = 2
     qs = rng.uniform(0.0, 2.0, (B, W, n)).astype(np.float32)

@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --old-kernels LOG   # also each kernel's time in an earlier run's LOG
     python3 chip_smoke.py --time-fp32   # only the fp32 forward kernel's times
 
 From the root of a checkout, with one CUDA card visible. Phases, each fatal
@@ -11,9 +12,11 @@ on failure (non-zero exit, no result line):
            ``nvcc`` into ``build/kernels`` (one ``nvcc`` per source, started
            together);
 2. parity  each kernel's wrapper against its plain PyTorch version on the
-           card: ``wave_scan`` at a small shape and at the serving shape,
-           including the hotstart, ``q_init`` and ``T = 1`` cases;
-           ``reverse_scan`` at a small shape, ``T = 1``, a DAG with fan-out
+           card: the time-major forward scan (``wave_scan_tm``, named
+           ``wave_scan`` in the kernels line) at a small shape and at the
+           serving shape, including the hotstart, ``q_init`` and ``T = 1``
+           cases; the time-major reverse scan (``reverse_scan_tm``, named
+           ``reverse_scan``) at a small shape, ``T = 1``, a DAG with fan-out
            (``t_width > 1``) and the training shape;
 3. serve   ``ForecastService(device="cuda")`` on the synthetic deep basin
            (65,536 reaches, depth 512, 8 gauges; the single-ring engine),
@@ -31,7 +34,11 @@ on failure (non-zero exit, no result line):
            ``reverse_scan`` launch a step, then one more step under
            ``torch.profiler``;
 5. timing  each single-ring kernel at its main path's shape against its
-           bound and its plain version (CUDA events);
+           bound and its plain version (CUDA events), and the barrier floor:
+           the same number of empty waves, grid barriers only, on the grid
+           the kernel takes, and one barrier's cost from 1 block to a
+           co-resident grid (the band and chunked timings of phases 9, 14
+           and 15 add their own floors);
 6. parity  (band frame) the band variant of each kernel (``wave_scan`` with
            external rows and ``mask_raw``, ``reverse_scan`` over a band's
            transposed tables) against its plain version on a small stacked
@@ -91,7 +98,8 @@ on failure (non-zero exit, no result line):
            analytic adjoint on the kernels, within rtol 1e-5.
 The service of phases 3 and 7 runs with its health watchdog on, which must
 have seen every served batch and not be degraded; phase 8's gradient check
-also holds the bf16 kernels against the bf16 plain scans.
+also holds the bf16 kernels against the bf16 plain scans. Every kernel's
+inputs are time-major ``(B, T, .)`` arrays, as the routers hand them over.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero without a card.
@@ -186,43 +194,96 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def time_barrier(label, tables, B, T, smi, dev, reverse=False) -> dict:
+    """The floor under one scan: its ``W`` waves as empty grid barriers and
+    nothing else, on the grid the forward kernel takes for this scan's
+    widest wave (CUDA events, 5 launches)."""
+    from ddr_tpu_torch.routing.wave_kernel import active_runs, wave_barrier
+
+    W = T + tables.depth
+    pairs = B * active_runs(tables, T, reverse=reverse).widest
+    blocks = wave_barrier(W, pairs, dev)
+    ms = cuda_ms(lambda: wave_barrier(W, pairs, dev), 5)
+    print(f"barrier floor, {label}: {W} empty waves on {blocks} blocks of 256 threads (widest wave "
+          f"{pairs} pairs): {ms:.3f} ms, {1e3 * ms / W:.3f} us a wave on {smi}")
+    return {"ms": ms, "blocks": blocks, "waves": W}
+
+
+def barrier_sweep(waves, smi, dev) -> None:
+    """What one grid barrier costs by grid size: ``waves`` empty waves on
+    grids from 1 block to co-residency (the grid the forward kernel takes
+    for a widest wave of ``blocks * 256`` pairs)."""
+    from ddr_tpu_torch.routing.wave_kernel import wave_barrier
+
+    for want in (1, 33, 66, 132, 264, 396, 1 << 30):
+        blocks = wave_barrier(waves, want * 256, dev)
+        ms = cuda_ms(lambda: wave_barrier(waves, want * 256, dev), 5)
+        print(f"barrier sweep: {blocks:5d} blocks of 256 threads, {waves} waves: {ms:.3f} ms, "
+              f"{1e3 * ms / waves:.3f} us a barrier on {smi}")
+
+
+def old_times(path, kernels) -> None:
+    """Beside each kernel of this run, its time in an earlier run of this
+    script (the ``{"kernels": ...}`` line of that run's output at ``path``),
+    matched by name; ``not measured`` where that run lacks it."""
+    old = {}
+    for line in Path(path).read_text().splitlines():
+        if line.startswith('{"kernels"'):
+            old = {k["name"]: k for k in json.loads(line)["kernels"]}
+    for k in kernels:
+        o = old.get(k["name"])
+        was = "not measured" if o is None else f"{o['ms']:.3f} ms"
+        text = f"old/new {k['name']}: {was} -> {k['ms']:.3f} ms (bound {k['bound_ms']:.4f} ms)"
+        if "ms_all_bands" in k:
+            was_all = "not measured" if o is None or "ms_all_bands" not in o else f"{o['ms_all_bands']:.3f} ms"
+            text += f"; all bands {was_all} -> {k['ms_all_bands']:.3f} ms"
+        print(text)
+
+
 def scan_case(net, phys, B, T, seed, with_q_init, dev):
-    """Pre-skewed inflow rows for ``B`` requests and an optional carried state."""
+    """Inflow ``q' (B, T, n)`` for ``B`` requests and an optional carried state."""
     import numpy as np
     import torch
-
-    from ddr_tpu_torch.routing.wavefront import _input_skews
 
     rng = np.random.default_rng(seed)
     q = rng.uniform(0.0, 2.0, (B, T, net.n)).astype(np.float32)
     q[rng.random(q.shape) < 0.25] = 0.0  # raw values below the discharge clamp
-    qs = _input_skews(torch.as_tensor(q, device=dev), net.level_p.long(), net.depth, T)
     q_init = None
     if with_q_init:
         q_init = torch.as_tensor(rng.uniform(0.0, 3.0, (B, net.n)).astype(np.float32), device=dev)
-    return qs.contiguous(), q_init
+    return torch.as_tensor(q, device=dev), q_init
+
+
+def reverse_inputs(net, B, T, seed, dev):
+    """The reverse scan's inputs ``(gbar, ow, zce, duce)``, ``(B, T, n)``
+    twice and ``(B, T, n t_width)`` twice, shaped as the analytic backward
+    builds them: ``ow`` and ``duce`` zero at ``t = 0``, weights nonnegative
+    and summing below 1 a wave (``lam`` stays bounded)."""
+    import torch
+
+    n, tw = net.n, net.wf_t_width
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    gbar = torch.randn(B, T, n, generator=gen, device=dev)
+    ow = 0.3 * torch.rand(B, T, n, generator=gen, device=dev)
+    edges = (0.3 / tw) * torch.rand(B, T, 2 * n * tw, generator=gen, device=dev)
+    zce, duce = edges[..., : n * tw].contiguous(), edges[..., n * tw :].contiguous()
+    ow[:, 0] = 0.0
+    duce[:, 0] = 0.0
+    return gbar, ow, zce, duce
 
 
 def reverse_streams(net, B, T, seed, dev):
-    """Reverse streams ``(B, W, 2n + 2n t_width)`` shaped as the analytic
-    backward builds them: random ``(B, T, .)`` rows skewed into reverse wave
-    order (zeros out of band), ``ow`` and ``duce`` zero at ``t = 0``, weights
-    nonnegative and summing below 1 a wave (``lam`` stays bounded)."""
+    """:func:`reverse_inputs` as the pre-skewed plain reverse scan's stream
+    ``(B, W, 2n + 2n t_width)``: skewed into reverse wave order, zeros out of
+    band."""
     import torch
 
     from ddr_tpu_torch.routing.wavefront import _reverse_stream
 
-    n, tw = net.n, net.wf_t_width
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    a = torch.cat([
-        torch.randn(B, T, n, generator=gen, device=dev),
-        0.3 * torch.rand(B, T, n, generator=gen, device=dev),
-        (0.3 / tw) * torch.rand(B, T, 2 * n * tw, generator=gen, device=dev),
-    ], dim=-1)
-    a[:, 0, n : 2 * n] = 0.0
-    a[:, 0, 2 * n + n * tw :] = 0.0
+    tw = net.wf_t_width
     lvl = net.level_p.long()
     levels = torch.cat([lvl, lvl, lvl.repeat_interleave(tw), lvl.repeat_interleave(tw)])
+    a = torch.cat(reverse_inputs(net, B, T, seed, dev), dim=-1)
     return _reverse_stream(a, levels, net.depth, T + net.depth).contiguous()
 
 
@@ -288,34 +349,31 @@ def random_physics(n, seed, dev):
 
 
 def band_scan_case(band, B, T, seed, with_q_init, dev):
-    """Pre-skewed inflow and external rows ``(B, W, n_cap)`` for one band, as
-    the router builds them from ``(B, T, n_cap)`` series, and an optional
-    carried state."""
+    """Inflow and external series ``(B, T, n)`` for one band (or chunked
+    band), as the router hands them to the scan, and an optional carried
+    state."""
     import torch
 
-    from ddr_tpu_torch.routing.wavefront import _ext_skews, _input_skews
-
     gen = torch.Generator(device=dev).manual_seed(seed)
-    n, lvl = band.n, band.level_p.long()
+    n = band.n
 
     def series(scale):
         return scale * torch.rand(B, T, n, generator=gen, device=dev)
 
     q = series(2.0)
     q[torch.rand(B, T, n, generator=gen, device=dev) < 0.25] = 0.0  # below the discharge clamp
-    qs = _input_skews(q, lvl, band.depth, T).contiguous()
-    xe, se = _ext_skews(series(1.0), series(1.0), lvl, band.depth, T)
+    xe, se = series(1.0), series(1.0)
     q_init = 3.0 * torch.rand(B, n, generator=gen, device=dev) if with_q_init else None
-    return qs, xe, se, q_init
+    return q, xe, se, q_init
 
 
 def band_bounds(frame, c, B, T):
     """``(bytes ms, operations ms)`` of band ``c``'s two scans at batch B and
     T timesteps, counting only in-band work of its real reaches and real
-    gather slots, as the single-ring bounds do: the forward reads qs, xe and
-    se and writes ys once per in-band (request, reach, timestep), reads its
-    tables and operands once; the reverse reads its four streams and writes
-    lams once, reads its transposed tables once."""
+    gather slots, as the single-ring bounds do: the forward reads q', x_ext
+    and s_ext and writes raw once per (request, reach, timestep), reads its
+    tables and operands once; the reverse reads its four inputs and writes
+    lam once, reads its transposed tables once."""
     n = int((frame.gidx[c] < frame.n).sum())
     slots = int(frame.wf_mask[c].sum())
     t_slots = int((frame.t_col[c] < frame.n_cap).sum())
@@ -424,7 +482,7 @@ def profile_band_step(step, batch, label) -> None:
         prof, ("ddr::kan", "ddr::band_inputs", "ddr::forward_scan", "ddr::band_publish",
                "ddr::adjoint_prepasses", "ddr::reverse_scan", "ddr::adjoint_postpasses",
                "ddr::optimizer"),
-        ("ddr::adjoint_physics", "ddr::adjoint_stream", "ddr::adjoint_pullback"),
+        ("ddr::adjoint_physics", "ddr::adjoint_pullback"),
     )
     print(f"  device busy {device_ms:.3f} ms ({100 * device_ms / host_ms:.1f}% of the host time)")
 
@@ -434,8 +492,8 @@ def band_parity_small(dev) -> tuple[float, float]:
     frame; returns their max abs errors."""
     import torch
 
-    from ddr_tpu_torch.routing.reverse_kernel import reverse_scan, reverse_scan_reference
-    from ddr_tpu_torch.routing.wave_kernel import wave_scan, wave_scan_reference
+    from ddr_tpu_torch.routing.reverse_kernel import reverse_scan_tm, reverse_scan_tm_reference
+    from ddr_tpu_torch.routing.wave_kernel import wave_scan_tm, wave_scan_tm_reference
 
     frame = band_frame(dev)
     print(f"small band frame: {frame.n_chunks} bands, n_cap {frame.n_cap}, span_max "
@@ -448,18 +506,18 @@ def band_parity_small(dev) -> tuple[float, float]:
             phys = random_physics(frame.n_cap, 3 + c, dev)
             for label, B, T, with_init in (("hotstart", 3, 24, False), ("q_init", 3, 24, True),
                                            ("T=1", 2, 1, False)):
-                qs, xe, se, qi = band_scan_case(band, B, T, 7 + c, with_init, dev)
-                kw = dict(T=T, xe=xe, se=se, mask_raw=True)
-                ys = wave_scan(qs, band, phys, qi, **kw)
+                q, xe, se, qi = band_scan_case(band, B, T, 7 + c, with_init, dev)
+                kw = dict(x_ext=xe, s_ext=se, mask_raw=True)
+                raw = wave_scan_tm(q, band, phys, qi, **kw)
                 torch.cuda.synchronize()
-                wave_err = max(wave_err, compare(wave_scan_reference(qs, band, phys, qi, **kw), ys,
+                wave_err = max(wave_err, compare(wave_scan_tm_reference(q, band, phys, qi, **kw), raw,
                                                  f"wave_scan/band small band {c} {label}"))
             for label, B, T in (("T 24", 2, 24), ("T=1", 2, 1)):
-                rows_s = reverse_streams(band, B, T, 5 + c, dev)
-                lams = reverse_scan(rows_s, band, T=T)
+                rev = reverse_inputs(band, B, T, 5 + c, dev)
+                lam = reverse_scan_tm(*rev, band)
                 torch.cuda.synchronize()
                 reverse_err = max(reverse_err, compare(
-                    reverse_scan_reference(rows_s, band, T=T), lams,
+                    reverse_scan_tm_reference(*rev, band), lam,
                     f"reverse_scan/band small band {c} {label} (t_width {frame.t_width})"))
     return wave_err, reverse_err
 
@@ -485,9 +543,9 @@ def serve_deep(cfg, basin, smi, dev) -> dict:
 
     from ddr_tpu_torch.routing.mc import DT_SECONDS, route
     from ddr_tpu_torch.routing.model import denormalize_spatial_parameters, engine_label
-    from ddr_tpu_torch.routing.reverse_kernel import reverse_scan, reverse_scan_reference
+    from ddr_tpu_torch.routing.reverse_kernel import reverse_scan_tm, reverse_scan_tm_reference
     from ddr_tpu_torch.routing.stacked import StackedChunked, band_physics, frame_operands
-    from ddr_tpu_torch.routing.wave_kernel import wave_scan, wave_scan_reference
+    from ddr_tpu_torch.routing.wave_kernel import wave_scan_tm, wave_scan_tm_reference
     from ddr_tpu_torch.serving.config import ServeConfig
     from ddr_tpu_torch.serving.service import ForecastService
 
@@ -521,20 +579,20 @@ def serve_deep(cfg, basin, smi, dev) -> dict:
             c = 0
             band = net.band(c)
             phys = band_physics(ops_pad, net.gidx[c].long(), svc.bounds, DT_SECONDS)
-            qs, xe, se, _ = band_scan_case(band, MAX_BATCH, HORIZON, 19, False, dev)
-            kw = dict(T=HORIZON, xe=xe, se=se, mask_raw=True)
-            ys = wave_scan(qs, band, phys, None, **kw)
+            q, xe, se, _ = band_scan_case(band, MAX_BATCH, HORIZON, 19, False, dev)
+            kw = dict(x_ext=xe, s_ext=se, mask_raw=True)
+            raw = wave_scan_tm(q, band, phys, None, **kw)
             torch.cuda.synchronize()
-            out["wave_err"] = compare(wave_scan_reference(qs, band, phys, None, **kw), ys,
+            out["wave_err"] = compare(wave_scan_tm_reference(q, band, phys, None, **kw), raw,
                                       f"wave_scan/band serve-frame band {c} (B {MAX_BATCH}, T {HORIZON})")
-            del qs, xe, se, ys
+            del q, xe, se, raw
             T_rev = TRAIN_DAYS * 24
-            rows_s = reverse_streams(band, 1, T_rev, 23, dev)
-            lams = reverse_scan(rows_s, band, T=T_rev)
+            rev = reverse_inputs(band, 1, T_rev, 23, dev)
+            lam = reverse_scan_tm(*rev, band)
             torch.cuda.synchronize()
-            out["reverse_err"] = compare(reverse_scan_reference(rows_s, band, T=T_rev), lams,
+            out["reverse_err"] = compare(reverse_scan_tm_reference(*rev, band), lam,
                                          f"reverse_scan/band serve-frame band {c} (B 1, T {T_rev})")
-            del rows_s, lams
+            del rev, lam
             torch.cuda.empty_cache()
 
         t0 = time.perf_counter()
@@ -542,12 +600,12 @@ def serve_deep(cfg, basin, smi, dev) -> dict:
         print(f"deep warmup: {time.perf_counter() - t0:.2f}s")
         starts = np.arange(MAX_BATCH * N_BATCHES) % (basin.q_prime.shape[0] - HORIZON + 1)
         torch.cuda.reset_peak_memory_stats()
-        wave_scan.launches = 0
+        wave_scan_tm.launches = 0
         futures = [svc.submit("conus-deep", t0=int(s)) for s in starts]
         answers = [f.result(timeout=900) for f in futures]
-        launches = wave_scan.launches
+        launches = wave_scan_tm.launches
         batches = executed_batches(answers)
-        print(f"deep serve: {len(answers)} requests in {batches} batches, wave_scan.launches "
+        print(f"deep serve: {len(answers)} requests in {batches} batches, wave_scan_tm.launches "
               f"{launches} ({net.n_chunks} bands), peak device memory "
               f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB on {smi}")
         if batches < 3 or launches != batches * net.n_chunks:
@@ -593,8 +651,8 @@ def train_deep(cfg, basin, entry, kan, smi, dev) -> tuple[dict, tuple]:
     from ddr_tpu_torch import training
     from ddr_tpu_torch.geodatazoo.synthetic import observe
     from ddr_tpu_torch.routing.mc import Bounds
-    from ddr_tpu_torch.routing.reverse_kernel import reverse_scan
-    from ddr_tpu_torch.routing.wave_kernel import wave_scan
+    from ddr_tpu_torch.routing.reverse_kernel import reverse_scan_tm
+    from ddr_tpu_torch.routing.wave_kernel import wave_scan_tm
     from ddr_tpu_torch.scripts_utils import resolve_learning_rate
 
     p = cfg.params
@@ -615,7 +673,7 @@ def train_deep(cfg, basin, entry, kan, smi, dev) -> tuple[dict, tuple]:
     opt = training.make_optimizer(kan.parameters(), resolve_learning_rate(schedule, 1))
     step = training.make_batch_train_step(kan, *train_args, opt, device=dev)
     torch.cuda.reset_peak_memory_stats()
-    wave_scan.launches = reverse_scan.launches = 0
+    wave_scan_tm.launches = reverse_scan_tm.launches = 0
     losses = []
     for i in range(1, TRAIN_STEPS + 1):
         training.set_learning_rate(opt, resolve_learning_rate(schedule, i))
@@ -629,7 +687,7 @@ def train_deep(cfg, basin, entry, kan, smi, dev) -> tuple[dict, tuple]:
         losses.append(float(loss))
         print(f"deep train step {i}: loss {losses[-1]:.6f} (lr {opt.param_groups[0]['lr']:g}), device "
               f"{start.elapsed_time(end):.3f} ms (CUDA events), host {host_ms:.3f} ms on {smi}")
-    launches = {"wave_scan": wave_scan.launches, "reverse_scan": reverse_scan.launches}
+    launches = {"wave_scan": wave_scan_tm.launches, "reverse_scan": reverse_scan_tm.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"deep train: {TRAIN_STEPS} steps, launches {launches} ({net.n_chunks} bands), peak device "
           f"memory {peak_gb:.3f} GB on {smi}")
@@ -697,9 +755,9 @@ def time_bands(cfg, entry, kan, smi, dev) -> dict:
 
     from ddr_tpu_torch.routing.mc import DT_SECONDS, Bounds
     from ddr_tpu_torch.routing.model import denormalize_spatial_parameters
-    from ddr_tpu_torch.routing.reverse_kernel import reverse_scan, reverse_scan_reference
+    from ddr_tpu_torch.routing.reverse_kernel import reverse_scan_tm, reverse_scan_tm_reference
     from ddr_tpu_torch.routing.stacked import band_physics, frame_operands
-    from ddr_tpu_torch.routing.wave_kernel import wave_scan, wave_scan_reference
+    from ddr_tpu_torch.routing.wave_kernel import wave_scan_tm, wave_scan_tm_reference
 
     p = cfg.params
     net = entry.network
@@ -716,42 +774,45 @@ def time_bands(cfg, entry, kan, smi, dev) -> dict:
         bands = [net.band(c) for c in range(C)]
 
         B, T = MAX_BATCH, HORIZON
-        qs, xe, se, _ = band_scan_case(bands[0], B, T, 29, False, dev)
-        kw = dict(T=T, xe=xe, se=se, mask_raw=True)
-        for _ in range(2):
-            wave_scan(qs, bands[0], phys[0], None, **kw)
-        def every_band():  # each output dropped at once, as the route drops its ys
+        q, xe, se, _ = band_scan_case(bands[0], B, T, 29, False, dev)
+        kw = dict(x_ext=xe, s_ext=se, mask_raw=True)
+        for c in range(C):  # every band's run table, as the route's first batch builds them
+            wave_scan_tm(q, bands[c], phys[c], None, **kw)
+        def every_band():  # each output dropped at once, as the route drops its raw
             for c in range(C):
-                wave_scan(qs, bands[c], phys[c], None, **kw)
+                wave_scan_tm(q, bands[c], phys[c], None, **kw)
 
-        one_ms = cuda_ms(lambda: wave_scan(qs, bands[0], phys[0], None, **kw), 5)
+        one_ms = cuda_ms(lambda: wave_scan_tm(q, bands[0], phys[0], None, **kw), 5)
         all_ms = cuda_ms(every_band, 2)
-        wave_scan_reference(qs, bands[0], phys[0], None, **kw)
-        plain_ms = cuda_ms(lambda: wave_scan_reference(qs, bands[0], phys[0], None, **kw), 1)
+        plain_ms = cuda_ms(lambda: wave_scan_tm_reference(q, bands[0], phys[0], None, **kw), 1)
         fwd = [band_bounds(net, c, B, T)[0] for c in range(C)]
         out["wave"] = dict(ms=one_ms, all_ms=all_ms, plain_ms=plain_ms, bound=fwd[0],
-                           all_bound_ms=sum(max(b) for b in fwd))
+                           all_bound_ms=sum(max(b) for b in fwd),
+                           barrier_ms=time_barrier(f"wave_scan/band band 0 (B {B}, T {T})", bands[0], B, T, smi,
+                                                   dev)["ms"])
         print(f"timing wave_scan/band (B {B}, W {T + net.span_max}, n_cap {net.n_cap}): one band "
               f"{one_ms:.3f} ms, all {C} bands {all_ms:.3f} ms, plain one band {plain_ms:.3f} ms, "
               f"bound one band {max(fwd[0]):.4f} ms (bytes {fwd[0][0]:.4f}, operations "
               f"{fwd[0][1]:.4f}), all bands {out['wave']['all_bound_ms']:.4f} ms on {smi}")
-        del qs, xe, se
+        del q, xe, se
         torch.cuda.empty_cache()
 
         B, T = 1, TRAIN_DAYS * 24
-        rows_s = reverse_streams(bands[0], B, T, 31, dev)
-        for _ in range(2):
-            reverse_scan(rows_s, bands[0], T=T)
+        rev = reverse_inputs(bands[0], B, T, 31, dev)
+        for c in range(C):
+            reverse_scan_tm(*rev, bands[c])
         def every_reverse_band():
             for c in range(C):
-                reverse_scan(rows_s, bands[c], T=T)
+                reverse_scan_tm(*rev, bands[c])
 
-        one_ms = cuda_ms(lambda: reverse_scan(rows_s, bands[0], T=T), 5)
+        one_ms = cuda_ms(lambda: reverse_scan_tm(*rev, bands[0]), 5)
         all_ms = cuda_ms(every_reverse_band, 2)
-        plain_ms = cuda_ms(lambda: reverse_scan_reference(rows_s, bands[0], T=T), 1)
+        plain_ms = cuda_ms(lambda: reverse_scan_tm_reference(*rev, bands[0]), 1)
         rev = [band_bounds(net, c, B, T)[1] for c in range(C)]
         out["reverse"] = dict(ms=one_ms, all_ms=all_ms, plain_ms=plain_ms, bound=rev[0],
-                              all_bound_ms=sum(max(b) for b in rev))
+                              all_bound_ms=sum(max(b) for b in rev),
+                              barrier_ms=time_barrier(f"reverse_scan/band band 0 (B {B}, T {T})", bands[0], B,
+                                                      T, smi, dev, reverse=True)["ms"])
         print(f"timing reverse_scan/band (B {B}, W {T + net.span_max}, n_cap {net.n_cap}, t_width "
               f"{net.t_width}): one band {one_ms:.3f} ms, all {C} bands {all_ms:.3f} ms, plain one "
               f"band {plain_ms:.3f} ms, bound one band {max(rev[0]):.4f} ms (bytes {rev[0][0]:.4f}, "
@@ -776,28 +837,28 @@ def bf16_parity(net_s, phys_s, dev) -> tuple[float, float]:
     ring and on the small 3-band frame; returns both max abs errors."""
     import torch
 
-    from ddr_tpu_torch.routing.wave_kernel import wave_scan, wave_scan_reference
+    from ddr_tpu_torch.routing.wave_kernel import wave_scan_tm, wave_scan_tm_reference
 
     ring_err = band_err = 0.0
     cases = (("hotstart", 3, 24, False), ("q_init", 3, 24, True), ("T=1", 2, 1, False))
     with torch.no_grad():
         for label, B, T, with_init in cases:
-            qs, qi = scan_case(net_s, phys_s, B, T, 7, with_init, dev)
-            ys = wave_scan(qs, net_s, phys_s, qi, T=T, compute_dtype="bf16")
+            q, qi = scan_case(net_s, phys_s, B, T, 7, with_init, dev)
+            raw = wave_scan_tm(q, net_s, phys_s, qi, compute_dtype="bf16")
             torch.cuda.synchronize()
             ring_err = max(ring_err, compare_bf16(
-                wave_scan_reference(qs, net_s, phys_s, qi, T=T, compute_dtype="bf16"), ys,
+                wave_scan_tm_reference(q, net_s, phys_s, qi, compute_dtype="bf16"), raw,
                 f"wave_scan/bf16 small/{label}"))
         frame = band_frame(dev)
         for c in range(frame.n_chunks):
             band = frame.band(c)
             phys = random_physics(frame.n_cap, 3 + c, dev)
             for label, B, T, with_init in cases:
-                qs, xe, se, qi = band_scan_case(band, B, T, 7 + c, with_init, dev)
-                kw = dict(T=T, xe=xe, se=se, mask_raw=True, compute_dtype="bf16")
-                ys = wave_scan(qs, band, phys, qi, **kw)
+                q, xe, se, qi = band_scan_case(band, B, T, 7 + c, with_init, dev)
+                kw = dict(x_ext=xe, s_ext=se, mask_raw=True, compute_dtype="bf16")
+                raw = wave_scan_tm(q, band, phys, qi, **kw)
                 torch.cuda.synchronize()
-                band_err = max(band_err, compare_bf16(wave_scan_reference(qs, band, phys, qi, **kw), ys,
+                band_err = max(band_err, compare_bf16(wave_scan_tm_reference(q, band, phys, qi, **kw), raw,
                                                       f"wave_scan/band-bf16 small band {c} {label}"))
     return ring_err, band_err
 
@@ -845,8 +906,8 @@ def bf16_train(cfg, batch, n_launch, label, smi, dev) -> dict:
 
     from ddr_tpu_torch import training
     from ddr_tpu_torch.routing.mc import Bounds
-    from ddr_tpu_torch.routing.reverse_kernel import reverse_scan
-    from ddr_tpu_torch.routing.wave_kernel import wave_scan
+    from ddr_tpu_torch.routing.reverse_kernel import reverse_scan_tm
+    from ddr_tpu_torch.routing.wave_kernel import wave_scan_tm
     from ddr_tpu_torch.scripts_utils import resolve_learning_rate
 
     p = cfg.params
@@ -875,7 +936,7 @@ def bf16_train(cfg, batch, n_launch, label, smi, dev) -> dict:
         return float(loss), health, dev_ms
 
     torch.cuda.reset_peak_memory_stats()
-    wave_scan.launches = reverse_scan.launches = 0
+    wave_scan_tm.launches = reverse_scan_tm.launches = 0
     out = {"bf16_ms": [], "fp32_ms": []}
     losses = []
     for i in range(1, TRAIN_STEPS + 1):
@@ -885,7 +946,7 @@ def bf16_train(cfg, batch, n_launch, label, smi, dev) -> dict:
         out["bf16_ms"].append(ms)
         if int(health.overflow) != 0 or not np.isfinite(float(health.ulp_drift)):
             fail(f"{label} bf16 step {i}: overflow {health.overflow}, ulp_drift {health.ulp_drift}")
-    launches = {"wave_scan": wave_scan.launches, "reverse_scan": reverse_scan.launches}
+    launches = {"wave_scan": wave_scan_tm.launches, "reverse_scan": reverse_scan_tm.launches}
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     print(f"{label} bf16 train: {TRAIN_STEPS} steps, launches {launches}, peak device memory "
           f"{out['peak_gb']:.3f} GB on {smi}")
@@ -1009,7 +1070,7 @@ def time_bf16_ring(cfg, kan, net, ch, attrs, smi, dev) -> dict:
 
     from ddr_tpu_torch.routing.mc import Bounds, reach_physics
     from ddr_tpu_torch.routing.model import denormalize_spatial_parameters
-    from ddr_tpu_torch.routing.wave_kernel import wave_scan, wave_scan_reference
+    from ddr_tpu_torch.routing.wave_kernel import wave_scan_tm, wave_scan_tm_reference
 
     p = cfg.params
     out = {}
@@ -1018,10 +1079,10 @@ def time_bf16_ring(cfg, kan, net, ch, attrs, smi, dev) -> dict:
             kan(attrs), p.parameter_ranges, p.log_space_parameters, p.defaults, net.n)
         phys = reach_physics(net, ch, phys_params, Bounds.from_config(p.attribute_minimums))
         for shape, B, T in (("train", 1, TRAIN_DAYS * 24), ("serve", MAX_BATCH, HORIZON)):
-            qs, _ = scan_case(net, phys, B, T, 37, False, dev)
+            q, _ = scan_case(net, phys, B, T, 37, False, dev)
 
             def run(dtype):
-                return wave_scan(qs, net, phys, None, T=T, compute_dtype=dtype)
+                return wave_scan_tm(q, net, phys, None, compute_dtype=dtype)
 
             for dtype in ("fp32", "bf16"):
                 run(dtype)
@@ -1032,12 +1093,12 @@ def time_bf16_ring(cfg, kan, net, ch, attrs, smi, dev) -> dict:
                   f"bf16 {ms16:.3f} ms = {100 * (ms16 / ms32 - 1):+.1f}% of fp32 on {smi}")
             if shape != "train":
                 continue
-            ys = run("bf16")
-            ref = wave_scan_reference(qs, net, phys, None, T=T, compute_dtype="bf16")
-            out["err"] = compare_bf16(ref, ys, f"wave_scan/bf16 train shape (B {B}, T {T}, n {net.n})")
-            del ys, ref
+            raw = run("bf16")
+            ref = wave_scan_tm_reference(q, net, phys, None, compute_dtype="bf16")
+            out["err"] = compare_bf16(ref, raw, f"wave_scan/bf16 train shape (B {B}, T {T}, n {net.n})")
+            del raw, ref
             out["plain_ms"] = cuda_ms(
-                lambda: wave_scan_reference(qs, net, phys, None, T=T, compute_dtype="bf16"), 1)
+                lambda: wave_scan_tm_reference(q, net, phys, None, compute_dtype="bf16"), 1)
             slots = int(net.wf_idx.numel())
             n = net.n
             bytes_ms = (4 * 2 * B * T * n + 4 * (3 * n + 3 * slots) + 4 * 6 * n) / HBM_BYTES_PER_S * 1e3
@@ -1059,7 +1120,7 @@ def time_bf16_bands(cfg, entry, kan, smi, dev) -> dict:
     from ddr_tpu_torch.routing.mc import DT_SECONDS, Bounds
     from ddr_tpu_torch.routing.model import denormalize_spatial_parameters
     from ddr_tpu_torch.routing.stacked import band_physics, frame_operands
-    from ddr_tpu_torch.routing.wave_kernel import wave_scan, wave_scan_reference
+    from ddr_tpu_torch.routing.wave_kernel import wave_scan_tm, wave_scan_tm_reference
 
     p = cfg.params
     net = entry.network
@@ -1073,29 +1134,29 @@ def time_bf16_bands(cfg, entry, kan, smi, dev) -> dict:
         bounds = Bounds.from_config(p.attribute_minimums)
         phys = [band_physics(ops_pad, gidx[c], bounds, DT_SECONDS) for c in range(C)]
         bands = [net.band(c) for c in range(C)]
-        qs, xe, se, _ = band_scan_case(bands[0], B, T, 41, False, dev)
+        q, xe, se, _ = band_scan_case(bands[0], B, T, 41, False, dev)
 
         def one(dtype, c=0):
-            return wave_scan(qs, bands[c], phys[c], None, T=T, xe=xe, se=se, mask_raw=True,
-                             compute_dtype=dtype)
+            return wave_scan_tm(q, bands[c], phys[c], None, x_ext=xe, s_ext=se, mask_raw=True,
+                                compute_dtype=dtype)
 
-        def every_band(dtype):  # each output dropped at once, as the route drops its ys
+        def every_band(dtype):  # each output dropped at once, as the route drops its raw
             for c in range(C):
                 one(dtype, c)
 
         for dtype in ("fp32", "bf16"):
-            one(dtype)
+            every_band(dtype)
         turns = [cuda_ms(lambda d=d: one(d), 5) for d in ("fp32", "bf16", "bf16", "fp32")]
         all_turns = [cuda_ms(lambda d=d: every_band(d), 2) for d in ("fp32", "bf16", "bf16", "fp32")]
         ms16, ms32 = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
         all16, all32 = (all_turns[1] + all_turns[2]) / 2, (all_turns[0] + all_turns[3]) / 2
-        ys = one("bf16")
-        ref = wave_scan_reference(qs, bands[0], phys[0], None, T=T, xe=xe, se=se, mask_raw=True,
-                                  compute_dtype="bf16")
-        err = compare_bf16(ref, ys, f"wave_scan/band-bf16 train-shape band 0 (B {B}, T {T})")
-        del ys, ref
-        plain_ms = cuda_ms(lambda: wave_scan_reference(qs, bands[0], phys[0], None, T=T, xe=xe, se=se,
-                                                       mask_raw=True, compute_dtype="bf16"), 1)
+        raw = one("bf16")
+        ref = wave_scan_tm_reference(q, bands[0], phys[0], None, x_ext=xe, s_ext=se, mask_raw=True,
+                                     compute_dtype="bf16")
+        err = compare_bf16(ref, raw, f"wave_scan/band-bf16 train-shape band 0 (B {B}, T {T})")
+        del raw, ref
+        plain_ms = cuda_ms(lambda: wave_scan_tm_reference(q, bands[0], phys[0], None, x_ext=xe, s_ext=se,
+                                                          mask_raw=True, compute_dtype="bf16"), 1)
     fwd = [band_bounds(net, c, B, T)[0] for c in range(C)]
     out = dict(ms=ms16, fp32_ms=ms32, all_ms=all16, all_fp32_ms=all32, plain_ms=plain_ms, bound=fwd[0],
                all_bound_ms=sum(max(b) for b in fwd), err=err)
@@ -1105,7 +1166,7 @@ def time_bf16_bands(cfg, entry, kan, smi, dev) -> dict:
           f"{100 * (ms16 / ms32 - 1):+.1f}% of fp32; plain one band {plain_ms:.3f} ms; bound one band "
           f"{max(fwd[0]):.4f} ms (bytes {fwd[0][0]:.4f}, operations {fwd[0][1]:.4f}), all bands "
           f"{out['all_bound_ms']:.4f} ms on {smi}")
-    del qs, xe, se
+    del q, xe, se
     torch.cuda.empty_cache()
     return out
 
@@ -1143,8 +1204,8 @@ def ext_parity_small(dev) -> tuple[float, float, float]:
     ``RTOL``. Returns the three max abs errors."""
     import torch
 
-    from ddr_tpu_torch.routing.reverse_kernel import reverse_scan, reverse_scan_reference
-    from ddr_tpu_torch.routing.wave_kernel import wave_scan, wave_scan_reference
+    from ddr_tpu_torch.routing.reverse_kernel import reverse_scan_tm, reverse_scan_tm_reference
+    from ddr_tpu_torch.routing.wave_kernel import wave_scan_tm, wave_scan_tm_reference
 
     deep, chain = small_chunked(dev)
     print(f"small chunked network: {deep.n_chunks} bands of {[c.n for c in deep.chunks]} reaches, local "
@@ -1155,20 +1216,20 @@ def ext_parity_small(dev) -> tuple[float, float, float]:
     with torch.no_grad():
         for i, (name, net) in enumerate(bands):
             for label, B, T in (("B 3, T 24", 3, 24), ("T=1", 2, 1)):
-                rows_s = reverse_streams(net, B, T, 90 + i, dev)
-                lams = reverse_scan(rows_s, net, T=T)
+                rev = reverse_inputs(net, B, T, 90 + i, dev)
+                lam = reverse_scan_tm(*rev, net)
                 torch.cuda.synchronize()
-                err_rev = max(err_rev, compare(reverse_scan_reference(rows_s, net, T=T), lams,
+                err_rev = max(err_rev, compare(reverse_scan_tm_reference(*rev, net), lam,
                                                f"reverse_scan/ext small {name} {label}"))
             phys = random_physics(net.n, 50 + i, dev)
             for label, B, T, with_init in (("hotstart", 3, 24, False), ("q_init", 3, 24, True),
                                            ("T=1", 2, 1, False)):
-                qs, xe, se, qi = band_scan_case(net, B, T, 60 + i, with_init, dev)
+                q, xe, se, qi = band_scan_case(net, B, T, 60 + i, with_init, dev)
                 for dtype in ("fp32", "bf16"):
-                    kw = dict(T=T, xe=xe, se=se, compute_dtype=dtype)
-                    ys = wave_scan(qs, net, phys, qi, **kw)
+                    kw = dict(x_ext=xe, s_ext=se, compute_dtype=dtype)
+                    ys = wave_scan_tm(q, net, phys, qi, **kw)
                     torch.cuda.synchronize()
-                    ref = wave_scan_reference(qs, net, phys, qi, **kw)
+                    ref = wave_scan_tm_reference(q, net, phys, qi, **kw)
                     what = f"wave_scan/ext{'-bf16' if dtype == 'bf16' else ''} small {name} {label}"
                     if dtype == "fp32":
                         err32 = max(err32, compare(ref, ys, what))
@@ -1190,9 +1251,10 @@ def chunk_physics(net, c, channels, phys_params, bounds):
 
 def ext_bounds(net, B, T) -> tuple[float, float]:
     """``(bytes ms, operations ms)`` of one chunked band's forward scan at
-    batch B and T timesteps, counted as the band rows are: ``qs``, ``xe``
-    and ``se`` read and ``ys`` written once per in-band (request, reach,
-    timestep), the tables and operands once; the ring is not counted."""
+    batch B and T timesteps, counted as the band rows are: ``q'``,
+    ``x_ext`` and ``s_ext`` read and ``raw`` written once per (request,
+    reach, timestep), the tables and operands once; the ring is not
+    counted."""
     n = net.n
     slots = int(net.wf_mask.sum()) if net.wf_mask.numel() else 0
     bytes_moved = 4 * 4 * B * T * n + 4 * (3 * n + 3 * slots) + 4 * 6 * n
@@ -1202,8 +1264,8 @@ def ext_bounds(net, B, T) -> tuple[float, float]:
 
 def reverse_ext_bounds(net, B, T) -> tuple[float, float]:
     """``(bytes ms, operations ms)`` of one chunked band's reverse scan at
-    batch B and T timesteps, counted as the band rows are: the four streams
-    read and ``lams`` written once per in-band (request, reach, timestep),
+    batch B and T timesteps, counted as the band rows are: the four inputs
+    read and ``lam`` written once per (request, reach, timestep),
     the transposed tables once; operations for the reaches and their real
     successor slots."""
     n, tw = net.n, net.wf_t_width
@@ -1234,7 +1296,7 @@ def serve_chunked(cfg, basin, entry, kan, smi, dev) -> dict:
     from ddr_tpu_torch.routing.chunked import CHUNK_CELL_BUDGET, ChunkedNetwork, build_routing_network
     from ddr_tpu_torch.routing.mc import Bounds, route
     from ddr_tpu_torch.routing.model import denormalize_spatial_parameters, engine_label
-    from ddr_tpu_torch.routing.wave_kernel import wave_scan, wave_scan_reference
+    from ddr_tpu_torch.routing.wave_kernel import wave_scan_tm, wave_scan_tm_reference
 
     p = cfg.params
     rd = basin.routing_data
@@ -1269,7 +1331,7 @@ def serve_chunked(cfg, basin, entry, kan, smi, dev) -> dict:
     serve(net, batch_q(0))  # warm-up: allocator and library state
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    wave_scan.launches = 0
+    wave_scan_tm.launches = 0
     answers = []
     for i in range(N_BATCHES):
         q_host = batch_q(i)
@@ -1285,9 +1347,9 @@ def serve_chunked(cfg, basin, entry, kan, smi, dev) -> dict:
         answers.append(runoff)
         print(f"chunked batch {i + 1} (B {MAX_BATCH}, T {HORIZON}): device {start.elapsed_time(end):.3f} ms "
               f"(CUDA events), host {host_ms:.3f} ms on {smi}")
-    launches = wave_scan.launches
+    launches = wave_scan_tm.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"chunked serve: {N_BATCHES} batches, wave_scan.launches {launches} ({C} bands), peak device "
+    print(f"chunked serve: {N_BATCHES} batches, wave_scan_tm.launches {launches} ({C} bands), peak device "
           f"memory {peak_gb:.3f} GB on {smi}")
     if launches != N_BATCHES * C:
         fail(f"chunked serve: expected {C} wave_scan launches a batch: {launches} in {N_BATCHES} batches")
@@ -1323,21 +1385,23 @@ def serve_chunked(cfg, basin, entry, kan, smi, dev) -> dict:
         for c in [big] + [c for c in range(C) if c != big]:
             band = net.chunks[c]
             phys = chunk_physics(net, c, entry.channels, params, bounds)
-            qs, xe, se, _ = band_scan_case(band, B, T, 70 + c, False, dev)
-            kw = dict(T=T, xe=xe, se=se)
-            wave_scan(qs, band, phys, None, **kw)
-            per_band.append(cuda_ms(lambda: wave_scan(qs, band, phys, None, **kw), 2 if c != big else 5))
+            q, xe, se, _ = band_scan_case(band, B, T, 70 + c, False, dev)
+            kw = dict(x_ext=xe, s_ext=se)
+            wave_scan_tm(q, band, phys, None, **kw)
+            per_band.append(cuda_ms(lambda: wave_scan_tm(q, band, phys, None, **kw), 2 if c != big else 5))
             bound_all += max(ext_bounds(band, B, T))
             if c == big:
-                ys = wave_scan(qs, band, phys, None, **kw)
+                raw = wave_scan_tm(q, band, phys, None, **kw)
                 torch.cuda.synchronize()
-                ref = wave_scan_reference(qs, band, phys, None, **kw)
-                out["err"] = compare(ref, ys, f"wave_scan/ext continental band {c} ({band.n} reaches, "
-                                              f"B {B}, T {T})")
-                del ys, ref
-                out["plain_ms"] = cuda_ms(lambda: wave_scan_reference(qs, band, phys, None, **kw), 1)
+                ref = wave_scan_tm_reference(q, band, phys, None, **kw)
+                out["err"] = compare(ref, raw, f"wave_scan/ext continental band {c} ({band.n} reaches, "
+                                               f"B {B}, T {T})")
+                del raw, ref
+                out["plain_ms"] = cuda_ms(lambda: wave_scan_tm_reference(q, band, phys, None, **kw), 1)
                 out["bound"] = ext_bounds(band, B, T)
-            del qs, xe, se
+                out["barrier_ms"] = time_barrier(f"wave_scan/ext largest band (B {B}, T {T})", band, B, T,
+                                                 smi, dev)["ms"]
+            del q, xe, se
             torch.cuda.empty_cache()
     out.update(ms=per_band[0], all_ms=sum(per_band), all_bound_ms=bound_all)
     bytes_ms, flops_ms = out["bound"]
@@ -1372,8 +1436,8 @@ def train_chunked(cfg, basin, entry, net, smi, dev) -> dict:
 
     from ddr_tpu_torch import training
     from ddr_tpu_torch.routing.mc import Bounds
-    from ddr_tpu_torch.routing.reverse_kernel import reverse_scan
-    from ddr_tpu_torch.routing.wave_kernel import wave_scan
+    from ddr_tpu_torch.routing.reverse_kernel import reverse_scan_tm
+    from ddr_tpu_torch.routing.wave_kernel import wave_scan_tm
     from ddr_tpu_torch.scripts_utils import resolve_learning_rate
 
     p = cfg.params
@@ -1405,7 +1469,7 @@ def train_chunked(cfg, basin, entry, net, smi, dev) -> dict:
     opt = training.make_optimizer(kan.parameters(), resolve_learning_rate(schedule, 1))
     step = training.make_batch_train_step(kan, *train_args, opt, device=dev)
     torch.cuda.reset_peak_memory_stats()
-    wave_scan.launches = reverse_scan.launches = 0
+    wave_scan_tm.launches = reverse_scan_tm.launches = 0
     out = {"step_ms": []}
     losses = []
     for i in range(1, TRAIN_STEPS + 1):
@@ -1421,7 +1485,7 @@ def train_chunked(cfg, basin, entry, net, smi, dev) -> dict:
         out["step_ms"].append(start.elapsed_time(end))
         print(f"chunked train step {i}: loss {losses[-1]:.6f}, device {out['step_ms'][-1]:.3f} ms (CUDA "
               f"events), host {host_ms:.3f} ms on {smi}")
-    out["launches"] = {"wave_scan": wave_scan.launches, "reverse_scan": reverse_scan.launches}
+    out["launches"] = {"wave_scan": wave_scan_tm.launches, "reverse_scan": reverse_scan_tm.launches}
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     print(f"chunked train: {TRAIN_STEPS} steps, launches {out['launches']} ({C} bands), peak device memory "
           f"{out['peak_gb']:.3f} GB on {smi}")
@@ -1433,22 +1497,22 @@ def train_chunked(cfg, basin, entry, net, smi, dev) -> dict:
 
     step16 = training.make_batch_train_step(kan, *train_args, opt, device=dev, dtype="bf16",
                                             collect_health=True, health_bands=HEALTH_BANDS)
-    wave_scan.launches = reverse_scan.launches = 0
+    wave_scan_tm.launches = reverse_scan_tm.launches = 0
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     loss, _, health = step16(*batch)
     end.record()
     torch.cuda.synchronize()
-    out["bf16_launches"] = wave_scan.launches
+    out["bf16_launches"] = wave_scan_tm.launches
     out["bf16_ms"] = start.elapsed_time(end)
     stats = {k: getattr(health, k) for k in ("nonfinite", "q_min", "q_max", "mass_residual", "overflow",
                                               "ulp_drift", "grad_norm")}
     finite = all(bool(torch.isfinite(torch.as_tensor(v, dtype=torch.float64)).all()) for v in stats.values())
     print(f"chunked bf16 train step with health: loss {float(loss):.6f}, device {out['bf16_ms']:.3f} ms, "
-          f"launches {wave_scan.launches}/{reverse_scan.launches}, "
+          f"launches {wave_scan_tm.launches}/{reverse_scan_tm.launches}, "
           f"{ {k: float(v) for k, v in stats.items()} }, worst band {worst_of(health)} on {smi}")
-    if not finite or int(health.nonfinite) != 0 or out["bf16_launches"] != C or reverse_scan.launches != C:
-        fail(f"chunked bf16 step: stats {stats}, launches {wave_scan.launches}/{reverse_scan.launches}")
+    if not finite or int(health.nonfinite) != 0 or out["bf16_launches"] != C or reverse_scan_tm.launches != C:
+        fail(f"chunked bf16 step: stats {stats}, launches {wave_scan_tm.launches}/{reverse_scan_tm.launches}")
     del step16, opt, kan
     gc.collect()
     torch.cuda.empty_cache()
@@ -1465,7 +1529,7 @@ def time_ext_bf16(cfg, entry, net, kan, smi, dev) -> dict:
 
     from ddr_tpu_torch.routing.mc import Bounds
     from ddr_tpu_torch.routing.model import denormalize_spatial_parameters
-    from ddr_tpu_torch.routing.wave_kernel import wave_scan, wave_scan_reference
+    from ddr_tpu_torch.routing.wave_kernel import wave_scan_tm, wave_scan_tm_reference
 
     p = cfg.params
     B, T = 1, TRAIN_DAYS * 24
@@ -1480,10 +1544,10 @@ def time_ext_bf16(cfg, entry, net, kan, smi, dev) -> dict:
         for c in [big] + [c for c in range(net.n_chunks) if c != big]:
             band = net.chunks[c]
             phys = chunk_physics(net, c, entry.channels, params, bounds)
-            qs, xe, se, _ = band_scan_case(band, B, T, 80 + c, False, dev)
+            q, xe, se, _ = band_scan_case(band, B, T, 80 + c, False, dev)
 
             def one(dtype):
-                return wave_scan(qs, band, phys, None, T=T, xe=xe, se=se, compute_dtype=dtype)
+                return wave_scan_tm(q, band, phys, None, x_ext=xe, s_ext=se, compute_dtype=dtype)
 
             for dtype in ("fp32", "bf16"):
                 one(dtype)
@@ -1493,14 +1557,14 @@ def time_ext_bf16(cfg, entry, net, kan, smi, dev) -> dict:
             all16, all32 = all16 + ms16, all32 + ms32
             bound_all += max(ext_bounds(band, B, T))
             if c == big:
-                ref = wave_scan_reference(qs, band, phys, None, T=T, xe=xe, se=se, compute_dtype="bf16")
+                ref = wave_scan_tm_reference(q, band, phys, None, x_ext=xe, s_ext=se, compute_dtype="bf16")
                 out["err"] = compare_bf16(ref, one("bf16"), f"wave_scan/ext-bf16 continental band {c} "
                                                             f"(B {B}, T {T})", exact=True)
                 del ref
-                out["plain_ms"] = cuda_ms(lambda: wave_scan_reference(qs, band, phys, None, T=T, xe=xe, se=se,
-                                                                      compute_dtype="bf16"), 1)
+                out["plain_ms"] = cuda_ms(lambda: wave_scan_tm_reference(q, band, phys, None, x_ext=xe,
+                                                                         s_ext=se, compute_dtype="bf16"), 1)
                 out.update(ms=ms16, fp32_ms=ms32, bound=ext_bounds(band, B, T), turns=turns)
-            del qs, xe, se
+            del q, xe, se
             torch.cuda.empty_cache()
     out.update(all_ms=all16, all_fp32_ms=all32, all_bound_ms=bound_all)
     bytes_ms, flops_ms = out["bound"]
@@ -1521,7 +1585,7 @@ def time_reverse_ext(net, smi, dev) -> dict:
     import numpy as np
     import torch
 
-    from ddr_tpu_torch.routing.reverse_kernel import reverse_scan, reverse_scan_reference
+    from ddr_tpu_torch.routing.reverse_kernel import reverse_scan_tm, reverse_scan_tm_reference
 
     B, T = 1, TRAIN_DAYS * 24
     sizes = [c.n for c in net.chunks]
@@ -1530,19 +1594,21 @@ def time_reverse_ext(net, smi, dev) -> dict:
     with torch.no_grad():
         for c in [big] + [c for c in range(net.n_chunks) if c != big]:
             band = net.chunks[c]
-            rows_s = reverse_streams(band, B, T, 100 + c, dev)
-            lams = reverse_scan(rows_s, band, T=T)
+            rev = reverse_inputs(band, B, T, 100 + c, dev)
+            lam = reverse_scan_tm(*rev, band)
             torch.cuda.synchronize()
             if c == big:
-                out["err"] = compare(reverse_scan_reference(rows_s, band, T=T), lams,
+                out["err"] = compare(reverse_scan_tm_reference(*rev, band), lam,
                                      f"reverse_scan/ext continental band {c} ({band.n} reaches, B {B}, T {T}, "
                                      f"t_width {band.wf_t_width})")
-                out["plain_ms"] = cuda_ms(lambda: reverse_scan_reference(rows_s, band, T=T), 1)
+                out["plain_ms"] = cuda_ms(lambda: reverse_scan_tm_reference(*rev, band), 1)
                 out["bound"] = reverse_ext_bounds(band, B, T)
-            del lams
-            per_band.append(cuda_ms(lambda: reverse_scan(rows_s, band, T=T), 5 if c == big else 2))
+                out["barrier_ms"] = time_barrier(f"reverse_scan/ext largest band (B {B}, T {T})", band, B, T,
+                                                 smi, dev, reverse=True)["ms"]
+            del lam
+            per_band.append(cuda_ms(lambda: reverse_scan_tm(*rev, band), 5 if c == big else 2))
             bound_all += max(reverse_ext_bounds(band, B, T))
-            del rows_s
+            del rev
             torch.cuda.empty_cache()
     out.update(ms=per_band[0], all_ms=sum(per_band), all_bound_ms=bound_all)
     bytes_ms, flops_ms = out["bound"]
@@ -1655,8 +1721,8 @@ def time_fp32_only() -> int:
     """``python3 chip_smoke.py --time-fp32``: only the fp32 forward kernel's
     times (CUDA events, 10 launches) at the serving shape (B 8, T 72), on
     the regional single ring and on band 0 of the 3-band 65,536-reach,
-    depth-2048 frame, as one JSON line. It uses nothing that the port's
-    third slice did not have, so that two checkouts can be compared on one
+    depth-2048 frame, as one JSON line. It uses only the time-major scan's
+    entry point, so that two checkouts that have it can be compared on one
     card: copy this script into each and run them in turns (parent, change,
     change, parent)."""
     import torch
@@ -1666,7 +1732,7 @@ def time_fp32_only() -> int:
     from ddr_tpu_torch.routing.mc import DT_SECONDS, Bounds, reach_physics
     from ddr_tpu_torch.routing.model import denormalize_spatial_parameters, prepare_batch
     from ddr_tpu_torch.routing.stacked import band_physics, frame_operands
-    from ddr_tpu_torch.routing.wave_kernel import wave_scan
+    from ddr_tpu_torch.routing.wave_kernel import wave_scan_tm
     from ddr_tpu_torch.validation.configs import Config, KanConfig
 
     dev = torch.device("cuda")
@@ -1685,18 +1751,18 @@ def time_fp32_only() -> int:
                 p.log_space_parameters, p.defaults, net.n)
             if label == "wave_scan":
                 phys = reach_physics(net, ch, params, bounds)
-                qs, _ = scan_case(net, phys, MAX_BATCH, HORIZON, 13, False, dev)
+                q, _ = scan_case(net, phys, MAX_BATCH, HORIZON, 13, False, dev)
 
                 def run():
-                    return wave_scan(qs, net, phys, None, T=HORIZON)
+                    return wave_scan_tm(q, net, phys, None)
             else:
                 band = net.band(0)
                 phys = band_physics(frame_operands(ch, params, net.n, dev), net.gidx[0].long(), bounds,
                                     DT_SECONDS)
-                qs, xe, se, _ = band_scan_case(band, MAX_BATCH, HORIZON, 29, False, dev)
+                q, xe, se, _ = band_scan_case(band, MAX_BATCH, HORIZON, 29, False, dev)
 
                 def run():
-                    return wave_scan(qs, band, phys, None, T=HORIZON, xe=xe, se=se, mask_raw=True)
+                    return wave_scan_tm(q, band, phys, None, x_ext=xe, s_ext=se, mask_raw=True)
 
             for _ in range(2):
                 run()
@@ -1726,6 +1792,12 @@ def main() -> int:
         return 2
     if sys.argv[1:] == ["--time-fp32"]:
         return time_fp32_only()
+    old_log = None
+    if len(sys.argv) == 3 and sys.argv[1] == "--old-kernels":
+        old_log = sys.argv[2]
+    elif sys.argv[1:]:
+        print("usage: chip_smoke.py [--time-fp32 | --old-kernels LOG]", file=sys.stderr)
+        return 2
     import numpy as np
 
     from ddr_tpu_torch import training
@@ -1733,8 +1805,8 @@ def main() -> int:
     from ddr_tpu_torch.routing import _build
     from ddr_tpu_torch.routing.mc import Bounds, reach_physics, route
     from ddr_tpu_torch.routing.model import denormalize_spatial_parameters, prepare_batch
-    from ddr_tpu_torch.routing.reverse_kernel import reverse_scan, reverse_scan_reference
-    from ddr_tpu_torch.routing.wave_kernel import wave_scan, wave_scan_reference
+    from ddr_tpu_torch.routing.reverse_kernel import reverse_scan_tm, reverse_scan_tm_reference
+    from ddr_tpu_torch.routing.wave_kernel import wave_scan_tm, wave_scan_tm_reference
     from ddr_tpu_torch.scripts_utils import resolve_learning_rate
     from ddr_tpu_torch.serving.config import ServeConfig
     from ddr_tpu_torch.serving.service import ForecastService
@@ -1765,19 +1837,19 @@ def main() -> int:
         for label, B, T, with_init in (("small/hotstart", 3, 24, False),
                                        ("small/q_init", 3, 24, True),
                                        ("small/T=1", 2, 1, False)):
-            qs, qi = scan_case(net_s, phys_s, B, T, 7, with_init, dev)
-            ys = wave_scan(qs, net_s, phys_s, qi, T=T)
+            q, qi = scan_case(net_s, phys_s, B, T, 7, with_init, dev)
+            raw = wave_scan_tm(q, net_s, phys_s, qi)
             torch.cuda.synchronize()
-            compare(wave_scan_reference(qs, net_s, phys_s, qi, T=T), ys, label)
+            compare(wave_scan_tm_reference(q, net_s, phys_s, qi), raw, label)
         # reverse scan: the small tree (t_width 1), T = 1, and a DAG with fan-out
         net_f = fan_out_network(4096, 2, dev)
         reverse_err = 0.0
         for label, net_r, B, T in (("small/tree", net_s, 3, 24), ("small/T=1", net_s, 2, 1),
                                    (f"small/fan-out t_width {net_f.wf_t_width}", net_f, 2, 24)):
-            rows_s = reverse_streams(net_r, B, T, 5, dev)
-            lams = reverse_scan(rows_s, net_r, T=T)
+            rev = reverse_inputs(net_r, B, T, 5, dev)
+            lam = reverse_scan_tm(*rev, net_r)
             torch.cuda.synchronize()
-            err = compare(reverse_scan_reference(rows_s, net_r, T=T), lams, f"reverse_scan {label}")
+            err = compare(reverse_scan_tm_reference(*rev, net_r), lam, f"reverse_scan {label}")
             reverse_err = max(reverse_err, err)
         if net_f.wf_t_width < 2:
             fail(f"the fan-out network has t_width {net_f.wf_t_width}; the slot loop was not exercised")
@@ -1801,34 +1873,34 @@ def main() -> int:
             phys = reach_physics(net, entry.channels, phys_params, svc.bounds)
             max_abs = 0.0
             for label, with_init in (("serve-shape/hotstart", False), ("serve-shape/q_init", True)):
-                qs, qi = scan_case(net, phys, MAX_BATCH, HORIZON, 11, with_init, dev)
-                ys = wave_scan(qs, net, phys, qi, T=HORIZON)
+                q, qi = scan_case(net, phys, MAX_BATCH, HORIZON, 11, with_init, dev)
+                raw = wave_scan_tm(q, net, phys, qi)
                 torch.cuda.synchronize()
-                err = compare(wave_scan_reference(qs, net, phys, qi, T=HORIZON), ys, label)
+                err = compare(wave_scan_tm_reference(q, net, phys, qi), raw, label)
                 max_abs = max(max_abs, err)
-            del ys, qs
+            del raw, q
             # the training phase routes this topology (same seed) over T = 240 h
             T_rev = TRAIN_DAYS * 24
-            rows_s = reverse_streams(net, 1, T_rev, 17, dev)
-            lams = reverse_scan(rows_s, net, T=T_rev)
+            rev = reverse_inputs(net, 1, T_rev, 17, dev)
+            lam = reverse_scan_tm(*rev, net)
             torch.cuda.synchronize()
-            err = compare(reverse_scan_reference(rows_s, net, T=T_rev), lams,
+            err = compare(reverse_scan_tm_reference(*rev, net), lam,
                           f"reverse_scan train-shape (T {T_rev}, n {net.n}, t_width {net.wf_t_width})")
             reverse_err = max(reverse_err, err)
-            del rows_s, lams
+            del rev, lam
 
         # ---- 3. serve ----
         t0 = time.perf_counter()
         svc.warmup()
         print(f"warmup: {time.perf_counter() - t0:.2f}s")
         starts = np.arange(MAX_BATCH * N_BATCHES) % (basin.q_prime.shape[0] - HORIZON + 1)
-        wave_scan.launches = 0
+        wave_scan_tm.launches = 0
         futures = [svc.submit("conus-synthetic", t0=int(s)) for s in starts]
         answers = [f.result(timeout=600) for f in futures]
-        launches = wave_scan.launches
+        launches = wave_scan_tm.launches
         batches = executed_batches(answers)
         print(f"serve: {len(answers)} requests in {batches} batches, "
-              f"wave_scan.launches {launches}")
+              f"wave_scan_tm.launches {launches}")
         if launches < 1 or batches < 3 or launches != batches:
             fail(f"expected one wave_scan launch per batch (>= 3): {launches} launches, "
                  f"{batches} batches")
@@ -1892,7 +1964,7 @@ def main() -> int:
     opt = training.make_optimizer(kan_t.parameters(), resolve_learning_rate(schedule, 1))
     step = training.make_batch_train_step(kan_t, *train_args, opt, device=dev)
     torch.cuda.reset_peak_memory_stats()
-    wave_scan.launches = reverse_scan.launches = 0
+    wave_scan_tm.launches = reverse_scan_tm.launches = 0
     losses = []
     for i in range(1, TRAIN_STEPS + 1):
         training.set_learning_rate(opt, resolve_learning_rate(schedule, i))
@@ -1906,7 +1978,7 @@ def main() -> int:
         losses.append(float(loss))
         print(f"train step {i}: loss {losses[-1]:.6f} (lr {opt.param_groups[0]['lr']:g}), device "
               f"{start.elapsed_time(end):.3f} ms (CUDA events), host {host_ms:.3f} ms on {smi}")
-    train_launches = {"wave_scan": wave_scan.launches, "reverse_scan": reverse_scan.launches}
+    train_launches = {"wave_scan": wave_scan_tm.launches, "reverse_scan": reverse_scan_tm.launches}
     print(f"train: {TRAIN_STEPS} steps, launches {train_launches}, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
     if not all(np.isfinite(losses)) or daily.shape != (obs.shape[0], N_GAUGES):
@@ -1924,7 +1996,7 @@ def main() -> int:
     device_ms = device_profile(
         prof, ("ddr::kan", "ddr::forward_scan", "ddr::adjoint_prepasses", "ddr::reverse_scan",
                "ddr::adjoint_postpasses", "ddr::optimizer"),
-        ("ddr::adjoint_physics", "ddr::adjoint_stream", "ddr::adjoint_pullback"),
+        ("ddr::adjoint_physics", "ddr::adjoint_pullback"),
     )
     print(f"  device busy {device_ms:.3f} ms ({100 * device_ms / host_ms:.1f}% of the host time)")
 
@@ -1932,20 +2004,17 @@ def main() -> int:
     B, T, n = MAX_BATCH, HORIZON, net.n
     W = T + net.depth
     with torch.no_grad():
-        qs, _ = scan_case(net, phys, B, T, 13, False, dev)
+        q, _ = scan_case(net, phys, B, T, 13, False, dev)
         for _ in range(2):
-            wave_scan(qs, net, phys, None, T=T)
-        kernel_ms = cuda_ms(lambda: wave_scan(qs, net, phys, None, T=T), 10)
-        wave_scan_reference(qs, net, phys, None, T=T)
-        plain_ms = cuda_ms(lambda: wave_scan_reference(qs, net, phys, None, T=T), 2)
+            wave_scan_tm(q, net, phys, None)
+        kernel_ms = cuda_ms(lambda: wave_scan_tm(q, net, phys, None), 10)
+        plain_ms = cuda_ms(lambda: wave_scan_tm_reference(q, net, phys, None), 2)
         # one request: the same W waves and barriers over an eighth of the bytes
-        qs1 = qs[:1].contiguous()
-        wave_scan(qs1, net, phys, None, T=T)
-        kernel_b1_ms = cuda_ms(lambda: wave_scan(qs1, net, phys, None, T=T), 10)
-    # bytes the scan must move: each reach is in its valid band for T of the W
-    # waves, so the in-band inflow read once and the in-band solve values
-    # written once (B * T * n each; the rest of the (B, W, n) rows are zeros
-    # the un-skew never reads), the tables and per-reach operands once
+        q1 = q[:1].contiguous()
+        wave_scan_tm(q1, net, phys, None)
+        kernel_b1_ms = cuda_ms(lambda: wave_scan_tm(q1, net, phys, None), 10)
+    # bytes the scan must move: the inflow read once and the solve values
+    # written once (B * T * n each), the tables and per-reach operands once
     slots = int(net.wf_idx.numel())
     bytes_moved = 4 * 2 * B * T * n + 4 * (3 * n + 3 * slots) + 4 * 6 * n
     flops = B * (T - 1) * n * FLOPS_PER_PAIR + B * T * slots * FLOPS_PER_SLOT
@@ -1956,16 +2025,18 @@ def main() -> int:
           f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bytes_moved / 1e9:.3f} GB -> "
           f"{bytes_ms:.4f} ms, {flops / 1e9:.3f} GFLOP -> {flops_ms:.4f} ms); "
           f"kernel at B 1: {kernel_b1_ms:.3f} ms")
-    del qs, qs1
+    del q, q1
+    wave_barrier_ms = time_barrier(f"wave_scan (B {B}, T {T})", net, B, T, smi, dev)["ms"]
+    barrier_sweep(W, smi, dev)
 
     # ---- 5. timing: reverse_scan at the training shape ----
     T, n, tw = T_train, net_t.n, net_t.wf_t_width
-    rows_s = reverse_streams(net_t, 1, T, 17, dev)
+    rev = reverse_inputs(net_t, 1, T, 17, dev)
     for _ in range(2):
-        reverse_scan(rows_s, net_t, T=T)
-    reverse_ms = cuda_ms(lambda: reverse_scan(rows_s, net_t, T=T), 10)
-    reverse_plain_ms = cuda_ms(lambda: reverse_scan_reference(rows_s, net_t, T=T), 2)
-    # bytes the scan must move: each reach's T in-band rows of gbar, ow and its
+        reverse_scan_tm(*rev, net_t)
+    reverse_ms = cuda_ms(lambda: reverse_scan_tm(*rev, net_t), 10)
+    reverse_plain_ms = cuda_ms(lambda: reverse_scan_tm_reference(*rev, net_t), 2)
+    # bytes the scan must move: each reach's T rows of gbar, ow and its
     # t_width slots of zce and duce read once, its T lams written once, and the
     # transposed tables and levels
     rev_bytes = 4 * (T * n * (2 + 2 * tw) + T * n) + 4 * (2 * n * tw + n)
@@ -1977,8 +2048,9 @@ def main() -> int:
           f"{reverse_ms:.3f} ms, plain {reverse_plain_ms:.3f} ms, bound {reverse_bound_ms:.4f} ms "
           f"({rev_bytes / 1e9:.3f} GB -> {rev_bytes_ms:.4f} ms, {rev_flops / 1e9:.3f} GFLOP -> "
           f"{rev_flops_ms:.4f} ms)")
+    reverse_barrier_ms = time_barrier(f"reverse_scan (B 1, T {T})", net_t, 1, T, smi, dev, reverse=True)["ms"]
 
-    del rows_s
+    del rev
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2064,10 +2136,10 @@ def main() -> int:
             "bound_ms": max(bytes_ms, flops_ms),
             "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
             "library_ms": None, "ms_all_bands": t["all_ms"], "bound_ms_all_bands": t["all_bound_ms"],
+            **({"barrier_floor_ms": t["barrier_ms"]} if "barrier_ms" in t else {}),
         }
 
-    print(nvidia_smi())
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "wave_scan",
         "route": "cuda",
         "source": "ddr_tpu_torch/csrc/wave_scan.cu",
@@ -2079,6 +2151,7 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
         "library_ms": None,
+        "barrier_floor_ms": wave_barrier_ms,
     }, {
         "name": "reverse_scan",
         "route": "cuda",
@@ -2091,6 +2164,7 @@ def main() -> int:
         "bound_ms": reverse_bound_ms,
         "bound_by": "bytes" if rev_bytes_ms >= rev_flops_ms else "operations",
         "library_ms": None,
+        "barrier_floor_ms": reverse_barrier_ms,
     },
         band_entry("wave_scan/band", "ddr_tpu_torch/csrc/wave_scan.cu",
                    "ddr_tpu/routing/pallas_kernel.py:193",
@@ -2124,7 +2198,11 @@ def main() -> int:
         band_entry("reverse_scan/ext", "ddr_tpu_torch/csrc/reverse_scan.cu",
                    "ddr_tpu/routing/pallas_kernel.py:348", chunked_train["launches"]["reverse_scan"],
                    rev_ext_err, rev_ext),
-    ]}))
+    ]
+    if old_log is not None:
+        old_times(old_log, kernels)
+    print(nvidia_smi())
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-__all__ = ["KANLayer", "Kan", "bspline_basis", "uniform_knots"]
+__all__ = ["TRUNCATED_NORMAL_STD", "KANLayer", "Kan", "bspline_basis", "truncated_normal_", "uniform_knots"]
 
 
 def bspline_basis(x: torch.Tensor, knots: torch.Tensor, k: int) -> torch.Tensor:
@@ -41,6 +41,20 @@ def uniform_knots(
     return steps * h + lo
 
 
+#: The std of a unit normal truncated to [-2, 2]: flax's
+#: ``variance_scaling(..., "truncated_normal")`` divides by it, so that the
+#: truncated samples keep the requested std.
+TRUNCATED_NORMAL_STD = 0.87962566103423978
+
+
+def truncated_normal_(w: torch.Tensor, std: float, generator: torch.Generator | None) -> torch.Tensor:
+    """Fill ``w`` as flax's ``variance_scaling(..., "truncated_normal")``
+    does: a normal of std ``std / TRUNCATED_NORMAL_STD`` truncated to two of
+    those stds, whose samples then have std ``std``."""
+    scale = std / TRUNCATED_NORMAL_STD
+    return nn.init.trunc_normal_(w, 0.0, scale, -2.0 * scale, 2.0 * scale, generator=generator)
+
+
 class KANLayer(nn.Module):
     """One KAN layer: a learnable spline activation per (input, output) edge."""
 
@@ -61,8 +75,8 @@ class KANLayer(nn.Module):
         self.w_base = nn.Parameter(torch.empty(in_features, features))
         self.spline_coef = nn.Parameter(torch.empty(in_features, n_basis, features))
         with torch.no_grad():
-            # kaiming-normal over fan_in, normal(0, 0.1): the flax initializers
-            self.w_base.normal_(0.0, (2.0 / in_features) ** 0.5, generator=generator)
+            # flax's kaiming_normal over fan_in and normal(0, 0.1)
+            truncated_normal_(self.w_base, (2.0 / in_features) ** 0.5, generator)
             self.spline_coef.normal_(0.0, 0.1, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -101,10 +115,9 @@ class Kan(nn.Module):
         self.output = nn.Linear(hidden_size, len(self.learnable_parameters))
         with torch.no_grad():
             fan_in, fan_out = len(self.input_var_names), len(self.learnable_parameters)
-            self.input.weight.normal_(0.0, (2.0 / fan_in) ** 0.5, generator=generator)
-            self.output.weight.normal_(
-                0.0, (2.0 / (hidden_size + fan_out)) ** 0.5, generator=generator
-            )
+            # flax's kaiming_normal (fan_in) and xavier_normal (fan_avg)
+            truncated_normal_(self.input.weight, (2.0 / fan_in) ** 0.5, generator)
+            truncated_normal_(self.output.weight, (2.0 / (hidden_size + fan_out)) ** 0.5, generator)
             self.input.bias.zero_()
             self.output.bias.zero_()
 

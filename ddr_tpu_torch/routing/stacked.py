@@ -136,7 +136,8 @@ class BandTables:
     frame's ``n_cap``, ``depth`` its ``span_max``, ``level_p`` the band-local
     levels (0 on sentinels), the gather and transposed tables the band's rows,
     ``wf_slot``/``wf_width``/``wf_buckets`` the frame's. ``frame`` lets the
-    kernels range-check every band's tables once per frame."""
+    kernels range-check every band's tables once per frame, and ``index``
+    (the band's place in it) keys the band's cached tables there."""
 
     n: int
     depth: int
@@ -152,6 +153,7 @@ class BandTables:
     wf_ring_rows: int
     wf_t_width: int
     frame: "StackedChunked"
+    index: int
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -216,7 +218,7 @@ class StackedChunked:
             wf_slot=self.wf_slot, wf_width=self.wf_width,
             wf_t_row=self.t_row[c], wf_t_col=self.t_col[c],
             wf_buckets=self.buckets, wf_ring_rows=self.ring_rows, wf_t_width=self.t_width,
-            frame=self,
+            frame=self, index=c,
         )
 
 

@@ -4,12 +4,16 @@ The port of ``ddr_tpu/routing/wavefront.py``'s single-ring engine. Reach ``i``
 at longest-path level ``L(i)`` computes its timestep-``t`` value at wave
 ``w = t + L(i) + 1``, so the whole route is ``T + depth`` sequential waves
 (:mod:`ddr_tpu_torch.routing.wave_kernel`) instead of ``T x depth`` steps.
-Around the scan sit two skews: the inflow rows are sheared into wave order
-before it and the solve values sheared back to time-major order after it.
-Here each skew is one ``torch.gather`` with a per-column row index, clamped
-to the series and masked outside it, so no padded copy of the series is made
-(the JAX package pads, then splits the skew into static slices or a vmapped
-slice only to bound XLA's compile time).
+The JAX package shears the inflow rows into wave order before its scan and
+the solve values back to time-major order after it, since a TPU block spec
+wants whole rows. The port's scans are time-major
+(:func:`~ddr_tpu_torch.routing.wave_kernel.wave_scan_tm`,
+:func:`~ddr_tpu_torch.routing.reverse_kernel.reverse_scan_tm`): each reach
+reads and writes its own timestep, so the analytic route has no skews. The
+skews stay for ``adjoint="ad"``, which differentiates the pre-skewed plain
+scan, and as the layout of the pre-skewed plain versions: each is one
+``torch.gather`` with a per-column row index, clamped to the series and
+masked outside it, so no padded copy of the series is made.
 
 The same engine runs each band of the stacked band router
 (:mod:`ddr_tpu_torch.routing.stacked`): a band is a table object with the
@@ -31,7 +35,7 @@ and hotstart coefficient, the per-edge propagation weights) runs as
 vectorized ``(T, n)`` passes before the scan, which is left with one ring
 gather, two edge-weighted sums and a ring write per wave
 (:mod:`ddr_tpu_torch.routing.reverse_kernel`); the output adjoints (``q'``,
-``q_init``, the per-reach operands) come from the un-skewed ``lam`` field
+``q_init``, the per-reach operands) come from its time-major ``lam`` field
 after it. Clamp subgradients follow JAX: 0.5 at a tie (:func:`_dmax`).
 """
 
@@ -43,7 +47,7 @@ from torch.profiler import record_function
 
 from ddr_tpu_torch.geometry.trapezoidal import maximum
 from ddr_tpu_torch.routing.network import RiverNetwork
-from ddr_tpu_torch.routing.reverse_kernel import reverse_scan, reverse_scan_reference
+from ddr_tpu_torch.routing.reverse_kernel import reverse_scan_tm, reverse_scan_tm_reference
 from ddr_tpu_torch.routing.wave_kernel import (
     ReachPhysics,
     physics_derivatives,
@@ -51,9 +55,9 @@ from ddr_tpu_torch.routing.wave_kernel import (
     reach_operands,
     reduce_gathered,
     validate_dtype,
-    wave_scan,
     wave_scan_autograd,
-    wave_scan_reference,
+    wave_scan_tm,
+    wave_scan_tm_reference,
     with_operands,
 )
 
@@ -88,6 +92,10 @@ def _ext_skews(x_ext: torch.Tensor, s_ext: torch.Tensor, level_p: torch.Tensor, 
     t = torch.arange(T + depth, device=x_ext.device)[:, None] - level_p[None, :]
     rows, valid = t.clamp(0, T - 1), (t >= 0) & (t < T)
     return _skew(x_ext, rows, valid), _skew(s_ext, rows, valid)
+
+
+# The reverse wave schedule's layout: the streams of the pre-skewed plain
+# reverse scan (reverse_kernel.reverse_scan_reference) and back.
 
 
 def _reverse_index(levels: torch.Tensor, depth: int, T: int, n_waves: int):
@@ -137,13 +145,14 @@ class AnalyticRoute(torch.autograd.Function):
     stacked frame (:class:`~ddr_tpu_torch.routing.stacked.BandTables`);
     ``physics`` supplies the bounds and the timestep; ``mask_raw`` masks the
     raw predecessor sums, as the band frame does. The forward runs
-    :func:`~ddr_tpu_torch.routing.wave_kernel.wave_scan` with its ring in
+    :func:`~ddr_tpu_torch.routing.wave_kernel.wave_scan_tm` with its ring in
     ``dtype`` (``"fp32"`` or ``"bf16"``) and saves only ``raw`` besides the
     inputs: under bf16 that is the rounded series upcast, what the ring
     held. The backward runs
-    :func:`~ddr_tpu_torch.routing.reverse_kernel.reverse_scan`, always in
+    :func:`~ddr_tpu_torch.routing.reverse_kernel.reverse_scan_tm`, always in
     fp32 over that residual, as the JAX backward does
-    (``ddr_tpu/routing/wavefront.py:183-190, 594-597``).
+    (``ddr_tpu/routing/wavefront.py:183-190, 594-597``). Both scans read and
+    write time-major ``(B, T, .)`` arrays, so neither has a skew around it.
     ``kernel="reference"`` runs both scans' plain versions on any device.
     """
 
@@ -152,19 +161,14 @@ class AnalyticRoute(torch.autograd.Function):
                 x_storage, network, physics: ReachPhysics, kernel, mask_raw: bool, dtype: str):
         ops = (n_mann, p_spatial, q_spatial, slope, length, x_storage)
         phys = with_operands(physics, ops)
-        _, T, _ = qp_p.shape
-        level_p = network.level_p.long()
-        qs = _input_skews(qp_p, level_p, network.depth, T).contiguous()
-        xe = se = None
-        if x_ext is not None:
-            xe, se = _ext_skews(x_ext, s_ext, level_p, network.depth, T)
-        scan = wave_scan_reference if kernel == "reference" else wave_scan
+        # a band's series are column slices of the boundary sums
+        xe = None if x_ext is None else x_ext.contiguous()
+        se = None if s_ext is None else s_ext.contiguous()
+        scan = wave_scan_tm_reference if kernel == "reference" else wave_scan_tm
         with record_function("ddr::forward_scan"):
-            ys = scan(qs, network, phys, q_init, T=T, xe=xe, se=se, mask_raw=mask_raw,
-                      compute_dtype=dtype)
-        del qs, xe, se
-        # x_t[i] was emitted at wave t + L(i) + 1, i.e. ys row t + L(i)
-        raw = _skew_by_level_runs(ys, level_p, T)
+            raw = scan(qp_p, network, phys, q_init, x_ext=xe, s_ext=se, mask_raw=mask_raw,
+                       compute_dtype=dtype)
+        del xe, se
         ctx.network, ctx.physics, ctx.kernel, ctx.mask_raw = network, physics, kernel, mask_raw
         ctx.has_init, ctx.has_ext = q_init is not None, x_ext is not None
         empty = raw.new_zeros(0)
@@ -182,8 +186,7 @@ class AnalyticRoute(torch.autograd.Function):
         phys = with_operands(ctx.physics, ops)
         lb = phys.bounds.discharge
         B, T, n = raw.shape
-        depth, tw = network.depth, network.wf_t_width
-        level_p = network.level_p.long()
+        tw = network.wf_t_width
         buckets = network.wf_buckets
         n_deg0 = buckets[0][0] if buckets else n
         wf_col = network.wf_col.long()
@@ -221,39 +224,21 @@ class AnalyticRoute(torch.autograd.Function):
             dm_all[:, 0] = 0.0
             ow = dm_all * (d1 * xpx + d2 * s_full + d3 * q_prev_all + d4 * qpm1c + c3)
             del c1, c2, c3, d1, d2, d3, d4, prev
-            # per-edge weight streams: slot (i, k) carries successor j's weight
-            # at node i's in-flight timestep (pad slots read the zero column);
-            # dm is folded into the inflow-adjoint edge stream
+            # per-edge weights: slot (i, k) carries successor j's weight at
+            # node i's timestep (pad slots read the zero column); dm is folded
+            # into the inflow-adjoint edge weight
             zce = F.pad(zc, (0, 1))[..., t_col]
             duce = dm_all.repeat_interleave(tw, dim=-1) * F.pad(uc, (0, 1))[..., t_col]
             if not has_ext:
                 del uc
             del dm_all
-            # ONE reverse stream over [gbar | ow | zce | duce] columns, each
-            # block streamed straight into its columns
-            with record_function("ddr::adjoint_stream"):
-                W = T + depth
-                rows_s = raw.new_empty(B, W, 2 * n + 2 * n * tw)
-                node_idx = _reverse_index(level_p, depth, T, W)
-                edge_idx = node_idx if tw == 1 else _reverse_index(
-                    level_p.repeat_interleave(tw), depth, T, W)
-                off = 0
-                for block, idx in ((raw_bar.to(raw.dtype), node_idx), (ow, node_idx),
-                                   (zce, edge_idx), (duce, edge_idx)):
-                    width = block.shape[-1]
-                    rows_s[..., off : off + width] = _skew(block, *idx)
-                    off += width
-            # the loop variables too: they would keep duce and the index alive
-            del ow, zce, duce, node_idx, edge_idx, block, idx
 
-        scan = reverse_scan_reference if kernel == "reference" else reverse_scan
+        scan = reverse_scan_tm_reference if kernel == "reference" else reverse_scan_tm
         with record_function("ddr::reverse_scan"):
-            lams = scan(rows_s, network, T=T)
-        del rows_s
+            lam_all = scan(raw_bar.to(raw.dtype).contiguous(), ow, zce, duce, network)  # raw incl. t = 0
+        del ow, zce, duce
 
         with record_function("ddr::adjoint_postpasses"):
-            lam_all = _unskew_reverse(lams, level_p, depth, T)  # (B, T, n), raw incl. t = 0
-            del lams
             # theta_bar: ONE pullback of the chain over the whole (T, n) batch
             # (row 0 zeroed: no physics on the hotstart diagonal)
             lam_th = lam_all.clone()

@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --old-kernels LOG   # also each kernel's time in an earlier run's LOG
     python3 chip_smoke.py --time-fp32   # only the fp32 forward kernel's times
+    python3 chip_smoke.py --ddr-train   # only the build and phase 18 (ddr train)
 
 From the root of a checkout, with one CUDA card visible. Phases, each fatal
 on failure (non-zero exit, no result line):
@@ -95,7 +96,19 @@ on failure (non-zero exit, no result line):
            card (1 - NSE held to 1e-5), and the oracle's route time beside
            the single-ring kernel's;
 17. AD     gradients through ``adjoint="ad"`` (the plain scan) against the
-           analytic adjoint on the kernels, within rtol 1e-5.
+           analytic adjoint on the kernels, within rtol 1e-5;
+18. ddr train  ``python -m ddr_tpu_torch.cli train examples/synthetic/config.yaml``
+           (the example's 2 epochs at rho 20, batch 2: 4 steps) in-process:
+           at 4,096 reaches and depth 64 once with ``device=cpu`` (the plain
+           scans) and once on the card, per-step losses held to rtol 1e-4;
+           then on the card at the regional size (65,536 reaches, depth 512)
+           with the launch counts zeroed just before and read just after
+           (one ``wave_scan`` launch a step plus one for the twin's
+           observation route, one ``reverse_scan`` a step), finite losses, a
+           checkpoint per mini-batch, and a second run with
+           ``experiment.checkpoint=<saved_models>`` and 3 epochs that must
+           resume from epoch 2's last mini-batch, skip the rest of epoch 2
+           and train epoch 3; per-step times and each run's wall time.
 The service of phases 3 and 7 runs with its health watchdog on, which must
 have seen every served batch and not be degraded; phase 8's gradient check
 also holds the bf16 kernels against the bf16 plain scans. Every kernel's
@@ -110,6 +123,9 @@ from __future__ import annotations
 import copy
 import gc
 import json
+import logging
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -153,6 +169,12 @@ CHUNK_SMALL, CHUNK_SMALL_BUDGET, CHAIN_REACHES, CHAIN_BUDGET = (320, 80), 8000, 
 ENGINE_GRAD_RTOL, CHUNK_STACKED_MAX_REL = 2e-2, 1e-3
 NUMERICS_SHAPES, NUMERICS_MAX_ONE_MINUS_NSE = ((4000, 1024, 96), (6000, 2048, 96)), 1e-5
 AD_SEGMENTS, AD_DEPTH, AD_T = 512, 64, 24
+# `ddr train` on the example config: 4 gauges at batch 2 over 2 epochs. Its
+# CPU-vs-card parity at a width the plain scans train in seconds, its run at
+# the regional width.
+DDR_TRAIN_CONFIG, DDR_TRAIN_STEPS = "examples/synthetic/config.yaml", 4
+DDR_TRAIN_PARITY = ("synthetic_segments=4096", "synthetic_depth=64")
+DDR_TRAIN_RTOL = 1e-4  # per-step losses, the CPU's plain scans against the card's kernels
 
 
 def fail(msg: str) -> None:
@@ -1772,6 +1794,96 @@ def time_fp32_only() -> int:
     return 0
 
 
+class TrainLog(logging.Handler):
+    """What the port's train loop logs: each step's (epoch, mini-batch, loss,
+    host ms, engine), where it resumed, and the mini-batches it skipped."""
+
+    STEP = re.compile(r"epoch (\d+) mini-batch (\d+): loss=(\S+) \(.* reach-timesteps/s, (\S+) ms, (\S+)\)")
+
+    def __init__(self):
+        super().__init__()
+        self.steps, self.resumed, self.skipped = [], [], []
+
+    def emit(self, record):
+        msg = record.getMessage()
+        if m := self.STEP.match(msg):
+            self.steps.append((int(m[1]), int(m[2]), float(m[3]), float(m[4]), m[5]))
+        elif m := re.match(r"Resuming from (\S+) at epoch (\d+)", msg):
+            self.resumed.append((Path(m[1]).name, int(m[2])))
+        elif m := re.match(r"Skipping mini-batch (\d+)", msg):
+            self.skipped.append(int(m[1]))
+
+
+def ddr_train(smi, dev) -> dict:
+    """Phase 18: ``ddr train`` through the port's CLI (see the module
+    docstring). Returns the regional run's launch counts."""
+    from ddr_tpu_torch import cli
+    from ddr_tpu_torch.routing.reverse_kernel import reverse_scan_tm
+    from ddr_tpu_torch.routing.wave_kernel import wave_scan_tm
+    from ddr_tpu_torch.scripts import train as train_script
+    from ddr_tpu_torch.training import latest_checkpoint
+
+    root = Path(__file__).resolve().parent / "build" / "ddr_train"
+    shutil.rmtree(root, ignore_errors=True)
+    logger = logging.getLogger(train_script.__name__)
+    logger.setLevel(logging.INFO)
+
+    def run(name, *overrides):
+        log = TrainLog()
+        logger.addHandler(log)
+        t0 = time.perf_counter()
+        try:
+            code = cli.main(["train", DDR_TRAIN_CONFIG, *overrides, f"params.save_path={root / name}"])
+            torch.cuda.synchronize()
+        finally:
+            logger.removeHandler(log)
+        wall = time.perf_counter() - t0
+        losses = [loss for *_, loss, _, _ in log.steps]
+        if code != 0 or not np.all(np.isfinite(losses)):
+            fail(f"ddr train {name}: exit {code}, losses {losses}")
+        ms = ", ".join(f"{step_ms:.1f}" for *_, step_ms, _ in log.steps)
+        engines = sorted({engine for *_, engine in log.steps})
+        print(f"ddr train {name}: {len(log.steps)} steps {[(e, b) for e, b, *_ in log.steps]}, "
+              f"losses {losses}, step host ms [{ms}], engine {engines}, run wall {wall:.2f} s on {smi}")
+        return log, wall
+
+    import numpy as np
+    import torch
+
+    cpu, _ = run("parity-cpu", *DDR_TRAIN_PARITY, "device=cpu")
+    card, _ = run("parity-card", *DDR_TRAIN_PARITY)
+    if [s[:2] for s in cpu.steps] != [s[:2] for s in card.steps] or len(card.steps) != DDR_TRAIN_STEPS:
+        fail(f"ddr train parity: the CPU ran {[s[:2] for s in cpu.steps]}, the card {[s[:2] for s in card.steps]}")
+    for (epoch, mb, ref, *_), (*_, got, _, _) in zip(cpu.steps, card.steps):
+        rel = abs(got - ref) / abs(ref)
+        print(f"ddr train parity epoch {epoch} mini-batch {mb}: card {got!r} cpu {ref!r} rel {rel:.3e}")
+        if rel > DDR_TRAIN_RTOL:
+            fail(f"ddr train parity: epoch {epoch} mini-batch {mb} loss rel {rel:.3e} > {DDR_TRAIN_RTOL}")
+
+    full_size = (f"synthetic_segments={N_SEGMENTS}", f"synthetic_depth={DEPTH}")
+    torch.cuda.reset_peak_memory_stats()
+    wave_scan_tm.launches = reverse_scan_tm.launches = 0
+    full, wall = run("regional", *full_size)
+    launches = {"wave_scan": wave_scan_tm.launches, "reverse_scan": reverse_scan_tm.launches}
+    steps = len(full.steps)
+    print(f"ddr train regional: launches {launches} over {steps} steps (+1 wave_scan: the twin's "
+          f"observation route), peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    if steps != DDR_TRAIN_STEPS or launches != {"wave_scan": steps + 1, "reverse_scan": steps}:
+        fail(f"ddr train regional: {steps} steps, launches {launches}")
+    saved = root / "regional" / "saved_models"
+    newest = latest_checkpoint(saved)
+    if newest is None or not newest.name.endswith("_epoch_2_mb_1.pkl") or len(list(saved.glob("*.pkl"))) != steps:
+        fail(f"ddr train regional: checkpoints {sorted(p.name for p in saved.glob('*.pkl'))}")
+    resumed, _ = run("regional", *full_size, "experiment.epochs=3", f"experiment.checkpoint={saved}")
+    if (resumed.resumed != [(newest.name, 2)] or resumed.skipped != [0, 1]
+            or [s[:2] for s in resumed.steps] != [(3, 0), (3, 1)]):
+        fail(f"ddr train resume: resumed {resumed.resumed}, skipped {resumed.skipped}, "
+             f"steps {[s[:2] for s in resumed.steps]}")
+    print(f"ddr train resume: from {newest.name} at epoch 2, skipped mini-batches {resumed.skipped}, "
+          f"then epoch 3 {[s[:2] for s in resumed.steps]}")
+    return launches
+
+
 def nvidia_smi() -> str:
     """The card's name and power limit, as ``nvidia-smi`` reports them."""
     return subprocess.run(
@@ -1792,11 +1904,12 @@ def main() -> int:
         return 2
     if sys.argv[1:] == ["--time-fp32"]:
         return time_fp32_only()
+    only_ddr_train = sys.argv[1:] == ["--ddr-train"]
     old_log = None
     if len(sys.argv) == 3 and sys.argv[1] == "--old-kernels":
         old_log = sys.argv[2]
-    elif sys.argv[1:]:
-        print("usage: chip_smoke.py [--time-fp32 | --old-kernels LOG]", file=sys.stderr)
+    elif sys.argv[1:] and not only_ddr_train:
+        print("usage: chip_smoke.py [--time-fp32 | --ddr-train | --old-kernels LOG]", file=sys.stderr)
         return 2
     import numpy as np
 
@@ -1823,8 +1936,18 @@ def main() -> int:
     seconds = _build.build(_build.KERNELS, verbose=True)
     print(f"build: {json.dumps({k: round(v, 2) for k, v in seconds.items()})} "
           f"({time.perf_counter() - t0:.2f}s wall) into {_build.build_dir()}")
+    if only_ddr_train:
+        t0 = time.perf_counter()
+        ddr_train(smi, dev)
+        print(f"ddr train phase: {time.perf_counter() - t0:.1f}s")
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+        }}))
+        return 0
 
     # ---- 2. kernel parity: small shape, then the serving shape ----
+    t_regional = time.perf_counter()
     cfg = Config(kan=KanConfig(input_var_names=[f"a{i}" for i in range(10)]))
     p = cfg.params
     small = make_basin(n_segments=4096, n_gauges=4, n_days=2, depth=64, seed=1)
@@ -2071,7 +2194,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    print(f"regional phases: {time.perf_counter() - t_regional:.1f}s")
+
     # ---- 6-9. the stacked band router ----
+    t_stacked = time.perf_counter()
     band_wave_err, band_reverse_err = band_parity_small(dev)
     t0 = time.perf_counter()
     deep = make_basin(n_segments=DEEP_SEGMENTS, n_gauges=N_GAUGES, n_days=TRAIN_DAYS,
@@ -2098,14 +2224,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     time_health(TRAIN_DAYS * 24, N_GAUGES, (1, TRAIN_DAYS * 24, net_d.n_chunks * net_d.n_cap),
                 net_d.orig_level, net_d.depth, net_d.out_map.long(), True, "continental", smi, dev)
+    t0 = time.perf_counter()
     stacked_gradients(cfg, dev)
     gc.collect()
     torch.cuda.empty_cache()
+    print(f"stacked gradients: {time.perf_counter() - t0:.1f}s")
     band = time_bands(cfg, served["entry"], served["kan"], smi, dev)
     band16 = time_bf16_bands(cfg, served["entry"], served["kan"], smi, dev)
     bf16_band_err = max(bf16_band_err, band16["err"])
     gc.collect()
     torch.cuda.empty_cache()
+    print(f"stacked phases: {time.perf_counter() - t_stacked:.1f}s")
 
     # ---- 13-15. the unrolled depth-chunked router ----
     t0 = time.perf_counter()
@@ -2128,6 +2257,11 @@ def main() -> int:
     ad_against_analytic(dev)
     print(f"numerics and AD phases: {time.perf_counter() - t0:.1f}s")
 
+    # ---- 18. ddr train through the CLI ----
+    t0 = time.perf_counter()
+    ddr_train_launches = ddr_train(smi, dev)
+    print(f"ddr train phase: {time.perf_counter() - t0:.1f}s")
+
     def band_entry(name, source, replaces, launches, err, t):
         bytes_ms, flops_ms = t["bound"]
         return {
@@ -2144,7 +2278,8 @@ def main() -> int:
         "route": "cuda",
         "source": "ddr_tpu_torch/csrc/wave_scan.cu",
         "replaces": "ddr_tpu/routing/pallas_kernel.py:193",
-        "launches": launches + train_launches["wave_scan"],
+        "launches": launches + train_launches["wave_scan"] + ddr_train_launches["wave_scan"],
+        "ddr_train_launches": ddr_train_launches["wave_scan"],
         "max_abs_err": max_abs,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -2157,7 +2292,8 @@ def main() -> int:
         "route": "cuda",
         "source": "ddr_tpu_torch/csrc/reverse_scan.cu",
         "replaces": "ddr_tpu/routing/pallas_kernel.py:348",
-        "launches": train_launches["reverse_scan"],
+        "launches": train_launches["reverse_scan"] + ddr_train_launches["reverse_scan"],
+        "ddr_train_launches": ddr_train_launches["reverse_scan"],
         "max_abs_err": reverse_err,
         "ms": reverse_ms,
         "plain_ms": reverse_plain_ms,

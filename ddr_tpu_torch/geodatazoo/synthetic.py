@@ -1,10 +1,12 @@
-"""Synthetic in-memory basin: the fixture dataset for tests and the chip smoke.
+"""Synthetic in-memory basin: the fixture dataset for tests, the chip smoke
+and the end-to-end twin experiment of ``ddr train``.
 
-The port's own copy of ``ddr_tpu/geodatazoo/synthetic.py``'s generators. The
-random stream is drawn in the same order, so one seed gives the same basin
-here as there. :class:`RoutingData` is a minimal dataclass of the fields the
-serving and training paths read (no dates, no observation store);
-:func:`observe` fills the twin experiment's daily observations.
+The port's copy of ``ddr_tpu/geodatazoo/synthetic.py``. The random stream is
+drawn in the same order, so one seed gives the same basin here as there.
+:func:`observe` routes the basin with its true parameters to make the twin
+experiment's observations, and :class:`Synthetic` is the dataset protocol
+over one observed basin: gauge batches in training, day batches in
+inference.
 """
 
 from __future__ import annotations
@@ -13,9 +15,14 @@ import dataclasses
 
 import numpy as np
 
+from ddr_tpu_torch.geodatazoo.dataclasses import Dates, RoutingData
+from ddr_tpu_torch.io.readers import ObservationSet
+from ddr_tpu_torch.validation.enums import Mode
+
 __all__ = [
     "N_ATTRIBUTES",
     "RoutingData",
+    "Synthetic",
     "SyntheticBasin",
     "make_basin",
     "make_deep_network",
@@ -23,23 +30,6 @@ __all__ = [
 ]
 
 N_ATTRIBUTES = 10  # the 10 canonical MERIT attributes
-
-
-@dataclasses.dataclass
-class RoutingData:
-    """One routing problem: topology, channel attributes and gauges."""
-
-    n_segments: int = 0
-    adjacency_rows: np.ndarray | None = None  # (E,) downstream index per edge
-    adjacency_cols: np.ndarray | None = None  # (E,) upstream index per edge
-    normalized_spatial_attributes: np.ndarray | None = None  # (N, num_attrs) KAN input
-    length: np.ndarray | None = None  # (N,) meters
-    slope: np.ndarray | None = None  # (N,) m/m
-    x: np.ndarray | None = None  # (N,) Muskingum storage weight
-    side_slope: np.ndarray | None = None  # (N,) observed z, or None
-    top_width: np.ndarray | None = None  # (N,) observed bankfull width, or None
-    outflow_idx: list[np.ndarray] | None = None  # ragged per-gauge inflow columns
-    flow_scale: np.ndarray | None = None  # (N,) partial-drainage-area correction
 
 
 @dataclasses.dataclass
@@ -121,16 +111,43 @@ def make_deep_network(
     return rows[order], cols[order]
 
 
+def _add_storms(q_prime: np.ndarray, area_weight: np.ndarray, storms) -> None:
+    """The JAX generator's ``q_prime += pulse * area_weight * u`` for each
+    ``(t0, pulse, u)`` of ``storms`` in turn, in place and bit for bit:
+    every element takes the same operations in the same order, but the
+    array is walked in blocks of about 2**17 elements (1 MiB), each taking
+    every storm while it is in cache, and only over the rows from ``t0`` on
+    (the pulse is 0 before)."""
+    T, n = q_prime.shape
+    cols = min(n, 1 << 14)
+    rows = max(1, (1 << 17) // cols)
+    buf = np.empty((rows, cols))
+    for c0 in range(0, n, cols):
+        c1 = min(c0 + cols, n)
+        weight = area_weight[None, c0:c1]
+        for r0 in range(0, T, rows):
+            r1 = min(r0 + rows, T)
+            for t0, pulse, u in storms:
+                a = max(t0, r0)
+                if a < r1:
+                    storm = buf[: r1 - a, : c1 - c0]
+                    np.multiply(pulse[a:r1, None], weight, out=storm)
+                    storm *= u[None, c0:c1]
+                    q_prime[a:r1, c0:c1] += storm
+
+
 def make_basin(
     n_segments: int = 64,
     n_gauges: int = 4,
     n_days: int = 8,
     seed: int = 0,
     depth: int | None = None,
+    start_time: str = "1981/10/01",
 ) -> SyntheticBasin:
-    """A synthetic basin with storm-hydrograph forcing. ``depth`` switches the
-    topology to :func:`make_deep_network` with that exact longest-path depth;
-    ``None`` keeps the shallow random tree."""
+    """A synthetic basin with storm-hydrograph forcing over ``n_days`` days
+    from ``start_time``. ``depth`` switches the topology to
+    :func:`make_deep_network` with that exact longest-path depth; ``None``
+    keeps the shallow random tree."""
     rng = np.random.default_rng(seed)
     n = n_segments
     if depth is None:
@@ -156,12 +173,14 @@ def make_basin(
     t = np.arange(T)
     area_weight = rng.uniform(0.2, 2.0, n)
     q_prime = 0.05 * area_weight[None, :] * np.ones((T, 1))
+    storms = []
     for _ in range(max(2, n_days // 3)):
         t0 = rng.integers(0, T)
         amp = rng.uniform(0.5, 3.0)
         decay = rng.uniform(12, 48)
         pulse = amp * np.exp(-np.maximum(t - t0, 0) / decay) * (t >= t0)
-        q_prime += pulse[:, None] * area_weight[None, :] * rng.uniform(0.5, 1.5, n)[None, :]
+        storms.append((int(t0), pulse, rng.uniform(0.5, 1.5, n)))
+    _add_storms(q_prime, area_weight, storms)
 
     # gauges on the largest-drainage segments
     n_up = np.bincount(rows, minlength=n)
@@ -171,15 +190,22 @@ def make_basin(
         ups = cols[rows == g]
         outflow_idx.append(ups if ups.size else np.array([g]))
 
+    end = (
+        np.datetime64(start_time.replace("/", "-")) + np.timedelta64(n_days - 1, "D")
+    ).astype("datetime64[D]")
     rd = RoutingData(
         n_segments=n,
         adjacency_rows=rows,
         adjacency_cols=cols,
+        spatial_attributes=attrs,
         normalized_spatial_attributes=norm_attrs.T.astype(np.float32),
         length=length,
         slope=slope,
         x=x,
+        dates=Dates(start_time=start_time, end_time=str(end).replace("-", "/")),
+        divide_ids=np.arange(n),
         outflow_idx=outflow_idx,
+        gage_catchment=[f"{i:08d}" for i in range(len(gauge_segments))],
     )
     return SyntheticBasin(
         routing_data=rd,
@@ -193,7 +219,9 @@ def observe(basin: SyntheticBasin, cfg, device="cuda") -> SyntheticBasin:
     """The twin experiment: route the basin with its true parameters through
     the port's ``route`` (default bounds, as the JAX package's ``observe``
     does) and store the tau-trimmed daily gauge discharge as
-    ``basin.obs_daily`` ``(D-1, G)``. Runs on ``device`` (default
+    ``basin.obs_daily`` ``(D-1, G)`` and, as the datasets hand observations
+    to the scripts, as an :class:`ObservationSet` on the routing data: a
+    ``(G, D)`` table whose day 0 is NaN. Runs on ``device`` (default
     ``"cuda"``); ``cfg`` supplies ``params.attribute_minimums["slope"]`` and
     ``params.tau``."""
     import torch
@@ -213,5 +241,87 @@ def observe(basin: SyntheticBasin, cfg, device="cuda") -> SyntheticBasin:
     with torch.no_grad():
         res = route(network, channels, params, torch.as_tensor(basin.q_prime, device=dev),
                     gauges=gauges, device=dev)
-    basin.obs_daily = compute_daily_runoff(res.runoff.T, tau=cfg.params.tau).T  # (D-1, G)
+    daily = compute_daily_runoff(res.runoff.T, tau=cfg.params.tau)  # (G, D-2)
+    basin.obs_daily = daily.T
+
+    rd = basin.routing_data
+    full = np.full((daily.shape[0], len(rd.dates.daily_time_range)), np.nan, dtype=np.float32)
+    full[:, 1 : 1 + daily.shape[1]] = daily
+    rd.observations = ObservationSet(
+        gage_ids=list(rd.gage_catchment), time=rd.dates.daily_time_range, streamflow=full
+    )
     return basin
+
+
+class Synthetic:
+    """The dataset protocol over one generated, observed basin.
+
+    Training mode iterates gauges and draws a fresh ``rho``-day window per
+    batch; inference iterates days over the full-domain routing data.
+    :meth:`streamflow` slices the generated hourly forcing to a batch's
+    window. The twin's observations are routed on ``device`` (default
+    ``cfg.device``); everything the dataset hands out is host numpy.
+    """
+
+    def __init__(self, cfg, device=None) -> None:
+        self.cfg = cfg
+        n_days = len(
+            Dates(start_time=cfg.experiment.start_time, end_time=cfg.experiment.end_time)
+            .daily_time_range
+        )
+        self.basin = observe(
+            make_basin(
+                n_segments=cfg.synthetic_segments or 64,
+                n_gauges=4,
+                n_days=n_days,
+                seed=cfg.np_seed,
+                start_time=cfg.experiment.start_time,
+                depth=cfg.synthetic_depth,
+            ),
+            cfg,
+            device=cfg.device if device is None else device,
+        )
+        self.routing_data = self.basin.routing_data
+        self.dates = Dates(
+            start_time=cfg.experiment.start_time,
+            end_time=cfg.experiment.end_time,
+            rho=cfg.experiment.rho,
+        )
+        self.routing_data.dates = self.dates
+        self.gage_ids = np.asarray(self.routing_data.gage_catchment)
+        self._rng = np.random.default_rng(cfg.np_seed)
+        self._full_obs = self.routing_data.observations
+
+    def __len__(self) -> int:
+        if self.cfg.mode == Mode.training:
+            return len(self.gage_ids)
+        return len(self.dates.daily_time_range)
+
+    def __getitem__(self, idx: int):
+        if self.cfg.mode == Mode.training:
+            return str(self.gage_ids[idx])
+        return idx
+
+    def collate_fn(self, batch: list) -> RoutingData:
+        """A batch's RoutingData with a SNAPSHOT of its window
+        (``Dates.snapshot``) and its observations cut to it; the shared
+        ``self.routing_data`` is never mutated, so batches stay valid while
+        later ones are prepared ahead."""
+        if self.cfg.mode == Mode.training:
+            self.dates.calculate_time_period(self._rng)
+        else:
+            indices = list(batch)
+            if 0 not in indices:
+                indices.insert(0, indices[0] - 1)  # the previous day keeps chunks continuous
+            self.dates.set_date_range(np.asarray(indices))
+        obs = ObservationSet(
+            gage_ids=list(self._full_obs.gage_ids),
+            time=np.asarray(self.dates.batch_daily_time_range),
+            streamflow=self._full_obs.streamflow[:, self.dates.daily_indices],
+        )
+        return dataclasses.replace(self.routing_data, dates=self.dates.snapshot(), observations=obs)
+
+    def streamflow(self, **kwargs) -> np.ndarray:
+        """``(T_batch, N)`` hourly lateral inflow of the batch's window."""
+        rd = kwargs["routing_dataclass"]
+        return self.basin.q_prime[rd.dates.hourly_indices]

@@ -376,6 +376,7 @@ def route(
     collect_health: bool = False,
     health_bands: int = 0,
     health_topk: int = 8,
+    q_prime_permuted: bool = False,
 ) -> RouteResult:
     """Route lateral inflows through the network over a full time window.
 
@@ -432,6 +433,11 @@ def route(
     batch where there is one). The stats are device tensors: reading them
     is the caller's synchronisation.
 
+    ``q_prime_permuted=True`` declares that ``q_prime``'s columns are already
+    in ``network.wf_perm`` order (permuted on the host while the batch was
+    prepared), so the single-ring wavefront engine skips its one gather of
+    the inflow; any other engine raises on it.
+
     Inputs must lie on ``device`` (default ``"cuda"``; raises without a card).
     """
     from ddr_tpu_torch.routing.chunked import ChunkedNetwork, route_chunked
@@ -469,6 +475,8 @@ def route(
                 result.reach_stats, ids, nb, top_k=health_topk, compute_dtype=dtype))
         return dataclasses.replace(result, health=health, reach_stats=None)
 
+    if q_prime_permuted and banded:
+        raise ValueError(f"q_prime_permuted is not supported on a {type(network).__name__}")
     if banded:
         if engine not in (None, "wavefront"):
             raise ValueError(f"a {type(network).__name__} always routes via its banded wavefront")
@@ -486,6 +494,8 @@ def route(
                 "the step engine (one level-scheduled solve a timestep, no kernel); build it with "
                 "build_routing_network for a wavefront engine, or pass engine='step'"
             )
+    if q_prime_permuted and engine != "wavefront":
+        raise ValueError("q_prime_permuted is only valid with the wavefront engine")
     if engine == "step":
         if adjoint is not None:
             raise ValueError(
@@ -511,6 +521,7 @@ def route(
     runoff_p, final_p, _ = wavefront_route_core(
         network, physics, q_prime, q_init_p, kernel=kernel, dtype=dtype,
         adjoint=adjoint or "analytic", remat_physics=remat_physics,
+        q_prime_permuted=q_prime_permuted,
     )
     reach = None
     if want_spatial:
@@ -518,7 +529,8 @@ def route(
 
         # runoff_p is the full-domain clamped solve in wf order; one gather
         # each puts the reductions back on the original axis
-        reach = compute_reach_stats(runoff_p, q_prime, compute_dtype=dtype, runoff_inv=inv)
+        reach = compute_reach_stats(runoff_p, q_prime, compute_dtype=dtype, runoff_inv=inv,
+                                    q_prime_inv=inv if q_prime_permuted else None)
     if gauges is not None:
         gauges_p = dataclasses.replace(gauges, flat_idx=inv[gauges.flat_idx])
         runoff = gauges_p.aggregate(runoff_p)

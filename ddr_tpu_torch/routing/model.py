@@ -16,7 +16,7 @@ import torch
 
 from ddr_tpu_torch.device import resolve_device
 from ddr_tpu_torch.geometry.trapezoidal import maximum
-from ddr_tpu_torch.geodatazoo.synthetic import RoutingData
+from ddr_tpu_torch.geodatazoo.dataclasses import RoutingData
 from ddr_tpu_torch.routing.mc import (
     Bounds,
     ChannelState,
@@ -35,6 +35,7 @@ __all__ = [
     "engine_label",
     "prepare_batch",
     "prepare_channels",
+    "single_ring_wavefront",
 ]
 
 
@@ -50,6 +51,15 @@ def engine_label(network: Any) -> str:
     if getattr(network, "wavefront", False):
         return "single-ring-wavefront"
     return "step"
+
+
+def single_ring_wavefront(network: Any) -> bool:
+    """Is ``network`` routed by the single-ring wavefront engine? The one
+    predicate of the ``q_prime_permuted`` fast path: the batch preparation
+    that permutes ``q_prime``'s columns by ``network.wf_perm`` on the host
+    and the loss that tells ``route`` they arrive permuted both ask it, so
+    they cannot disagree."""
+    return isinstance(network, RiverNetwork) and bool(network.wavefront)
 
 
 def prepare_channels(
@@ -132,13 +142,46 @@ class dmc:
     """Routing model facade: ``forward(routing_data, streamflow,
     spatial_parameters, carry_state)`` returns ``{"runoff": (G, T)}``,
     carrying the final discharge between sequential batches when
-    ``carry_state=True``."""
+    ``carry_state=True``. :meth:`state_dict` / :meth:`load_state_dict` carry
+    everything but the KAN (config, progress counters, discharge state)."""
 
     def __init__(self, cfg: Any, device: str | torch.device = "cuda") -> None:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.bounds = Bounds.from_config(cfg.params.attribute_minimums)
         self._discharge_t: torch.Tensor | None = None
+        self.epoch = 0
+        self.mini_batch = 0
+
+    def set_progress_info(self, epoch: int, mini_batch: int) -> None:
+        self.epoch = epoch
+        self.mini_batch = mini_batch
+
+    def state_dict(self) -> dict[str, Any]:
+        """The wrapper's state: config, device, progress counters and the
+        carried discharge (host numpy, or None)."""
+        return {
+            "cfg": self.cfg,
+            "device": str(self.device),
+            "epoch": self.epoch,
+            "mini_batch": self.mini_batch,
+            "discharge_t": (
+                None if self._discharge_t is None else self._discharge_t.detach().cpu().numpy()
+            ),
+        }
+
+    def load_state_dict(self, state: dict[str, Any]) -> None:
+        """Restore :meth:`state_dict` output; the bounds are rebuilt from the
+        restored config."""
+        self.cfg = state.get("cfg", self.cfg)
+        self.device = resolve_device(state.get("device", self.device))
+        self.epoch = int(state.get("epoch", 0))
+        self.mini_batch = int(state.get("mini_batch", 0))
+        self.bounds = Bounds.from_config(self.cfg.params.attribute_minimums)
+        dq = state.get("discharge_t")
+        self._discharge_t = (
+            None if dq is None else torch.as_tensor(np.asarray(dq, np.float32), device=self.device)
+        )
 
     def forward(
         self,

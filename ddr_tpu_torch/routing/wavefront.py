@@ -313,13 +313,15 @@ def wavefront_route_core(
     dtype: str = "fp32",
     adjoint: str = "analytic",
     remat_physics: bool = True,
+    q_prime_permuted: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Route timesteps ``0..T-1`` by wavefront, entirely in ``wf_perm`` order.
 
     ``q_prime`` is ``(T, N)`` or ``(B, T, N)``; ``physics`` holds per-reach
     operands already in wf order, shared by the batch; ``q_init`` (wf order,
     ``(N,)`` or ``(B, N)``) carries state across windows, ``None`` hotstarts
-    in-band from ``q_prime[0]``. Returns ``(runoff, final, raw)`` in wf order
+    in-band from ``q_prime[0]``; ``q_prime_permuted`` says ``q_prime``'s
+    columns already are in wf order (else they are gathered). Returns ``(runoff, final, raw)`` in wf order
     with ``q_prime``'s leading shape: ``raw`` is the pre-clamp solve value and
     ``runoff = max(raw, lb)``. Differentiable in ``q_prime``, ``q_init`` and
     the per-reach operands, by the adjoint :func:`route_raw` runs
@@ -336,7 +338,7 @@ def wavefront_route_core(
     single = q_prime.dim() == 2
     qp = q_prime[None] if single else q_prime
     B, _, n = qp.shape
-    qp_p = qp.float()[..., network.wf_perm.long()]
+    qp_p = qp.float().contiguous() if q_prime_permuted else qp.float()[..., network.wf_perm.long()]
     if q_init is not None:
         q_init = q_init.float().expand(B, n).contiguous()
     raw = route_raw(qp_p, q_init, None, None, network, physics, kernel, False, dtype, adjoint,

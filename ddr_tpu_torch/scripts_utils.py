@@ -1,5 +1,5 @@
-"""Shared script utilities: the port's copy of ``ddr_tpu/scripts_utils.py``'s
-daily aggregation and learning-rate schedule.
+"""Shared script utilities: the port's copy of ``ddr_tpu/scripts_utils.py``
+(daily aggregation, the learning-rate schedule, NaN-safe summaries).
 
 ``compute_daily_runoff`` applies the tau-dependent boundary trim: start
 ``13 + tau`` hours (spin-up and timezone offset), end ``-11 + tau``. A D-day
@@ -14,7 +14,7 @@ import torch
 
 from ddr_tpu_torch.io.functions import downsample
 
-__all__ = ["compute_daily_runoff", "resolve_learning_rate"]
+__all__ = ["compute_daily_runoff", "resolve_learning_rate", "safe_mean", "safe_percentile"]
 
 
 def compute_daily_runoff(hourly_predictions, tau: int) -> np.ndarray:
@@ -32,3 +32,15 @@ def resolve_learning_rate(schedule: dict[int, float], epoch: int) -> float:
     if not applicable:
         return schedule[min(schedule)]
     return schedule[max(applicable)]
+
+
+def safe_percentile(values: np.ndarray, q: float) -> float:
+    """Percentile of the finite values; NaN when there are none."""
+    finite = np.asarray(values)[np.isfinite(np.asarray(values))]
+    return float(np.percentile(finite, q)) if finite.size else float("nan")
+
+
+def safe_mean(values: np.ndarray) -> float:
+    """Mean of the finite values; NaN when there are none."""
+    finite = np.asarray(values)[np.isfinite(np.asarray(values))]
+    return float(finite.mean()) if finite.size else float("nan")

@@ -483,26 +483,49 @@ def test_chunked_route_on_the_card_runs_a_kernel_per_band(card):
         _close(ref, got, f"chunked {label}, kernels vs plain scans")
 
 
+#: JAX's own float32 single-ring wavefront (on the CPU) against JAX's own
+#: float64 step route on :func:`step_oracle_case`'s inputs: ``(rel_max,
+#: 1 - NSE)``. ``tests/test_torch_numerics.py`` recomputes them with the JAX
+#: package and holds the port's float64 step route to JAX's within 1e-12.
+JAX_STEP_ORACLE_ERRORS = (1.0152487160467283e-04, 7.784984331988817e-12)
+
+
+def step_oracle_case(dtype, device):
+    """A 400-reach, depth-40 network with 24 h of inflow: ``(network,
+    channels, params, q_prime)`` in ``dtype`` on ``device``; the inputs are
+    the same draws in every dtype."""
+    rows, cols = make_deep_network(400, 40, seed=1)
+    net = build_network(rows, cols, 400, device=device)
+    rng = np.random.default_rng(2)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa: E731
+    ch = mc.ChannelState(length=t(rng.uniform(1000, 5000, 400)), slope=t(rng.uniform(1e-3, 1e-2, 400)),
+                         x_storage=t(np.full(400, 0.3)))
+    params = {k: t(np.full(400, v)) for k, v in (("n", 0.05), ("q_spatial", 0.5), ("p_spatial", 21.0))}
+    return net, ch, params, t(rng.uniform(0.01, 1.0, (24, 400)))
+
+
+def step_oracle_errors(runoff, oracle) -> tuple[float, float]:
+    """``(rel_max, 1 - NSE)`` of a float32 route against the float64 oracle."""
+    sim, obs = np.asarray(runoff, np.float64), np.asarray(oracle, np.float64)
+    rel = float((np.abs(sim - obs) / (np.abs(obs) + 1e-6)).max())
+    return rel, float(((sim - obs) ** 2).sum() / ((obs - obs.mean(axis=0)) ** 2).sum())
+
+
 @pytest.mark.cuda
 def test_step_engine_on_the_card_computes_in_the_inputs_dtype(card):
     """The step engine runs on the card in float64 and float32 alike, and
-    its float64 route is the oracle of the single-ring kernel route."""
-    rows, cols = make_deep_network(400, 40, seed=1)
-    net = build_network(rows, cols, 400, device=card)
-    rng = np.random.default_rng(2)
+    its float64 route is the oracle of the single-ring kernel route, whose
+    ``rel_max`` and 1 - NSE are held to 10x JAX's own float32 wavefront's on
+    the same inputs (the bound of ``tests/test_torch_numerics.py``)."""
     runoff = {}
     for dtype in (torch.float64, torch.float32):
-        t = lambda a: torch.as_tensor(a, dtype=dtype, device=card)  # noqa: E731
-        ch = mc.ChannelState(length=t(rng.uniform(1000, 5000, 400)), slope=t(rng.uniform(1e-3, 1e-2, 400)),
-                             x_storage=t(np.full(400, 0.3)))
-        params = {k: t(np.full(400, v)) for k, v in (("n", 0.05), ("q_spatial", 0.5), ("p_spatial", 21.0))}
-        q = t(rng.uniform(0.01, 1.0, (24, 400)))
+        net, ch, params, q = step_oracle_case(dtype, card)
         step = mc.route(net, ch, params, q, engine="step", device=card)
         assert step.runoff.dtype == dtype and step.runoff.device.type == "cuda"
         runoff[dtype] = step.runoff
-        rng = np.random.default_rng(2)
     before = wave_scan_tm.launches
     wave = mc.route(net, ch, params, q, device=card).runoff
     assert wave_scan_tm.launches == before + 1
-    oracle = runoff[torch.float64]
-    assert float(((wave.double() - oracle).abs() / (oracle.abs() + 1e-6)).max()) < 1e-4
+    errors = step_oracle_errors(wave.double().cpu(), runoff[torch.float64].cpu())
+    for name, got, jax_own in zip(("rel_max", "1-NSE"), errors, JAX_STEP_ORACLE_ERRORS):
+        assert got <= 10 * jax_own, (name, got, jax_own)

@@ -1,8 +1,13 @@
 """The port stands alone: importing every ``ddr_tpu_torch`` module, and
-``chip_smoke.py``, pulls in neither ``jax`` nor any module of ``ddr_tpu``."""
+``chip_smoke.py``, pulls in neither ``jax`` nor any module of ``ddr_tpu``;
+and every import statement in them, at any depth of any function, names the
+standard library, ``torch``, ``numpy``, ``scipy`` or the port itself. The
+card machine has only those, so an import of ``yaml``, ``pydantic``,
+``pandas`` or ``matplotlib`` (which this machine has) fails here first."""
 
 from __future__ import annotations
 
+import ast
 import os
 import pkgutil
 import subprocess
@@ -40,5 +45,38 @@ def test_port_imports_no_jax_and_nothing_of_ddr_tpu():
     # those the probe imported
     assert {"ddr_tpu_torch.routing.chunked", "ddr_tpu_torch.routing.stacked",
             "ddr_tpu_torch.observability", "ddr_tpu_torch.observability.health",
-            "ddr_tpu_torch.observability.recovery"} <= names
+            "ddr_tpu_torch.observability.recovery", "ddr_tpu_torch.cli",
+            "ddr_tpu_torch.scripts.train", "ddr_tpu_torch.scripts.common",
+            "ddr_tpu_torch.validation.configs", "ddr_tpu_torch.validation.yaml_subset",
+            "ddr_tpu_torch.validation.enums", "ddr_tpu_torch.validation.metrics",
+            "ddr_tpu_torch.validation.utils", "ddr_tpu_torch.geodatazoo.dataclasses",
+            "ddr_tpu_torch.geodatazoo.loader", "ddr_tpu_torch.io.readers"} <= names
     assert bad == "[]", f"the port imported {bad}"
+
+
+ALLOWED = set(sys.stdlib_module_names) | {"torch", "numpy", "scipy", "ddr_tpu_torch"}
+
+
+def _imported_modules(path: Path) -> list[tuple[int, str]]:
+    """(line, top-level module) of every absolute import in ``path``."""
+    out = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            out += [(node.lineno, a.name.split(".")[0]) for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            out.append((node.lineno, node.module.split(".")[0]))
+    return out
+
+
+def test_every_import_statement_names_an_allowed_package():
+    files = sorted((ROOT / "ddr_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) >= 40
+    bad = [f"{path.relative_to(ROOT)}:{line} imports {mod}"
+           for path in files for line, mod in _imported_modules(path) if mod not in ALLOWED]
+    assert not bad, bad
+
+
+def test_the_walk_sees_imports_inside_functions(tmp_path):
+    probe = tmp_path / "probe.py"
+    probe.write_text("def f():\n    import yaml\n    from pandas import DataFrame\n")
+    assert [m for _, m in _imported_modules(probe)] == ["yaml", "pandas"]

@@ -131,6 +131,51 @@ def test_dmc_carries_state_like_jax_route():
     _close(np.asarray(r2.runoff).T, second, "second window (carried state)")
 
 
+def test_dmc_state_dict_round_trips_like_jax():
+    """``set_progress_info``, ``state_dict`` and ``load_state_dict`` against
+    JAX's ``dmc``: the same counters and carried discharge after one
+    carried window, and a fresh wrapper loaded from the state routes the
+    next window as the original does (and as JAX's does)."""
+    from ddr_tpu.routing.model import dmc as jax_dmc
+    from ddr_tpu.validation.configs import Config as JaxConfig
+
+    ours, ref = _basins(seed=23)
+    params = _params(ours)
+    names = [f"a{i}" for i in range(10)]
+    cfg = Config(kan=KanConfig(input_var_names=names))
+    jcfg = JaxConfig(name="dmc", geodataset="synthetic", mode="routing", kan={"input_var_names": names})
+    lo_n, hi_n = cfg.params.parameter_ranges["n"]
+    raw = {"n": (params["n"] - lo_n) / (hi_n - lo_n), "q_spatial": params["q_spatial"]}
+    model, jmodel = dmc(cfg, device="cpu"), jax_dmc(jcfg, device="cpu")
+    assert model.state_dict()["discharge_t"] is None and jmodel.state_dict()["discharge_t"] is None
+    model(ours.routing_data, ours.q_prime[:T], {k: torch.as_tensor(v) for k, v in raw.items()},
+          carry_state=True)
+    jmodel(ref.routing_data, ref.q_prime[:T], {k: jnp.asarray(v) for k, v in raw.items()},
+           carry_state=True)
+    for m in (model, jmodel):
+        m.set_progress_info(epoch=3, mini_batch=7)
+    state, jstate = model.state_dict(), jmodel.state_dict()
+    assert set(state) == set(jstate)
+    assert (state["epoch"], state["mini_batch"]) == (jstate["epoch"], jstate["mini_batch"]) == (3, 7)
+    assert state["cfg"] is cfg and state["device"] == "cpu"
+    assert isinstance(state["discharge_t"], np.ndarray)
+    _close(jstate["discharge_t"], state["discharge_t"], "carried discharge")
+
+    fresh = dmc(Config(kan=KanConfig(input_var_names=names[:4])), device="cpu")
+    fresh.load_state_dict(state)
+    assert (fresh.epoch, fresh.mini_batch, fresh.cfg) == (3, 7, cfg)
+    jfresh = jax_dmc(jcfg, device="cpu")
+    jfresh.load_state_dict(jstate)
+    window = {k: torch.as_tensor(v) for k, v in raw.items()}
+    nxt = slice(T, 2 * T)
+    want = model(ours.routing_data, ours.q_prime[nxt], window, carry_state=True)["runoff"]
+    got = fresh(ours.routing_data, ours.q_prime[nxt], window, carry_state=True)["runoff"]
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    jgot = jfresh(ref.routing_data, ref.q_prime[nxt], {k: jnp.asarray(v) for k, v in raw.items()},
+                  carry_state=True)["runoff"]
+    _close(np.asarray(jgot), got, "second window after load_state_dict")
+
+
 def test_ineligible_network_raises_not_implemented():
     """A chain deeper than the single-ring cap: as a plain network it has no
     wavefront tables, and ``route`` gives it the step engine, as JAX does

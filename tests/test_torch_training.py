@@ -113,6 +113,7 @@ class _Case:
             return jax_training.masked_l1_daily(res.runoff, self.jargs[5], self.jargs[6], p.tau, WARMUP)
 
         self.jgrad = jax.jit(jax.value_and_grad(jloss, has_aux=True))
+        self.fk, self.jbounds, self.bounds = fk, jbounds, Bounds(**bounds_kw)
 
         self.kan = Kan(NAMES, ("n", "q_spatial"))
         self.kan.load_state_dict(kan_state_from_flax(self.jparams))
@@ -171,6 +172,50 @@ def test_two_train_steps_match_jax(case):
             _close(jgrads[k], g, f"{label}: grad {k}", rtol=1e-4)
         _check_params(ref_before, kan_state_from_flax(case.jparams), before, case.kan.state_dict(),
                       grads, lr, label)
+
+
+def test_make_train_step_binds_one_network_like_jax():
+    """``make_train_step`` (the step of one fixed network) against JAX's:
+    one step from the same weights gives the same loss, daily runoff and
+    parameters (the rule of ``_check_params``), and the port's equals the
+    batch step it binds, bit for bit."""
+    c = _Case()
+    p = _cfg().params
+    net_j, ch_j, g_j, *jinputs = c.jargs
+    jstep = jax_training.make_train_step(
+        c.fk, net_j, ch_j, g_j, c.jbounds, p.parameter_ranges, p.log_space_parameters, p.defaults,
+        p.tau, WARMUP, c.jopt, donate=False,
+    )
+    ref_before = kan_state_from_flax(c.jparams)
+    jgrads = c.jax_grads()
+    jparams, _, jl, jd = jstep(c.jparams, c.jstate, *jinputs)
+
+    net, ch, g, *inputs = c.args
+    fixed, batch = Kan(NAMES, ("n", "q_spatial")), Kan(NAMES, ("n", "q_spatial"))
+    for kan in (fixed, batch):
+        kan.load_state_dict(ref_before)
+    args = (c.bounds, p.parameter_ranges, p.log_space_parameters, p.defaults, p.tau, WARMUP)
+    step = training.make_train_step(fixed, net, ch, g, *args,
+                                    training.make_optimizer(fixed.parameters(), LR1), device="cpu")
+    batch_step = training.make_batch_train_step(batch, *args,
+                                                training.make_optimizer(batch.parameters(), LR1),
+                                                device="cpu")
+    grads = {}
+    hooks = [p.register_hook(lambda g, k=k: grads.__setitem__(k, g.clone()))
+             for k, p in fixed.named_parameters()]
+    loss, daily = step(*inputs)
+    for h in hooks:
+        h.remove()
+    batch_loss, batch_daily = batch_step(net, ch, g, *inputs)
+    assert float(loss) == float(batch_loss) and torch.equal(daily, batch_daily)
+    for k, v in fixed.state_dict().items():
+        assert torch.equal(v, batch.state_dict()[k]), k
+    _close(jl, loss, "loss")
+    _close(jd, daily, "daily")
+    for k, gk in grads.items():
+        _close(jgrads[k], gk, f"grad {k}", rtol=1e-4)
+    _check_params(ref_before, kan_state_from_flax(jparams), ref_before, fixed.state_dict(), grads, LR1,
+                  "make_train_step")
 
 
 @pytest.mark.parametrize("where", ["below", "equal", "above"])

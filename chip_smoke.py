@@ -5,6 +5,7 @@
     python3 chip_smoke.py --old-kernels LOG   # also each kernel's time in an earlier run's LOG
     python3 chip_smoke.py --time-fp32   # only the fp32 forward kernel's times
     python3 chip_smoke.py --ddr-train   # only the build and phase 18 (ddr train)
+    python3 chip_smoke.py --ddr-cli     # only the build and phases 18-19 (every ported command)
 
 From the root of a checkout, with one CUDA card visible. Phases, each fatal
 on failure (non-zero exit, no result line):
@@ -14,9 +15,10 @@ on failure (non-zero exit, no result line):
            together);
 2. parity  each kernel's wrapper against its plain PyTorch version on the
            card: the time-major forward scan (``wave_scan_tm``, named
-           ``wave_scan`` in the kernels line) at a small shape and at the
-           serving shape, including the hotstart, ``q_init`` and ``T = 1``
-           cases; the time-major reverse scan (``reverse_scan_tm``, named
+           ``wave_scan`` in the kernels line) at a small shape, at the
+           serving shape and at the evaluation commands' 2-day chunk (B 1,
+           T 48, ``q_init``), including the hotstart, ``q_init`` and
+           ``T = 1`` cases; the time-major reverse scan (``reverse_scan_tm``, named
            ``reverse_scan``) at a small shape, ``T = 1``, a DAG with fan-out
            (``t_width > 1``) and the training shape;
 3. serve   ``ForecastService(device="cuda")`` on the synthetic deep basin
@@ -108,7 +110,22 @@ on failure (non-zero exit, no result line):
            checkpoint per mini-batch, and a second run with
            ``experiment.checkpoint=<saved_models>`` and 3 epochs that must
            resume from epoch 2's last mini-batch, skip the rest of epoch 2
-           and train epoch 3; per-step times and each run's wall time.
+           and train epoch 3; per-step times and each run's wall time;
+19. ddr test, route, train-and-test, benchmark  the other ported commands
+           through the CLI in-process, from phase 18's newest checkpoints:
+           ``ddr test`` and ``ddr route`` at the regional size over the
+           example's window (2-day chunks with carried discharge), launch
+           counts zeroed just before and read just after each (one
+           ``wave_scan`` launch a chunk, all but the first from the carried
+           ``q_init``, plus one for the twin's observation route; no
+           ``reverse_scan``), stores written and finite; ``ddr test`` at
+           4,096 reaches over the window's first 41 days with ``device=cpu``
+           and on the card, daily
+           predictions held to rtol 1e-5; ``ddr train-and-test`` at that
+           size (one epoch, a 25-day test); ``ddr benchmark`` at the regional
+           size (the same launch counts, the LTI comparator's time and peak
+           device memory, the store finite); each chunk's host ms and each
+           run's wall time.
 The service of phases 3 and 7 runs with its health watchdog on, which must
 have seen every served batch and not be degraded; phase 8's gradient check
 also holds the bf16 kernels against the bf16 plain scans. Every kernel's
@@ -175,6 +192,9 @@ AD_SEGMENTS, AD_DEPTH, AD_T = 512, 64, 24
 DDR_TRAIN_CONFIG, DDR_TRAIN_STEPS = "examples/synthetic/config.yaml", 4
 DDR_TRAIN_PARITY = ("synthetic_segments=4096", "synthetic_depth=64")
 DDR_TRAIN_RTOL = 1e-4  # per-step losses, the CPU's plain scans against the card's kernels
+# `ddr test`'s CPU-against-card parity: the first 41 days of the example's
+# window (20 chunks; the CPU's plain scans take ~0.18 s a chunk)
+DDR_TEST_PARITY_WINDOW = ("experiment.end_time=1981/11/10",)
 
 
 def fail(msg: str) -> None:
@@ -1884,6 +1904,134 @@ def ddr_train(smi, dev) -> dict:
     return launches
 
 
+class EvalLog(logging.Handler):
+    """What the port's evaluation commands log: each chunk's (index, host ms,
+    hours) and the LTI route's (ms, peak GB, GB above its inputs)."""
+
+    CHUNK = re.compile(r"(?:evaluate|route) batch (\d+): \S+ reach-timesteps/s \((\S+) ms, (\d+) h\)")
+    LTI = re.compile(r"LTI route: (\S+) ms for T=\d+ h x \d+ reaches, peak device memory (\S+) GB "
+                     r"\((\S+) GB above its inputs\)")
+
+    def __init__(self):
+        super().__init__()
+        self.chunks, self.lti = [], []
+
+    def emit(self, record):
+        msg = record.getMessage()
+        if m := self.CHUNK.match(msg):
+            self.chunks.append((int(m[1]), float(m[2]), int(m[3])))
+        elif m := self.LTI.match(msg):
+            self.lti.append((float(m[1]), float(m[2]), float(m[3])))
+
+
+def ddr_eval(smi, dev) -> dict:
+    """Phase 19: ``ddr test``, ``ddr route``, ``ddr train-and-test`` and
+    ``ddr benchmark`` through the port's CLI (see the module docstring), from
+    phase 18's checkpoints. Returns the launch counts of the full-width runs."""
+    import numpy as np
+    import torch
+
+    from ddr_tpu_torch import cli
+    from ddr_tpu_torch.io import zarrlite
+    from ddr_tpu_torch.routing.reverse_kernel import reverse_scan_tm
+    from ddr_tpu_torch.routing.wave_kernel import wave_scan_tm
+    from ddr_tpu_torch.training import latest_checkpoint
+
+    here = Path(__file__).resolve().parent / "build"
+    root = here / "ddr_eval"
+    shutil.rmtree(root, ignore_errors=True)
+    regional = latest_checkpoint(here / "ddr_train" / "regional" / "saved_models")
+    small = latest_checkpoint(here / "ddr_train" / "parity-card" / "saved_models")
+    if regional is None or small is None:
+        fail("ddr eval: phase 18 left no checkpoints")
+    loggers = [logging.getLogger(name) for name in (
+        "ddr_tpu_torch.scripts.common", "ddr_tpu_torch.scripts.router", "ddr_tpu_torch.benchmarks.benchmark")]
+    for logger in loggers:
+        logger.setLevel(logging.INFO)
+
+    def run(command, name, *overrides):
+        log = EvalLog()
+        for logger in loggers:
+            logger.addHandler(log)
+        t0 = time.perf_counter()
+        try:
+            code = cli.main([command, DDR_TRAIN_CONFIG, *overrides, f"params.save_path={root / name}"])
+            torch.cuda.synchronize()
+        finally:
+            for logger in loggers:
+                logger.removeHandler(log)
+        wall = time.perf_counter() - t0
+        if code != 0:
+            fail(f"ddr {command} {name}: exit {code}")
+        ms = [c[1] for c in log.chunks]
+        if ms:
+            print(f"ddr {command} {name}: {len(ms)} chunks of {sorted({c[2] for c in log.chunks})} h, chunk "
+                  f"host ms median {np.median(ms):.2f} min {min(ms):.2f} max {max(ms):.2f} (first "
+                  f"{ms[0]:.2f}), sum {sum(ms) / 1e3:.2f} s, run wall {wall:.2f} s on {smi}")
+        return log, wall
+
+    def store(name, zarr, arrays):
+        group = zarrlite.open_group(root / name / zarr)
+        out = {}
+        for a in arrays:
+            out[a] = group[a][:]
+            if not np.isfinite(out[a]).all() or out[a].size == 0:
+                fail(f"ddr eval {name}/{zarr}: {a} {out[a].shape} is empty or not finite")
+        return out
+
+    full_size = (f"synthetic_segments={N_SEGMENTS}", f"synthetic_depth={DEPTH}")
+    counts = {}
+    for command, name, zarr, arrays in (
+            ("test", "test", "model_test.zarr", ("predictions", "observations")),
+            ("route", "route", "chrout.zarr", ("discharge",))):
+        wave_scan_tm.launches = wave_scan_tm.q_init_launches = reverse_scan_tm.launches = 0
+        log, _ = run(command, name, *full_size, f"experiment.checkpoint={regional}")
+        chunks = len(log.chunks)
+        launches = {"wave_scan": wave_scan_tm.launches, "q_init": wave_scan_tm.q_init_launches,
+                    "reverse_scan": reverse_scan_tm.launches}
+        print(f"ddr {command} regional: launches {launches} over {chunks} chunks (+1 wave_scan: the "
+              f"twin's observation route), from {regional.name}")
+        # one launch a chunk, each after the first from the carried discharge
+        if chunks < 2 or launches != {"wave_scan": chunks + 1, "q_init": chunks - 1, "reverse_scan": 0}:
+            fail(f"ddr {command} regional: {chunks} chunks, launches {launches}")
+        counts[command] = launches
+        out = store(name, zarr, arrays)
+        print(f"ddr {command} regional: {zarr} {[(a, v.shape) for a, v in out.items()]}, finite")
+
+    # the same evaluation on the CPU's plain scans and on the card's kernels
+    preds = {}
+    for device in ("cpu", "cuda"):
+        run("test", f"parity-{device}", *DDR_TRAIN_PARITY, *DDR_TEST_PARITY_WINDOW, f"device={device}",
+            f"experiment.checkpoint={small}")
+        preds[device] = torch.as_tensor(store(f"parity-{device}", "model_test.zarr", ("predictions",))["predictions"])
+    compare(preds["cpu"], preds["cuda"], "ddr test 4,096 reaches, card against CPU")
+
+    wave_scan_tm.launches = reverse_scan_tm.launches = 0
+    _, wall = run("train-and-test", "train-and-test", *DDR_TRAIN_PARITY, "experiment.epochs=1",
+                  "experiment.test_start_time=1981/10/01", "experiment.test_end_time=1981/10/25")
+    out = store("train-and-test", "model_test.zarr", ("predictions", "observations"))
+    print(f"ddr train-and-test 4,096 reaches: 1 epoch then a 25-day test, launches wave_scan "
+          f"{wave_scan_tm.launches} reverse_scan {reverse_scan_tm.launches}, predictions "
+          f"{out['predictions'].shape}, run wall {wall:.2f} s on {smi}")
+    if reverse_scan_tm.launches != 2:
+        fail(f"ddr train-and-test: {reverse_scan_tm.launches} reverse_scan launches, want 2 (one a step)")
+
+    wave_scan_tm.launches = wave_scan_tm.q_init_launches = 0
+    # the example config says mode: training, under which the loop evaluates random windows
+    log, _ = run("benchmark", "benchmark", *full_size, "mode=testing", f"experiment.checkpoint={regional}")
+    chunks = len(log.chunks)
+    if (wave_scan_tm.launches, wave_scan_tm.q_init_launches) != (chunks + 1, chunks - 1) or not log.lti:
+        fail(f"ddr benchmark: {chunks} chunks, launches {wave_scan_tm.launches}/{wave_scan_tm.q_init_launches}, "
+             f"LTI {log.lti}")
+    counts["benchmark"] = {"wave_scan": wave_scan_tm.launches, "q_init": wave_scan_tm.q_init_launches}
+    lti_ms, peak_gb, above_gb = log.lti[0]
+    out = store("benchmark", "benchmark_results.zarr", ("mc_predictions", "lti_predictions", "observations"))
+    print(f"ddr benchmark regional: launches {counts['benchmark']} over {chunks} chunks, LTI route "
+          f"{lti_ms:.1f} ms, peak device memory {peak_gb:.3f} GB ({above_gb:.3f} GB above its inputs), "
+          f"{[(a, v.shape) for a, v in out.items()]} finite, on {smi}")
+    return {k: sum(c[k] for c in counts.values()) for k in ("wave_scan", "q_init")}
+
+
 def nvidia_smi() -> str:
     """The card's name and power limit, as ``nvidia-smi`` reports them."""
     return subprocess.run(
@@ -1905,11 +2053,13 @@ def main() -> int:
     if sys.argv[1:] == ["--time-fp32"]:
         return time_fp32_only()
     only_ddr_train = sys.argv[1:] == ["--ddr-train"]
+    only_ddr_cli = sys.argv[1:] == ["--ddr-cli"]
     old_log = None
     if len(sys.argv) == 3 and sys.argv[1] == "--old-kernels":
         old_log = sys.argv[2]
-    elif sys.argv[1:] and not only_ddr_train:
-        print("usage: chip_smoke.py [--time-fp32 | --ddr-train | --old-kernels LOG]", file=sys.stderr)
+    elif sys.argv[1:] and not (only_ddr_train or only_ddr_cli):
+        print("usage: chip_smoke.py [--time-fp32 | --ddr-train | --ddr-cli | --old-kernels LOG]",
+              file=sys.stderr)
         return 2
     import numpy as np
 
@@ -1936,10 +2086,14 @@ def main() -> int:
     seconds = _build.build(_build.KERNELS, verbose=True)
     print(f"build: {json.dumps({k: round(v, 2) for k, v in seconds.items()})} "
           f"({time.perf_counter() - t0:.2f}s wall) into {_build.build_dir()}")
-    if only_ddr_train:
+    if only_ddr_train or only_ddr_cli:
         t0 = time.perf_counter()
         ddr_train(smi, dev)
         print(f"ddr train phase: {time.perf_counter() - t0:.1f}s")
+        if only_ddr_cli:
+            t0 = time.perf_counter()
+            ddr_eval(smi, dev)
+            print(f"ddr test, route, train-and-test and benchmark phase: {time.perf_counter() - t0:.1f}s")
         print(smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
@@ -1995,8 +2149,11 @@ def main() -> int:
             )
             phys = reach_physics(net, entry.channels, phys_params, svc.bounds)
             max_abs = 0.0
-            for label, with_init in (("serve-shape/hotstart", False), ("serve-shape/q_init", True)):
-                q, qi = scan_case(net, phys, MAX_BATCH, HORIZON, 11, with_init, dev)
+            # the serving shape, and the 2-day chunk of the evaluation commands (phase 19)
+            for label, B, T, with_init in (("serve-shape/hotstart", MAX_BATCH, HORIZON, False),
+                                           ("serve-shape/q_init", MAX_BATCH, HORIZON, True),
+                                           ("eval-chunk/q_init", 1, 48, True)):
+                q, qi = scan_case(net, phys, B, T, 11, with_init, dev)
                 raw = wave_scan_tm(q, net, phys, qi)
                 torch.cuda.synchronize()
                 err = compare(wave_scan_tm_reference(q, net, phys, qi), raw, label)
@@ -2262,6 +2419,11 @@ def main() -> int:
     ddr_train_launches = ddr_train(smi, dev)
     print(f"ddr train phase: {time.perf_counter() - t0:.1f}s")
 
+    # ---- 19. ddr test, route, train-and-test and benchmark through the CLI ----
+    t0 = time.perf_counter()
+    ddr_eval_launches = ddr_eval(smi, dev)
+    print(f"ddr test, route, train-and-test and benchmark phase: {time.perf_counter() - t0:.1f}s")
+
     def band_entry(name, source, replaces, launches, err, t):
         bytes_ms, flops_ms = t["bound"]
         return {
@@ -2278,8 +2440,11 @@ def main() -> int:
         "route": "cuda",
         "source": "ddr_tpu_torch/csrc/wave_scan.cu",
         "replaces": "ddr_tpu/routing/pallas_kernel.py:193",
-        "launches": launches + train_launches["wave_scan"] + ddr_train_launches["wave_scan"],
+        "launches": (launches + train_launches["wave_scan"] + ddr_train_launches["wave_scan"]
+                     + ddr_eval_launches["wave_scan"]),
         "ddr_train_launches": ddr_train_launches["wave_scan"],
+        "ddr_eval_launches": ddr_eval_launches["wave_scan"],
+        "ddr_eval_q_init_launches": ddr_eval_launches["q_init"],
         "max_abs_err": max_abs,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

@@ -1,9 +1,10 @@
-"""The port's command-line dispatcher: ``python -m ddr_tpu_torch.cli train
-config.yaml [a.b=c ...]``.
+"""The port's command-line dispatcher: ``python -m ddr_tpu_torch.cli
+{train,test,route,train-and-test,benchmark} config.yaml [a.b=c ...]``.
 
-The subcommands are the JAX package's ``ddr`` CLI's; ``train`` is ported
-(:mod:`ddr_tpu_torch.scripts.train`) and every other one exits with a
-message naming the ROADMAP item that ports it.
+The subcommands are the JAX package's ``ddr`` CLI's. ``train``, ``test``,
+``route``, ``train-and-test`` and ``benchmark`` are ported; each runs on the
+card unless the config or an override says ``device=cpu``. Every other
+subcommand exits with a message naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -13,13 +14,16 @@ import sys
 
 __all__ = ["main"]
 
-_COMMANDS = {"train": "ddr_tpu_torch.scripts.train"}
+_COMMANDS = {
+    "train": "ddr_tpu_torch.scripts.train",
+    "test": "ddr_tpu_torch.scripts.test",
+    "route": "ddr_tpu_torch.scripts.router",
+    "train-and-test": "ddr_tpu_torch.scripts.train_and_test",
+    "benchmark": "ddr_tpu_torch.benchmarks.benchmark",
+}
 #: Subcommands of the JAX package's CLI that are not ported yet, by ROADMAP item.
 _NOT_PORTED = {
-    "test": "A.7",
-    "route": "A.7",
-    "summed-q-prime": "A.7",
-    "train-and-test": "A.7",
+    "summed-q-prime": "A.8",
     "serve": "A.9",
     "fleet": "A.9",
     "loadtest": "A.9",
@@ -29,7 +33,6 @@ _NOT_PORTED = {
     "obs": "A.10",
     "profile": "A.10",
     "geometry-predictor": "A.11",
-    "benchmark": "A.12",
     "tune": "A.13",
     "sweep": "A.12",
     "audit": "A.12",

@@ -26,7 +26,8 @@ JAX's out-of-range conventions (``mode="clip"``/``"fill"`` reads and
 ``n`` that reads 0 (``c1`` is 0 there too, so a pad row's contribution is 0
 and lands in that column, which is cut off at the end). Everything works
 over the last axis, so ``c1``/``b`` may carry leading batch axes; the dtype
-is the inputs' (float32, or float64 for the oracle).
+is the inputs' (float32, float64 for the oracle, or complex for the LTI
+comparator's frequency bins).
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ from torch.nn import functional as F
 
 from ddr_tpu_torch.routing.network import RiverNetwork
 
-__all__ = ["fused_solve", "solve_lower_triangular", "solve_transposed"]
+__all__ = ["SOLVE_DTYPES", "fused_solve", "solve_lower_triangular", "solve_transposed"]
 
 
 def _pad(a: torch.Tensor) -> torch.Tensor:
@@ -128,11 +129,18 @@ def fused_solve(starts: tuple, c1: torch.Tensor, b: torch.Tensor, pred: torch.Te
     return _FusedSolve.apply(starts, c1, b, pred.long(), down.long())
 
 
+#: The dtypes a solve takes: float32 (the step engine), float64 (the oracle),
+#: complex64 and complex128 (one frequency bin a row, the LTI comparator).
+SOLVE_DTYPES = (torch.float32, torch.float64, torch.complex64, torch.complex128)
+
+
 def _check(network: RiverNetwork, c1: torch.Tensor, b: torch.Tensor) -> None:
     if c1.shape != b.shape or c1.shape[-1:] != (network.n,):
         raise ValueError(
             f"c1 {tuple(c1.shape)} and b {tuple(b.shape)} must have one shape (..., {network.n})"
         )
+    if c1.dtype != b.dtype or c1.dtype not in SOLVE_DTYPES:
+        raise ValueError(f"c1 {c1.dtype} and b {b.dtype} must share one dtype of {SOLVE_DTYPES}")
 
 
 def solve_lower_triangular(network: RiverNetwork, c1: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -697,10 +697,12 @@ def wave_scan_tm(
     )
     _raise_on(lib, err, "wave_scan_tm")
     wave_scan_tm.launches += 1
+    wave_scan_tm.q_init_launches += q_init is not None
     return raw
 
 
 wave_scan_tm.launches = 0
+wave_scan_tm.q_init_launches = 0  # the launches that started from a carried discharge
 
 
 def wave_barrier(waves: int, max_pairs: int, device: torch.device) -> int:

@@ -1,9 +1,14 @@
 """Shared script scaffolding: argv -> Config, model construction, observation
-alignment. The port's copy of ``ddr_tpu/scripts/common.py``."""
+alignment, and the sequential evaluation loop of ``ddr test``, ``ddr route``
+and ``ddr benchmark``. The port's copy of ``ddr_tpu/scripts/common.py``,
+single-process (the JAX package's ``is_primary_process`` has no use before
+ROADMAP A.13)."""
 
 from __future__ import annotations
 
 import logging
+import time
+from contextlib import contextmanager
 from pathlib import Path
 from typing import Any, Callable
 
@@ -11,7 +16,10 @@ import numpy as np
 import torch
 
 from ddr_tpu_torch.device import resolve_device
+from ddr_tpu_torch.geodatazoo.loader import DataLoader
 from ddr_tpu_torch.nn.kan import Kan
+from ddr_tpu_torch.routing.model import dmc
+from ddr_tpu_torch.training import load_state
 from ddr_tpu_torch.validation.configs import Config, load_config
 
 log = logging.getLogger(__name__)
@@ -19,12 +27,21 @@ log = logging.getLogger(__name__)
 __all__ = [
     "build_kan",
     "daily_observation_targets",
+    "evaluate_hourly",
     "get_flow_fn",
     "kan_arch",
+    "load_kan",
     "parse_cli",
     "setup_run",
     "split_config_argv",
+    "timed",
 ]
+
+#: Logged once by each evaluation loop.
+EVAL_TELEMETRY_ABSENT = (
+    "not in this port yet, so off in this run: the per-batch trace spans and run-recorder "
+    "events of the evaluation loop (they write into the telemetry plane, ROADMAP A.10)"
+)
 
 
 def split_config_argv(argv: list[str] | None) -> tuple[str | None, list[str]]:
@@ -110,3 +127,66 @@ def daily_observation_targets(rd: Any) -> tuple[np.ndarray, np.ndarray]:
     target = obs[:, 1:-1].T  # (D-2, G)
     mask = np.isfinite(target)
     return np.where(mask, target, 0.0).astype(np.float32), mask
+
+
+def load_kan(cfg: Config, params: Any = None, purpose: str = "evaluation") -> Kan:
+    """The KAN of ``cfg`` on ``cfg.device`` with ``params`` (a state dict of
+    tensors or numpy leaves), else the weights of ``cfg.experiment.checkpoint``,
+    else fresh weights (with a warning naming ``purpose``)."""
+    kan = build_kan(cfg)
+    if params is None and cfg.experiment.checkpoint:
+        params = load_state(cfg.experiment.checkpoint, expected_arch=kan_arch(cfg))["params"]
+    if params is None:
+        log.warning(f"Creating new spatial model for {purpose}.")
+    else:
+        kan.load_state_dict({k: torch.as_tensor(np.asarray(v)) for k, v in params.items()})
+    return kan.eval()
+
+
+def evaluate_hourly(
+    cfg: Config,
+    dataset: Any,
+    flow: Callable[..., np.ndarray],
+    kan: Kan,
+    routing_model: Any = None,
+) -> np.ndarray:
+    """Sequential chunked inference with carried discharge state -> hourly
+    gauge predictions ``(G, T_hourly)``, the loop ``ddr test`` and the
+    benchmark share. Each chunk maps the KAN and routes with
+    ``carry_state=i > 0``, so every chunk after the first starts from the
+    previous one's final discharge (the scan's ``q_init``). Logs each chunk's
+    reach-timesteps per second and host milliseconds, synchronised on its
+    result, and the loop's rate at the end."""
+    log.info(EVAL_TELEMETRY_ABSENT)
+    dev = resolve_device(cfg.device)
+    routing_model = routing_model or dmc(cfg, device=dev)
+    loader = DataLoader(dataset, batch_size=cfg.experiment.batch_size, shuffle=False)
+    n_gauges = len(dataset.routing_data.observations.gage_ids)
+    predictions = np.zeros((n_gauges, len(dataset.dates.hourly_time_range)), dtype=np.float32)
+    work = seconds = 0.0
+    for i, rd in enumerate(loader):
+        q_prime = np.asarray(flow(routing_dataclass=rd), dtype=np.float32)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            raw = kan(torch.as_tensor(rd.normalized_spatial_attributes, device=dev))
+            out = routing_model.forward(rd, q_prime, raw, carry_state=i > 0)
+            chunk = out["runoff"].cpu().numpy()  # synchronises
+        dt = time.perf_counter() - t0
+        predictions[:, rd.dates.hourly_indices] = chunk
+        work += rd.n_segments * q_prime.shape[0]
+        seconds += dt
+        log.info(f"evaluate batch {i}: {rd.n_segments * q_prime.shape[0] / max(dt, 1e-12):,.0f} "
+                 f"reach-timesteps/s ({dt * 1e3:.3f} ms, {q_prime.shape[0]} h)")
+    if seconds:
+        log.info(f"evaluate: {work / seconds:,.0f} reach-timesteps/s ({i + 1} batches)")
+    return predictions
+
+
+@contextmanager
+def timed(label: str):
+    """Log the minutes the block took."""
+    start = time.perf_counter()
+    try:
+        yield
+    finally:
+        log.info(f"{label}: {(time.perf_counter() - start) / 60:.3f} minutes elapsed")

@@ -50,7 +50,10 @@ def test_port_imports_no_jax_and_nothing_of_ddr_tpu():
             "ddr_tpu_torch.validation.configs", "ddr_tpu_torch.validation.yaml_subset",
             "ddr_tpu_torch.validation.enums", "ddr_tpu_torch.validation.metrics",
             "ddr_tpu_torch.validation.utils", "ddr_tpu_torch.geodatazoo.dataclasses",
-            "ddr_tpu_torch.geodatazoo.loader", "ddr_tpu_torch.io.readers"} <= names
+            "ddr_tpu_torch.geodatazoo.loader", "ddr_tpu_torch.io.readers",
+            "ddr_tpu_torch.io.zarrlite", "ddr_tpu_torch.scripts.test", "ddr_tpu_torch.scripts.router",
+            "ddr_tpu_torch.scripts.train_and_test", "ddr_tpu_torch.benchmarks.irf",
+            "ddr_tpu_torch.benchmarks.configs", "ddr_tpu_torch.benchmarks.benchmark"} <= names
     assert bad == "[]", f"the port imported {bad}"
 
 

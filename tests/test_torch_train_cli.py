@@ -397,8 +397,54 @@ def test_cli_defaults_to_the_card(tmp_path, monkeypatch):
         cli.main(["train", CONFIG, "device=tpu", f"params.save_path={tmp_path}"])
 
 
-@pytest.mark.parametrize("command,item", [("test", "A.7"), ("serve", "A.9"), ("tune", "A.13")])
+@pytest.mark.parametrize("command,item", [("summed-q-prime", "A.8"), ("serve", "A.9"), ("tune", "A.13")])
 def test_cli_names_the_item_of_an_unported_command(capsys, command, item):
     assert cli.main([command, CONFIG]) == 2
     assert item in capsys.readouterr().err
     assert cli.main(["--help"]) == 0
+
+
+#: Each ported evaluation command, the store it writes and that store's arrays.
+PORTED = {
+    "test": ("model_test.zarr", ["observations", "predictions"]),
+    "route": ("chrout.zarr", ["discharge"]),
+    "train-and-test": ("model_test.zarr", ["observations", "predictions"]),
+    "benchmark": ("benchmark_results.zarr", ["lti_predictions", "mc_predictions", "observations"]),
+}
+
+
+@pytest.mark.parametrize("command", sorted(PORTED))
+def test_cli_dispatches_each_ported_command(tmp_path, monkeypatch, command):
+    """Each command runs on the CPU when asked, on a 32-reach twin over 25
+    days, and writes its store, which the JAX package's zarrlite reads; the
+    evaluation commands start from a checkpoint, train-and-test from
+    nothing. Without ``device=cpu`` each asks for the card and raises on a
+    machine without one."""
+    from ddr_tpu.io import zarrlite as jax_zarrlite
+
+    base = [CONFIG, "device=cpu", "synthetic_segments=32", "experiment.end_time=1981/10/25",
+            f"params.save_path={tmp_path / 'run'}"]
+    if command == "train-and-test":
+        extra = ["experiment.epochs=1", "experiment.test_start_time=1981/10/01",
+                 "experiment.test_end_time=1981/10/25"]
+    else:
+        cfg = load_config(CONFIG, base[1:], save_config=False)
+        ck = save_state(tmp_path / "ckpt", cfg.name, 1, 0, build_kan(cfg), None, arch=kan_arch(cfg))
+        extra = [f"experiment.checkpoint={ck}"]
+    assert cli.main([command, *base, *extra]) == 0
+
+    store, arrays = PORTED[command]
+    root = jax_zarrlite.open_group(tmp_path / "run" / store)
+    assert sorted(root.keys()) == arrays
+    for name in arrays:
+        values = root[name][:]
+        assert values.dtype == np.float32 and values.shape[0] == 4 and np.isfinite(values).all(), name
+    model = root.attrs.get("model", root.attrs.get("model_checkpoint"))
+    if command == "train-and-test":
+        assert model.endswith("_synthetic_example_epoch_1_mb_1.pkl")
+    else:
+        assert model == extra[0].split("=", 1)[1]
+
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        cli.main([command, *[a for a in base if a != "device=cpu"], *extra])

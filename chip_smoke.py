@@ -6,6 +6,7 @@
     python3 chip_smoke.py --time-fp32   # only the fp32 forward kernel's times
     python3 chip_smoke.py --ddr-train   # only the build and phase 18 (ddr train)
     python3 chip_smoke.py --ddr-cli     # only the build and phases 18-19 (every ported command)
+    python3 chip_smoke.py --ddr-serve   # only the build and phases 18 and 20 (ddr serve)
 
 From the root of a checkout, with one CUDA card visible. Phases, each fatal
 on failure (non-zero exit, no result line):
@@ -126,6 +127,25 @@ on failure (non-zero exit, no result line):
            size (the same launch counts, the LTI comparator's time and peak
            device memory, the store finite); each chunk's host ms and each
            run's wall time.
+20. ddr serve  the serve command's service (``scripts/serve.py::build_service``)
+           at the regional size from phase 18's newest checkpoint, horizon
+           72 h, batch 8, behind its HTTP front on port 0: warmup timed to
+           ``/readyz`` 200; 8 client threads send 32 forecasts
+           (``HttpForecastClient``; ``t0`` spread over the forcing window,
+           gauge subsets, all three priority classes, supplied request ids,
+           one full-width ``q_prime`` body); every HTTP answer held against
+           the in-process service's (bit for bit, else the largest
+           difference), two windows against the plain scan; a checkpoint of
+           perturbed weights written into the watched ``saved_models/`` is
+           hot-loaded (version 2, a new answer, equal to a fresh service's
+           from that checkpoint), a degraded and a corrupt one are not;
+           ``/metrics`` read against the launches (zeroed just before the
+           service is built, read just after the scrape: one a batch, plus
+           the warmup and the twin's observation route); then card against
+           CPU at 4,096 reaches over HTTP (rtol 1e-6). Latency p50/p99 over
+           HTTP with ``queue_s`` and ``execute_s``, the in-process batch,
+           occupancy, the ``q_prime`` request's encode, parse and total
+           time, the hot-reload time.
 The service of phases 3 and 7 runs with its health watchdog on, which must
 have seen every served batch and not be degraded; phase 8's gradient check
 also holds the bf16 kernels against the bf16 plain scans. Every kernel's
@@ -195,6 +215,12 @@ DDR_TRAIN_RTOL = 1e-4  # per-step losses, the CPU's plain scans against the card
 # `ddr test`'s CPU-against-card parity: the first 41 days of the example's
 # window (20 chunks; the CPU's plain scans take ~0.18 s a chunk)
 DDR_TEST_PARITY_WINDOW = ("experiment.end_time=1981/11/10",)
+# `ddr serve` (phase 20): 8 client threads send 32 forecasts over HTTP (one of
+# them a full-width q_prime body); two windows are held against the plain
+# scan; the checkpoint watcher polls every 500 ms; card against CPU at the
+# parity width within rtol 1e-6 (the evaluation parity measured 2.8e-7).
+DDR_SERVE_THREADS, DDR_SERVE_REQUESTS, DDR_SERVE_PLAIN_WINDOWS = 8, 32, 2
+DDR_SERVE_POLL_MS, DDR_SERVE_PARITY_RTOL = "500", 1e-6
 
 
 def fail(msg: str) -> None:
@@ -2032,6 +2058,352 @@ def ddr_eval(smi, dev) -> dict:
     return {k: sum(c[k] for c in counts.values()) for k in ("wave_scan", "q_init")}
 
 
+class ReloadLog(logging.Handler):
+    """The checkpoint watcher's own timing of each hot-reload it applied."""
+
+    TOOK = re.compile(r"hot-reload of '\S+' from (\S+) took (\S+)s")
+
+    def __init__(self):
+        super().__init__()
+        self.reloads = []
+
+    def emit(self, record):
+        if m := self.TOOK.match(record.getMessage()):
+            self.reloads.append((m[1], float(m[2])))
+
+
+def scrape(url: str) -> dict:
+    """``GET /metrics`` -> ``{"name{labels}": value}``."""
+    import urllib.request
+
+    with urllib.request.urlopen(url + "/metrics", timeout=60) as resp:
+        text = resp.read().decode()
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            key, value = line.rsplit(" ", 1)
+            out[key] = float(value)
+    return out
+
+
+def metric_sum(metrics: dict, name: str, *labels: str) -> float:
+    """The sum of ``name``'s series whose labels hold every one of ``labels``."""
+    return sum(v for k, v in metrics.items()
+               if k.split("{")[0] == name and all(lab in k for lab in labels))
+
+
+def percentiles(values) -> str:
+    import numpy as np
+
+    return f"p50 {np.percentile(values, 50) * 1e3:.2f} ms p99 {np.percentile(values, 99) * 1e3:.2f} ms"
+
+
+def ddr_serve(smi, dev) -> int:
+    """Phase 20: ``ddr serve`` at the regional width (see the module
+    docstring), from phase 18's newest checkpoint. Returns the phase's
+    ``wave_scan`` launches, counted from just before the service is built to
+    just after ``/metrics`` is read."""
+    import os
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from ddr_tpu_torch.observability.registry import MetricsRegistry, set_registry
+    from ddr_tpu_torch.routing.mc import route
+    from ddr_tpu_torch.routing.model import denormalize_spatial_parameters
+    from ddr_tpu_torch.routing.wave_kernel import wave_scan_tm
+    from ddr_tpu_torch.scripts.common import build_kan, kan_arch, parse_cli
+    from ddr_tpu_torch.scripts.serve import build_service
+    from ddr_tpu_torch.serving.client import HttpForecastClient, q_prime_json
+    from ddr_tpu_torch.serving.config import PRIORITIES, ServeConfig
+    from ddr_tpu_torch.serving.http_api import MAX_BODY_BYTES, serve_http
+    from ddr_tpu_torch.serving.service import ForecastService
+    from ddr_tpu_torch.training import latest_checkpoint, load_state, save_state
+
+    here = Path(__file__).resolve().parent / "build"
+    root = here / "ddr_serve"
+    shutil.rmtree(root, ignore_errors=True)
+    regional = latest_checkpoint(here / "ddr_train" / "regional" / "saved_models")
+    small = latest_checkpoint(here / "ddr_train" / "parity-card" / "saved_models")
+    if regional is None or small is None:
+        fail("ddr serve: phase 18 left no checkpoints")
+    full_size = (f"synthetic_segments={N_SEGMENTS}", f"synthetic_depth={DEPTH}")
+    os.environ["DDR_SERVE_RELOAD_POLL_MS"] = DDR_SERVE_POLL_MS
+    reload_log = ReloadLog()
+    logging.getLogger("ddr_tpu_torch.serving.registry").addHandler(reload_log)
+    set_registry(MetricsRegistry(const_labels={"host": 0}))  # this service's counts alone
+    cfg = parse_cli([DDR_TRAIN_CONFIG, *full_size, f"params.save_path={root / 'regional'}",
+                     f"experiment.checkpoint={regional}"], mode="testing")
+    serve_cfg = ServeConfig.from_env(max_batch=MAX_BATCH, horizon_hours=HORIZON, deadline_s=600.0)
+    served = 0  # answers the service gave, over HTTP and in-process
+
+    # ---- 1. start the server: build, then warm up behind /readyz ----
+    wave_scan_tm.launches = 0
+    t0 = time.perf_counter()
+    svc = build_service(cfg, serve_cfg, warmup=False)
+    build_s = time.perf_counter() - t0
+    observe_launches = wave_scan_tm.launches  # the twin's observation route
+    server = serve_http(svc, port=0)
+    client = HttpForecastClient(server.url, timeout=900)
+    try:
+        states = set()
+        warm = threading.Thread(target=svc.warmup)
+        t0 = time.perf_counter()
+        warm.start()
+        while True:
+            code, body = client._get("/readyz")
+            if code == 200:
+                break
+            states.add(body.get("status"))
+            if not warm.is_alive() and svc.warmup_error is not None:
+                fail(f"ddr serve: warmup failed: {svc.warmup_error}")
+            time.sleep(0.01)
+        warmup_s = time.perf_counter() - t0
+        warm.join()
+        warm_launches = wave_scan_tm.launches - observe_launches
+        entry = svc.networks()["default"]
+        forcing = entry.forcing
+        print(f"ddr serve: service built in {build_s:.2f} s ({entry.n_segments} reaches, depth "
+              f"{entry.network.depth}, {entry.engine}, forcing {forcing.shape}), warmup {warmup_s:.3f} s "
+              f"from start to /readyz 200 (states seen before: {sorted(states)}), launches: observation "
+              f"{observe_launches}, warmup {warm_launches}, on {smi}")
+        if warm_launches != 1 or observe_launches != 1:
+            fail(f"ddr serve: {observe_launches} observation and {warm_launches} warmup launches, want 1 and 1")
+
+        # ---- 2. traffic: 8 client threads, 32 forecasts, one full-width q_prime ----
+        n_windows = len(forcing) - HORIZON + 1
+        starts = np.linspace(0, n_windows - 1, DDR_SERVE_REQUESTS - 1).astype(int)
+        requests = []
+        for i, t in enumerate(starts):
+            requests.append({"t0": int(t), "gauges": [[0, 2], [1, 3], None][i % 3],
+                             "priority": PRIORITIES[i % 3],
+                             "request_id": f"p20-{i}" if i % 2 == 0 else None})
+        q_t0 = int(starts[len(starts) // 2]) + 5
+        qp = (forcing[q_t0 : q_t0 + HORIZON] * np.float32(1.25)).astype(np.float32)
+        results: dict[int, tuple] = {}
+        q_stats = {}
+
+        def post_q_prime():
+            t_enc = time.perf_counter()
+            body = ('{"network": "default", "model": "default", "priority": "bulk", "q_prime": '
+                    + q_prime_json(qp) + "}").encode()
+            q_stats["encode_s"], q_stats["body"] = time.perf_counter() - t_enc, body
+            req = urllib.request.Request(server.url + "/v1/forecast", data=body, method="POST",
+                                         headers={"Content-Type": "application/json",
+                                                  "X-DDR-Request-Id": "p20-q_prime"})
+            t_send = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=900) as resp:
+                out = json.loads(resp.read())
+            q_stats["total_s"] = time.perf_counter() - t_send
+            out["runoff"] = np.asarray(out["runoff"], np.float32)
+            return out
+
+        go = threading.Barrier(DDR_SERVE_THREADS)
+
+        def worker(k):
+            go.wait()
+            for i in range(k, DDR_SERVE_REQUESTS, DDR_SERVE_THREADS):
+                t_req = time.perf_counter()
+                if i == len(requests):
+                    ans = post_q_prime()
+                else:
+                    ans = client.forecast("default", **requests[i])
+                results[i] = (ans, time.perf_counter() - t_req)
+
+        threads = [threading.Thread(target=worker, args=(k,)) for k in range(DDR_SERVE_THREADS)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        traffic_s = time.perf_counter() - t0
+        if len(results) != DDR_SERVE_REQUESTS:
+            fail(f"ddr serve: {len(results)} of {DDR_SERVE_REQUESTS} requests answered")
+        served += len(results)
+        answers = [results[i][0] for i in range(DDR_SERVE_REQUESTS)]
+        walls = [results[i][1] for i in range(DDR_SERVE_REQUESTS)]
+        for i, a in enumerate(answers[:-1]):
+            want = requests[i]["request_id"]
+            if (want is not None and a["request_id"] != want) or a["version"] != 1:
+                fail(f"ddr serve: request {i} answered id {a['request_id']} version {a['version']}")
+        batches = {}
+        for a in answers:
+            batches[(a["execute_s"], a["device_ms"])] = a["batch_size"]
+        sizes = sorted(batches.values(), reverse=True)
+        print(f"ddr serve traffic: {DDR_SERVE_REQUESTS} requests from {DDR_SERVE_THREADS} threads in "
+              f"{traffic_s:.2f} s, {len(batches)} batches of sizes {sizes} (occupancy mean "
+              f"{np.mean(sizes) / MAX_BATCH:.3f}), on {smi}")
+        print(f"ddr serve HTTP latency, all 32: {percentiles(walls)}; the 31 t0 requests: "
+              f"{percentiles(walls[:-1])}; queue_s {percentiles([a['queue_s'] for a in answers])}; "
+              f"execute_s {percentiles([a['execute_s'] for a in answers])}; batch device ms "
+              f"{sorted(round(k[1], 3) for k in batches if k[1] is not None)}, on {smi}")
+        t_parse = time.perf_counter()  # what the server's handler does with the body
+        parsed = np.asarray(json.loads(q_stats["body"])["q_prime"], dtype=np.float32)
+        parse_s = time.perf_counter() - t_parse
+        if not np.array_equal(parsed, qp):
+            fail("ddr serve: the q_prime body does not parse back to its float32 values")
+        qa = answers[-1]
+        print(f"ddr serve q_prime request ({HORIZON} x {entry.n_segments} floats, {len(q_stats['body']) / 1e6:.2f} MB "
+              f"of JSON, limit {MAX_BODY_BYTES / 1e6:.2f} MB): client encode {q_stats['encode_s']:.3f} s, "
+              f"send to answer {q_stats['total_s']:.3f} s (queue_s {qa['queue_s']:.3f}, execute_s "
+              f"{qa['execute_s']:.3f}), host parse of the same body {parse_s:.3f} s, on {smi}")
+
+        # ---- 3. answers: HTTP against in-process, then two windows against the plain scan ----
+        worst = 0.0
+        inproc_exec, inproc_dev = [], []
+        for i, a in enumerate(answers):
+            kw = {"q_prime": qp} if i == len(requests) else {"t0": requests[i]["t0"],
+                                                           "gauges": requests[i]["gauges"]}
+            ref = svc.forecast(network="default", timeout=900, **kw)
+            served += 1
+            inproc_exec.append(ref["execute_s"])
+            inproc_dev.append(ref["device_ms"])
+            diff = float(np.abs(ref["runoff"].astype(np.float64) - a["runoff"]).max())
+            worst = max(worst, diff)
+            if diff:
+                compare(torch.as_tensor(ref["runoff"]), torch.as_tensor(a["runoff"]),
+                        f"ddr serve HTTP request {i} against in-process")
+        print(f"ddr serve: HTTP answers against in-process, largest difference {worst!r} "
+              f"({'bit for bit' if worst == 0 else 'not bit for bit: a batch of other rows'}); "
+              f"in-process batch (1 live row of {MAX_BATCH}) host ms {percentiles(inproc_exec)}, "
+              f"device ms median {np.median([d for d in inproc_dev if d is not None] or [np.nan]):.3f}, on {smi}")
+        # the same in-process path with every row of the slot live, as phases 3 and 7 serve
+        full = {}
+        for _ in range(2):
+            for f in [svc.submit("default", t0=int(t)) for t in starts[:MAX_BATCH]]:
+                a = f.result(timeout=900)
+                full[(a["execute_s"], a["device_ms"])] = a["batch_size"]
+            served += MAX_BATCH
+        print(f"ddr serve: in-process batches of {sorted(full.values())} live rows: host ms "
+              f"{[round(k[0] * 1e3, 3) for k in full]}, device ms "
+              f"{[None if k[1] is None else round(k[1], 3) for k in full]}, on {smi}")
+        p = cfg.params
+        for w in (int(starts[0]), int(starts[len(starts) // 3])):
+            got = svc.forecast(network="default", t0=w, timeout=900)
+            served += 1
+            with torch.no_grad():
+                kan = svc.registry.get("default").kan
+                phys = denormalize_spatial_parameters(kan(entry.attrs), p.parameter_ranges,
+                                                      p.log_space_parameters, p.defaults, entry.n_segments)
+                q = torch.as_tensor(forcing[w : w + HORIZON], device=dev)
+                if entry.flow_scale is not None:
+                    q = q * entry.flow_scale
+                expect = route(entry.network, entry.channels, phys, q, gauges=entry.gauge_index,
+                               bounds=svc.bounds, kernel="reference", device=dev).runoff
+            compare(expect.cpu(), torch.as_tensor(got["runoff"]),
+                    f"ddr serve t0={w} against the plain scan (wave_scan_tm_reference)")
+        # where a served batch's time goes, by operation
+        profile_batch(svc, "default", starts[:MAX_BATCH])
+        served += MAX_BATCH
+
+        # ---- 4. hot-reload: perturbed weights, then a degraded and a corrupt checkpoint ----
+        arch = kan_arch(cfg)
+        params = load_state(regional, expected_arch=arch)["params"]
+        rng = np.random.default_rng(20)
+        perturbed = {k: (v * (1 + 0.05 * rng.standard_normal(v.shape))).astype(v.dtype)
+                     if np.issubdtype(v.dtype, np.floating) else v for k, v in params.items()}
+        saved = root / "regional" / "saved_models"
+        t_hot = int(starts[len(starts) // 4])
+        before = client.forecast("default", t0=t_hot)
+        t0 = time.perf_counter()
+        path2 = save_state(saved, cfg.name, 3, 0, perturbed, None, arch=arch, healthy=True)
+        while client._get("/v1/models")[1]["models"]["default"]["version"] != 2:
+            if time.perf_counter() - t0 > 60:
+                fail("ddr serve: the watcher did not load the new checkpoint within 60 s")
+            time.sleep(0.01)
+        reload_s = time.perf_counter() - t0
+        after = client.forecast("default", t0=t_hot)
+        served += 2
+        if after["version"] != 2 or np.array_equal(after["runoff"], before["runoff"]):
+            fail(f"ddr serve: after the reload version {after['version']}, answer unchanged")
+        save_state(saved, cfg.name, 4, 0, perturbed, None, arch=arch, healthy=False)
+        corrupt = save_state(saved, cfg.name, 5, 0, perturbed, None, arch=arch, healthy=True)
+        data = bytearray(corrupt.read_bytes())
+        data[len(data) // 2] ^= 0xFF
+        corrupt.write_bytes(bytes(data))
+        time.sleep(4 * int(DDR_SERVE_POLL_MS) / 1e3)
+        models = client._get("/v1/models")[1]["models"]["default"]
+        if models["version"] != 2 or models["source"] != str(path2) or corrupt.exists():
+            fail(f"ddr serve: after a degraded and a corrupt checkpoint: {models}, corrupt blob "
+                 f"still in place {corrupt.exists()}")
+        print(f"ddr serve hot-reload: version 2 answered {reload_s:.3f} s after the checkpoint was "
+              f"written (poll {DDR_SERVE_POLL_MS} ms; the watcher's load and swap {reload_log.reloads}); a "
+              f"degraded and a corrupt checkpoint were not loaded (the corrupt one quarantined), on {smi}")
+
+        # ---- 5. /metrics against the launches ----
+        metrics = scrape(server.url)
+        launches = wave_scan_tm.launches
+        ok = metric_sum(metrics, "ddr_requests_total", 'status="ok"')
+        batches_total = metric_sum(metrics, "ddr_batches_total")
+        values = {
+            "ddr_requests_total{status=ok}": ok, "ddr_batches_total": batches_total,
+            "ddr_hot_reloads_total": metric_sum(metrics, "ddr_hot_reloads_total"),
+            "ddr_health_status": metric_sum(metrics, "ddr_health_status"),
+            "ddr_model_version": metric_sum(metrics, "ddr_model_version"),
+        }
+        print(f"ddr serve /metrics: {values}; wave_scan launches {launches} (observation "
+              f"{observe_launches}, warmup {warm_launches}); {served} answers served")
+        if (ok != served or batches_total != launches - observe_launches - warm_launches
+                or values["ddr_hot_reloads_total"] != 1 or values["ddr_health_status"] != 1
+                or values["ddr_model_version"] != 2):
+            fail(f"ddr serve: /metrics {values} against {served} answers and {launches} launches")
+        check_watchdog(svc, int(batches_total), "ddr serve")
+    finally:
+        server.shutdown()
+        server.server_close()
+        svc.close()
+        logging.getLogger("ddr_tpu_torch.serving.registry").removeHandler(reload_log)
+        del os.environ["DDR_SERVE_RELOAD_POLL_MS"]
+
+    # ---- the reloaded answer against a fresh service from the same checkpoint ----
+    # (outside the counted run: a fresh service on the same built network)
+    set_registry(MetricsRegistry(const_labels={"host": 0}))
+    fresh = ForecastService(cfg, ServeConfig(max_batch=MAX_BATCH, horizon_hours=HORIZON, deadline_s=600.0,
+                                             reload_poll_s=0.0), device=dev)
+    try:
+        fresh.register_network("default", entry.rd, forcing=forcing)
+        kan = build_kan(cfg)
+        kan.load_state_dict({k: torch.as_tensor(v) for k, v in load_state(path2, expected_arch=arch)["params"].items()})
+        fresh.register_model("default", kan)
+        fresh.warmup()
+        ref = fresh.forecast(network="default", t0=t_hot, timeout=900)
+    finally:
+        fresh.close()
+    diff = float(np.abs(ref["runoff"].astype(np.float64) - after["runoff"]).max())
+    print(f"ddr serve: the reloaded answer against a fresh service from {path2.name}: largest "
+          f"difference {diff!r}")
+    if diff:
+        compare(torch.as_tensor(ref["runoff"]), torch.as_tensor(after["runoff"]),
+                "ddr serve reloaded against fresh")
+
+    # ---- 6. card against CPU at the parity width, over HTTP ----
+    outs = {}
+    for device in ("cpu", "cuda"):
+        set_registry(MetricsRegistry(const_labels={"host": 0}))
+        small_cfg = parse_cli([DDR_TRAIN_CONFIG, *DDR_TRAIN_PARITY, *DDR_TEST_PARITY_WINDOW, f"device={device}",
+                               f"params.save_path={root / ('parity-' + device)}",
+                               f"experiment.checkpoint={small}"], mode="testing")
+        small_svc = build_service(small_cfg, ServeConfig(max_batch=MAX_BATCH, horizon_hours=HORIZON,
+                                                         deadline_s=600.0), watch=False)
+        small_server = serve_http(small_svc, port=0)
+        try:
+            c = HttpForecastClient(small_server.url, timeout=900)
+            n_win = len(small_svc.networks()["default"].forcing) - HORIZON + 1
+            outs[device] = [c.forecast("default", t0=int(t), gauges=[[0, 2], None][i % 2])["runoff"]
+                            for i, t in enumerate(np.linspace(0, n_win - 1, MAX_BATCH).astype(int))]
+        finally:
+            small_server.shutdown()
+            small_server.server_close()
+            small_svc.close()
+    for i, (a, b) in enumerate(zip(outs["cpu"], outs["cuda"])):
+        compare(torch.as_tensor(a), torch.as_tensor(b), f"ddr serve 4,096 reaches request {i}, card against CPU",
+                rtol=DDR_SERVE_PARITY_RTOL)
+    set_registry(None)
+    return launches
+
+
 def nvidia_smi() -> str:
     """The card's name and power limit, as ``nvidia-smi`` reports them."""
     return subprocess.run(
@@ -2054,12 +2426,13 @@ def main() -> int:
         return time_fp32_only()
     only_ddr_train = sys.argv[1:] == ["--ddr-train"]
     only_ddr_cli = sys.argv[1:] == ["--ddr-cli"]
+    only_ddr_serve = sys.argv[1:] == ["--ddr-serve"]
     old_log = None
     if len(sys.argv) == 3 and sys.argv[1] == "--old-kernels":
         old_log = sys.argv[2]
-    elif sys.argv[1:] and not (only_ddr_train or only_ddr_cli):
-        print("usage: chip_smoke.py [--time-fp32 | --ddr-train | --ddr-cli | --old-kernels LOG]",
-              file=sys.stderr)
+    elif sys.argv[1:] and not (only_ddr_train or only_ddr_cli or only_ddr_serve):
+        print("usage: chip_smoke.py [--time-fp32 | --ddr-train | --ddr-cli | --ddr-serve | "
+              "--old-kernels LOG]", file=sys.stderr)
         return 2
     import numpy as np
 
@@ -2086,7 +2459,7 @@ def main() -> int:
     seconds = _build.build(_build.KERNELS, verbose=True)
     print(f"build: {json.dumps({k: round(v, 2) for k, v in seconds.items()})} "
           f"({time.perf_counter() - t0:.2f}s wall) into {_build.build_dir()}")
-    if only_ddr_train or only_ddr_cli:
+    if only_ddr_train or only_ddr_cli or only_ddr_serve:
         t0 = time.perf_counter()
         ddr_train(smi, dev)
         print(f"ddr train phase: {time.perf_counter() - t0:.1f}s")
@@ -2094,6 +2467,10 @@ def main() -> int:
             t0 = time.perf_counter()
             ddr_eval(smi, dev)
             print(f"ddr test, route, train-and-test and benchmark phase: {time.perf_counter() - t0:.1f}s")
+        if only_ddr_serve:
+            t0 = time.perf_counter()
+            ddr_serve(smi, dev)
+            print(f"ddr serve phase: {time.perf_counter() - t0:.1f}s")
         print(smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
@@ -2424,6 +2801,11 @@ def main() -> int:
     ddr_eval_launches = ddr_eval(smi, dev)
     print(f"ddr test, route, train-and-test and benchmark phase: {time.perf_counter() - t0:.1f}s")
 
+    # ---- 20. ddr serve: the HTTP front, the registry's hot-reload, the metrics ----
+    t0 = time.perf_counter()
+    ddr_serve_launches = ddr_serve(smi, dev)
+    print(f"ddr serve phase: {time.perf_counter() - t0:.1f}s")
+
     def band_entry(name, source, replaces, launches, err, t):
         bytes_ms, flops_ms = t["bound"]
         return {
@@ -2441,9 +2823,10 @@ def main() -> int:
         "source": "ddr_tpu_torch/csrc/wave_scan.cu",
         "replaces": "ddr_tpu/routing/pallas_kernel.py:193",
         "launches": (launches + train_launches["wave_scan"] + ddr_train_launches["wave_scan"]
-                     + ddr_eval_launches["wave_scan"]),
+                     + ddr_eval_launches["wave_scan"] + ddr_serve_launches),
         "ddr_train_launches": ddr_train_launches["wave_scan"],
         "ddr_eval_launches": ddr_eval_launches["wave_scan"],
+        "ddr_serve_launches": ddr_serve_launches,
         "ddr_eval_q_init_launches": ddr_eval_launches["q_init"],
         "max_abs_err": max_abs,
         "ms": kernel_ms,

@@ -1,9 +1,9 @@
 """The port's command-line dispatcher: ``python -m ddr_tpu_torch.cli
-{train,test,route,train-and-test,benchmark} config.yaml [a.b=c ...]``.
+{train,test,route,train-and-test,benchmark,serve} config.yaml [a.b=c ...]``.
 
 The subcommands are the JAX package's ``ddr`` CLI's. ``train``, ``test``,
-``route``, ``train-and-test`` and ``benchmark`` are ported; each runs on the
-card unless the config or an override says ``device=cpu``. Every other
+``route``, ``train-and-test``, ``benchmark`` and ``serve`` are ported; each
+runs on the card unless the config or an override says ``device=cpu``. Every other
 subcommand exits with a message naming the ROADMAP item that ports it.
 """
 
@@ -20,11 +20,11 @@ _COMMANDS = {
     "route": "ddr_tpu_torch.scripts.router",
     "train-and-test": "ddr_tpu_torch.scripts.train_and_test",
     "benchmark": "ddr_tpu_torch.benchmarks.benchmark",
+    "serve": "ddr_tpu_torch.scripts.serve",
 }
 #: Subcommands of the JAX package's CLI that are not ported yet, by ROADMAP item.
 _NOT_PORTED = {
     "summed-q-prime": "A.8",
-    "serve": "A.9",
     "fleet": "A.9",
     "loadtest": "A.9",
     "verify": "A.9",

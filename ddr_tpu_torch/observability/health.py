@@ -28,9 +28,11 @@ Translations from JAX: ``jax.ops.segment_min``/``segment_max`` are
 filled with ``+inf``/``-inf``, so empty bands read the JAX identities;
 ``jax.lax.top_k`` is ``torch.topk``, which orders tied scores differently
 (JAX puts the lower index first); ``jnp.finfo(bfloat16)`` is
-``torch.finfo(torch.bfloat16)`` (eps ``2**-7``, the same max). Not ported
-yet: the ``ddr_health_status`` Prometheus gauge and the ``health`` event of
-the run recorder; a violation is logged instead.
+``torch.finfo(torch.bfloat16)`` (eps ``2**-7``, the same max). The
+watchdog sets the ``ddr_health_status`` gauge on every observation and counts
+``ddr_health_violations_total`` by reason in its metrics registry (the
+process default unless given one), as JAX's does; the ``health`` event of the
+run recorder waits for ROADMAP A.10, so a violation is also logged.
 """
 
 from __future__ import annotations
@@ -422,7 +424,7 @@ class HealthWatchdog:
     few scalars. Thread-safe: a service observes from its batcher's worker
     while other threads read :attr:`degraded`."""
 
-    def __init__(self, config: HealthConfig | None = None) -> None:
+    def __init__(self, config: HealthConfig | None = None, registry: Any = None) -> None:
         self.config = config or HealthConfig.from_env()
         self._lock = threading.Lock()
         self._consecutive = 0
@@ -436,6 +438,16 @@ class HealthWatchdog:
         # the staleness clock starts at construction, so a first batch that
         # hangs also trips the stall ceiling
         self._last_observe = time.monotonic()
+        if registry is None:
+            from ddr_tpu_torch.observability.registry import get_registry
+
+            registry = get_registry()
+        self._registry = registry
+        self._gauge = registry.gauge(
+            "ddr_health_status",
+            "Numerical health of the last observed batch (1 healthy, 0 violating)",
+        )
+        self._gauge.set(1.0)
 
     # ---- observation ----
 
@@ -491,9 +503,10 @@ class HealthWatchdog:
     def observe(self, stats: HealthStats, **context: Any) -> list[str]:
         """Threshold one batch's stats; returns the violation reasons (empty
         = healthy). A violating batch logs one warning (reasons, values,
-        spatial attribution, ``context``) and bumps the violation counters; a
-        healthy one clears the consecutive count. The spatial fields are
-        remembered on every batch, healthy or not."""
+        spatial attribution, ``context``), bumps the violation counters and
+        ``ddr_health_violations_total``, and sets ``ddr_health_status`` to 0;
+        a healthy one clears the consecutive count and sets the gauge to 1.
+        The spatial fields are remembered on every batch, healthy or not."""
         if not self.config.enabled:
             return []
         reasons = self.check(stats)
@@ -541,11 +554,12 @@ class HealthWatchdog:
             consecutive = self._consecutive_flagged
         if not reasons:
             return []
+        self._gauge.set(0.0)
         self._report(reasons, {"consecutive": consecutive, **context})
         return reasons
 
     def _note(self, reasons: list[str]) -> int:
-        """Counter bookkeeping for one observation."""
+        """Counter and gauge bookkeeping for one observation."""
         with self._lock:
             self._last_observe = time.monotonic()
             self._batches += 1
@@ -555,10 +569,20 @@ class HealthWatchdog:
             else:
                 self._consecutive = 0
             self._last_reasons = reasons
-            return self._consecutive
+            consecutive = self._consecutive
+        self._gauge.set(0.0 if reasons else 1.0)
+        return consecutive
 
     def _report(self, reasons: list[str], payload: dict[str, Any]) -> None:
-        """The one warning of a violating observation."""
+        """A violating observation: ``ddr_health_violations_total`` by
+        reason, through the same event mapping as the service's decisions,
+        and one warning."""
+        from ddr_tpu_torch.observability.prometheus import event_tee
+
+        try:  # metrics must never fail the batch that is being observed
+            event_tee({"event": "health", "reasons": reasons, **payload}, self._registry)
+        except Exception:
+            log.exception("health metrics tee failed")
         log.warning(
             f"numerical health violation ({', '.join(reasons)}): "
             + " ".join(f"{k}={v}" for k, v in payload.items())

@@ -1,0 +1,191 @@
+"""Prometheus text exposition and the event -> metric mapping of the serve path.
+
+The port's copy of the serving half of ``ddr_tpu/observability/prometheus.py``:
+
+- :func:`render_text` — a :class:`MetricsRegistry` in Prometheus text
+  exposition format 0.0.4 (``# HELP`` / ``# TYPE`` / one line a series;
+  histograms as cumulative ``_bucket{le=...}``, ``_sum`` and ``_count``),
+  byte for byte the JAX package's text for the same registry operations;
+- :func:`declare_serve_metrics` — the service's and the watchdog's instrument
+  set, declared up front so ``GET /metrics`` shows every name from the first
+  scrape. It declares the instruments the port feeds, JAX's set less the SLO
+  (``ddr_slo_*``) and compile (``ddr_compiles_total``) instruments, which
+  come with SLO tracking (ROADMAP A.9) and the observability plane (A.10);
+- :func:`event_tee` — one decision record (``{"event": ..., **payload}``) ->
+  instrument updates, for the events the port emits: ``serve_request``,
+  ``serve_batch``, ``serve_shed`` and ``health``.
+
+The standalone exporter (``DDR_PROM_PORT``), the run recorder that tees
+every event, and the training events' cases wait for ROADMAP A.10; ``ddr
+serve`` answers the same text on its own ``/metrics``.
+"""
+
+from __future__ import annotations
+
+import math
+
+from ddr_tpu_torch.observability.registry import Histogram, MetricsRegistry, get_registry
+
+__all__ = ["CONTENT_TYPE", "OCCUPANCY_BUCKETS", "declare_serve_metrics", "event_tee", "render_text"]
+
+#: The exposition-format content type scrapers expect.
+CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
+
+#: Batch-occupancy buckets: fractions of the batch slot.
+OCCUPANCY_BUCKETS = (0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0)
+
+
+def _escape(value: str) -> str:
+    return value.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+
+def _fmt(v: float) -> str:
+    if v == math.inf:
+        return "+Inf"
+    if v == -math.inf:
+        return "-Inf"
+    if v != v:
+        return "NaN"
+    if float(v).is_integer() and abs(v) < 1e15:
+        return str(int(v))
+    return repr(float(v))
+
+
+def _labels_str(names: tuple[str, ...], values: tuple[str, ...], const: dict,
+                extra: dict | None = None) -> str:
+    pairs = dict(const)
+    pairs.update(zip(names, values))
+    if extra:
+        pairs.update(extra)
+    if not pairs:
+        return ""
+    return "{" + ",".join(f'{k}="{_escape(str(v))}"' for k, v in sorted(pairs.items())) + "}"
+
+
+def render_text(registry: MetricsRegistry | None = None) -> str:
+    """The whole registry in Prometheus text exposition format 0.0.4."""
+    registry = registry or get_registry()
+    const = registry.const_labels
+    out: list[str] = []
+    for metric in registry.collect():
+        if metric.help:
+            out.append(f"# HELP {metric.name} {_escape(metric.help)}")
+        out.append(f"# TYPE {metric.name} {metric.kind}")
+        series = metric.series()
+        if isinstance(metric, Histogram):
+            for key, state in sorted(series.items()):
+                cum = 0
+                for bound, n in zip(metric.buckets, state["buckets"]):
+                    cum += n
+                    lab = _labels_str(metric.labels, key, const, {"le": _fmt(bound)})
+                    out.append(f"{metric.name}_bucket{lab} {cum}")
+                cum += state["buckets"][-1]
+                lab = _labels_str(metric.labels, key, const, {"le": "+Inf"})
+                out.append(f"{metric.name}_bucket{lab} {cum}")
+                plain = _labels_str(metric.labels, key, const)
+                out.append(f"{metric.name}_sum{plain} {_fmt(state['sum'])}")
+                out.append(f"{metric.name}_count{plain} {state['count']}")
+        else:
+            for key, value in sorted(series.items()):
+                out.append(f"{metric.name}{_labels_str(metric.labels, key, const)} {_fmt(value)}")
+    return "\n".join(out) + "\n"
+
+
+def declare_serve_metrics(registry: MetricsRegistry | None = None) -> MetricsRegistry:
+    """Declare the serving and health instrument set up front. Idempotent."""
+    r = registry or get_registry()
+    r.counter("ddr_requests_total", "Forecast requests by terminal status",
+              labels=("status", "network", "model"))
+    r.histogram("ddr_request_latency_seconds",
+                "Admit-to-completion latency of served (status=ok) requests",
+                labels=("network", "model"))
+    # latency = queue wait (admission -> batch extraction, the coalescing hold
+    # included) + execution (the batch's execute wall time) + reply overhead
+    r.histogram("ddr_serve_queue_seconds",
+                "Admission-to-extraction queue wait per request (includes the "
+                "coalescing hold)",
+                labels=("network", "model"))
+    r.histogram("ddr_serve_execute_seconds",
+                "Device execution time attributed to each served request (its "
+                "micro-batch's execute wall time)",
+                labels=("network", "model"))
+    r.counter("ddr_batches_total", "Executed micro-batches",
+              labels=("network", "model"))
+    r.histogram("ddr_batch_occupancy",
+                "Fraction of the compiled batch slot filled per executed batch",
+                labels=("network", "model"), buckets=OCCUPANCY_BUCKETS)
+    r.histogram("ddr_batch_seconds", "Device execution time per micro-batch",
+                labels=("network", "model"))
+    qd = r.gauge("ddr_queue_depth", "Request queue depth after the last batch extraction")
+    if not qd.series():
+        qd.set(0.0)
+    r.counter("ddr_sheds_total", "Shed/rejected requests by reason", labels=("reason",))
+    # the priority-class split of the same decisions: which tier paid
+    r.counter("ddr_serve_shed_total", "Shed/rejected requests by reason and "
+              "priority class", labels=("reason", "priority"))
+    r.counter("ddr_hot_reloads_total", "Checkpoint hot-reloads applied", labels=("model",))
+    r.gauge("ddr_model_version", "Current params version per model", labels=("model",))
+    hs = r.gauge(
+        "ddr_health_status",
+        "Numerical health of the last observed batch (1 healthy, 0 violating)",
+    )
+    if not hs.series():  # healthy until a watchdog says otherwise
+        hs.set(1.0)
+    r.counter("ddr_health_violations_total",
+              "Health-watchdog threshold violations by reason", labels=("reason",))
+    return r
+
+
+def _get(payload: dict, key: str, default: float = 0.0) -> float:
+    v = payload.get(key)
+    try:
+        return default if v is None else float(v)
+    except (TypeError, ValueError):
+        return default
+
+
+def event_tee(record: dict, registry: MetricsRegistry | None = None) -> None:
+    """Update the registry from one decision record. Every event bumps
+    ``ddr_events_total``; the serve and health events update their
+    instruments; any other event updates nothing else."""
+    r = registry or get_registry()
+    event = str(record.get("event", "?"))
+    r.counter("ddr_events_total", "Telemetry events by type", labels=("event",)).inc(event=event)
+    if event in ("serve_request", "serve_batch", "serve_shed", "health") and (
+        r.get("ddr_requests_total") is None  # declare once, not per event
+    ):
+        declare_serve_metrics(r)
+    if event == "serve_request":
+        status = str(record.get("status", "?"))
+        network = str(record.get("network", "?"))
+        model = str(record.get("model", "?"))
+        r.get("ddr_requests_total").inc(status=status, network=network, model=model)
+        if status == "ok" and record.get("latency_s") is not None:
+            r.get("ddr_request_latency_seconds").observe(
+                _get(record, "latency_s"), network=network, model=model)
+        # queue wait for every status that queued (sheds included), execution
+        # only for requests that ran
+        if record.get("queue_s") is not None:
+            r.get("ddr_serve_queue_seconds").observe(
+                _get(record, "queue_s"), network=network, model=model)
+        if record.get("execute_s") is not None:
+            r.get("ddr_serve_execute_seconds").observe(
+                _get(record, "execute_s"), network=network, model=model)
+    elif event == "serve_batch":
+        network = str(record.get("network", "?"))
+        model = str(record.get("model", "?"))
+        r.get("ddr_batches_total").inc(network=network, model=model)
+        if record.get("occupancy") is not None:
+            r.get("ddr_batch_occupancy").observe(
+                _get(record, "occupancy"), network=network, model=model)
+        if record.get("seconds") is not None:
+            r.get("ddr_batch_seconds").observe(_get(record, "seconds"), network=network, model=model)
+        if record.get("queue_depth") is not None:
+            r.get("ddr_queue_depth").set(_get(record, "queue_depth"))
+    elif event == "serve_shed":
+        reason = str(record.get("reason", "?"))
+        r.get("ddr_sheds_total").inc(reason=reason)
+        r.get("ddr_serve_shed_total").inc(reason=reason, priority=str(record.get("priority", "batch")))
+    elif event == "health":
+        for reason in record.get("reasons") or ["?"]:
+            r.get("ddr_health_violations_total").inc(reason=str(reason))

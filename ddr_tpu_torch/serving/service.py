@@ -1,4 +1,5 @@
-"""ForecastService: registered networks x models, served in padded batches.
+"""ForecastService: registered networks x hot-reloadable models, served in
+padded batches.
 
 The port of ``ddr_tpu/serving/service.py``'s request path. Per registered
 ``(network, model)`` pair the service runs one batched route
@@ -13,24 +14,35 @@ kernel, once for a single-ring network and once a band for a deep one (the
 stacked band router); the only synchronisation is the copy of a batch's
 answers back to the host, where they go to clients.
 
+Models live in a :class:`~ddr_tpu_torch.serving.registry.ModelRegistry`:
+each batch takes one snapshot of its model, and a checkpoint watcher
+(:meth:`ForecastService.watch_checkpoints`) swaps new weights in between
+batches. Every request carries a ``request_id`` (a caller's, sanitised by
+:func:`make_request_id`, else minted) and, with tracing on (``DDR_TRACE``),
+a ``trace_id``, and is admitted in a priority class (``interactive``,
+``batch``, ``bulk``). Every admission, batch and shed decision updates the
+live metrics registry (``GET /metrics``) through
+:func:`~ddr_tpu_torch.observability.prometheus.event_tee`.
+
 The numerical-health watchdog is on by default (``HealthConfig.from_env()``,
 ``DDR_HEALTH_ENABLED=0`` turns it off), as in the JAX service: every batch
 but the warmup's computes its health stats on the device over the live
 rows (pad rows masked out) of the runoff and of the request inflow before
 flow scaling, plus the worst output columns when ``top_k > 0``, and the
-watchdog thresholds them after the batch's copy to the host.
-:meth:`ForecastService.status` and :attr:`ForecastService.degraded` report
-it. Serving routes in fp32: the JAX service has no dtype axis.
+watchdog thresholds them after the batch's copy to the host. Serving routes
+in fp32: the JAX service has no dtype axis.
 
-Not in this slice: SLO tracking, the performance sentinel, the
-verification ledger, ensembles, the HTTP front, mesh mode, checkpoint
-watching and program cards.
+Not in this slice: SLO tracking, the performance sentinel, the verification
+ledger, ensembles and the fleet (ROADMAP A.9), the run recorder's events and
+program cards (A.10), mesh mode (A.13) and fault injection (A.6). ``stats()``
+carries their keys as None.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import re
 import threading
 import time
 import uuid
@@ -47,6 +59,9 @@ from ddr_tpu_torch.observability.health import (
     compute_health,
     compute_output_worst,
 )
+from ddr_tpu_torch.observability.prometheus import declare_serve_metrics, event_tee
+from ddr_tpu_torch.observability.trace import adopt_trace_id, new_span_id, trace_enabled
+from ddr_tpu_torch.routing.chunked import ChunkedNetwork
 from ddr_tpu_torch.routing.mc import Bounds, ChannelState, GaugeIndex, route
 from ddr_tpu_torch.routing.model import denormalize_spatial_parameters, engine_label, prepare_batch
 from ddr_tpu_torch.routing.network import RiverNetwork
@@ -57,11 +72,41 @@ from ddr_tpu_torch.serving.batcher import (
     QueueFullError,
     RequestShedError,
 )
-from ddr_tpu_torch.serving.config import ServeConfig
+from ddr_tpu_torch.serving.config import DEFAULT_PRIORITY, ServeConfig, priority_rank
+from ddr_tpu_torch.serving.registry import ModelEntry, ModelRegistry
 
 log = logging.getLogger(__name__)
 
-__all__ = ["ForecastService", "NetworkEntry", "QueueFullError", "RequestShedError"]
+__all__ = ["ForecastService", "NetworkEntry", "QueueFullError", "RequestShedError", "make_request_id"]
+
+#: Characters allowed in a caller-supplied request id: visible ASCII only,
+#: so the id is safe to echo in a header.
+_REQUEST_ID_STRIP = re.compile(r"[^\x21-\x7e]")
+
+
+def make_request_id(supplied: Any = None) -> str:
+    """A caller-supplied request id with everything outside ``\\x21-\\x7e``
+    stripped and cut to 128 characters, else a fresh 16-hex id. Always
+    non-empty and header-safe."""
+    if supplied:
+        rid = _REQUEST_ID_STRIP.sub("", str(supplied))[:128]
+        if rid:
+            return rid
+    return uuid.uuid4().hex[:16]
+
+
+def _trace_fields(req: ForecastRequest) -> dict:
+    """The trace ids of a request (empty when tracing was off at admission)."""
+    return {k: req.meta[k] for k in ("trace_id", "span_id") if k in req.meta}
+
+
+def _engine_kind(network: Any) -> str:
+    """The JAX service's engine name of a built network."""
+    if isinstance(network, StackedChunked):
+        return "stacked"
+    if isinstance(network, ChunkedNetwork):
+        return "chunked"
+    return "wavefront" if getattr(network, "wavefront", False) else "step"
 
 
 @dataclasses.dataclass
@@ -77,6 +122,7 @@ class NetworkEntry:
     gauge_index: GaugeIndex | None  # None = full-domain outputs
     attrs: torch.Tensor  # (N, n_attrs) KAN input on the device
     flow_scale: torch.Tensor | None  # (N,) on the device
+    engine: str = "step"  # the JAX service's engine name
 
     @property
     def n_segments(self) -> int:
@@ -88,9 +134,11 @@ class NetworkEntry:
 
 
 class ForecastService:
-    """Batched forecast serving. Lifecycle: construct ->
-    :meth:`register_network` / :meth:`register_model` -> :meth:`warmup` ->
-    :meth:`submit` / :meth:`forecast` -> :meth:`close`."""
+    """Batched, hot-reloadable forecast serving. Lifecycle: construct ->
+    :meth:`register_network` / :meth:`register_model` (and
+    :meth:`watch_checkpoints`) -> :meth:`warmup` -> :meth:`submit` /
+    :meth:`forecast` or the HTTP front (:mod:`ddr_tpu_torch.serving.http_api`)
+    -> :meth:`close`."""
 
     def __init__(
         self,
@@ -101,19 +149,24 @@ class ForecastService:
     ) -> None:
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.serve_cfg = serve_cfg or ServeConfig()
+        self.serve_cfg = serve_cfg or ServeConfig.from_env()
+        self.registry = ModelRegistry()
         self.health_cfg = health_cfg or HealthConfig.from_env()
         self.watchdog = HealthWatchdog(self.health_cfg)
+        # declared up front: GET /metrics shows every serve metric from the first scrape
+        self.metrics = declare_serve_metrics()
         self.bounds = Bounds.from_config(cfg.params.attribute_minimums)
         self._networks: dict[str, NetworkEntry] = {}
-        self._models: dict[str, torch.nn.Module] = {}
         self._lock = threading.Lock()
         self._ready = False
+        self._warmup_error: str | None = None
         self._batcher = MicroBatcher(
             execute=self._execute,
             max_batch=self.serve_cfg.max_batch,
             queue_cap=self.serve_cfg.queue_cap,
             batch_wait_s=self.serve_cfg.batch_wait_s,
+            backpressure=self.serve_cfg.backpressure,
+            on_shed=self._on_shed,
         )
 
     # ---- registration ----
@@ -159,6 +212,7 @@ class ForecastService:
             flow_scale=None if rd.flow_scale is None else torch.as_tensor(
                 np.asarray(rd.flow_scale, np.float32), device=self.device
             ),
+            engine=_engine_kind(network),
         )
         with self._lock:
             if name in self._networks:
@@ -171,30 +225,74 @@ class ForecastService:
         )
         return entry
 
-    def register_model(self, name: str, kan_model: torch.nn.Module) -> None:
-        """Register (or replace) a KAN under ``name``; it moves to the
-        service's device and to eval mode."""
-        kan_model = kan_model.to(self.device).eval()
+    def register_model(self, name: str, kan_model: torch.nn.Module, arch: dict | None = None,
+                       source: str | None = None) -> ModelEntry:
+        """Register a KAN under ``name`` (moved to the service's device, in
+        eval mode); ``arch`` guards its checkpoint reloads."""
         with self._lock:
-            self._models[name] = kan_model
             self._ready = False
+        entry = self.registry.register(name, kan_model.to(self.device), arch=arch, source=source)
+        self.metrics.get("ddr_model_version").set(entry.version, model=name)
+        return entry
+
+    def unregister_model(self, name: str) -> None:
+        """Unload a model: drop its registry entry and checkpoint watchers,
+        shed its queued requests (``model-unloaded``; a batch in flight
+        finishes on its snapshot), and drop its ``ddr_model_version``
+        series. Other pairs stay warm."""
+        self.registry.unregister(name)  # raises KeyError on unknown names
+        self._batcher.purge(lambda r: r.key[1] == name, "model-unloaded")
+        self.metrics.get("ddr_model_version").remove(model=name)
+        log.info(f"unregistered model {name!r}")
+
+    def watch_checkpoints(self, name: str, directory, poll_s: float | None = None):
+        """Hot-reload ``name`` from the newest checkpoint under ``directory``
+        (ServeConfig ``reload_poll_s`` cadence; 0 disables). Each applied
+        reload bumps ``ddr_hot_reloads_total`` and ``ddr_model_version``."""
+        poll = self.serve_cfg.reload_poll_s if poll_s is None else poll_s
+        if poll <= 0:
+            log.info("checkpoint watching disabled (reload_poll_s <= 0)")
+            return None
+
+        def _on_reload(entry: ModelEntry) -> None:
+            self.metrics.get("ddr_hot_reloads_total").inc(model=entry.name)
+            self.metrics.get("ddr_model_version").set(entry.version, model=entry.name)
+
+        return self.registry.watch(name, directory, poll_s=poll, on_reload=_on_reload)
+
+    # ---- warmup / readiness ----
 
     @property
     def ready(self) -> bool:
         return self._ready
 
+    @property
+    def warmup_error(self) -> str | None:
+        """The failure of the last :meth:`warmup`, or None: ``/readyz`` tells
+        this terminal state (503 ``warmup-failed``) from still warming."""
+        return self._warmup_error
+
+    def networks(self) -> dict[str, NetworkEntry]:
+        with self._lock:
+            return dict(self._networks)
+
     def warmup(self) -> None:
         """Run every (network, model) pair once on a zero batch, so the first
-        request does not pay for the kernel build."""
-        with self._lock:
-            pairs = [(net, name) for net in self._networks.values() for name in self._models]
+        request does not pay for the kernel build. A raising warmup is
+        recorded on :attr:`warmup_error` and re-raised."""
+        pairs = [(net, name) for net in self.networks().values() for name in self.registry.names()]
         if not pairs:
             raise RuntimeError("nothing to warm: register a network and a model first")
-        for net, name in pairs:
-            t0 = time.perf_counter()
-            zeros = np.zeros((self.serve_cfg.max_batch, net.horizon, net.n_segments), np.float32)
-            self._run_batch(net, name, zeros, warmup=True)
-            log.info(f"warmed ({net.name}, {name}) in {time.perf_counter() - t0:.2f}s")
+        self._warmup_error = None  # a retry presents as warming
+        try:
+            for net, name in pairs:
+                t0 = time.perf_counter()
+                zeros = np.zeros((self.serve_cfg.max_batch, net.horizon, net.n_segments), np.float32)
+                self._run_batch(net, self.registry.get(name), zeros, warmup=True)
+                log.info(f"warmed ({net.name}, {name}) in {time.perf_counter() - t0:.2f}s")
+        except BaseException as e:
+            self._warmup_error = f"{type(e).__name__}: {e}"
+            raise
         with self._lock:
             self._ready = True
 
@@ -209,18 +307,22 @@ class ForecastService:
         gauges: Any | None = None,
         deadline_s: float | None = None,
         request_id: str | None = None,
+        trace_id: str | None = None,
+        priority: str | None = None,
     ) -> Future:
         """Admit one forecast request; returns its Future.
 
         Exactly one of ``q_prime`` (a ``(horizon, N)`` payload) or ``t0`` (an
         hourly offset into the registered forcing; default 0) selects the
         inflow window. ``gauges`` picks output columns (default all).
-        Invalid requests raise here."""
+        ``request_id`` is sanitised (:func:`make_request_id`) or minted;
+        ``trace_id`` is adopted or minted when tracing is on; ``priority`` is
+        the request's class (default ``batch``). Invalid requests raise here;
+        a full queue raises :class:`QueueFullError`."""
         net = self._networks.get(network)
         if net is None:
             raise ValueError(f"unknown network {network!r}")
-        if model not in self._models:
-            raise KeyError(f"unknown model {model!r}")
+        self.registry.get(model)  # raises KeyError on unknown models
         if q_prime is not None and t0 is not None:
             raise ValueError("pass q_prime or t0, not both")
         if q_prime is not None:
@@ -231,7 +333,8 @@ class ForecastService:
                 )
         else:
             if net.forcing is None:
-                raise ValueError(f"network {network!r} has no registered forcing; send q_prime")
+                raise ValueError(f"network {network!r} has no registered forcing; requests "
+                                 "must carry q_prime")
             start = 0 if t0 is None else int(t0)
             if not 0 <= start <= len(net.forcing) - net.horizon:
                 raise ValueError(
@@ -242,21 +345,39 @@ class ForecastService:
         gauge_sel = None
         if gauges is not None:
             gauge_sel = np.asarray(gauges, dtype=np.int64).ravel()
-            if gauge_sel.size == 0 or gauge_sel.min() < 0 or gauge_sel.max() >= net.n_outputs:
-                raise ValueError(f"gauges must be a non-empty subset of [0, {net.n_outputs})")
+            if gauge_sel.size == 0:
+                raise ValueError("gauges must be a non-empty index list (or omitted)")
+            if gauge_sel.min() < 0 or gauge_sel.max() >= net.n_outputs:
+                raise ValueError(f"gauges must lie in [0, {net.n_outputs}) for network {network!r}")
         deadline = time.monotonic() + (
             self.serve_cfg.deadline_s if deadline_s is None else float(deadline_s)
         )
+        prio = DEFAULT_PRIORITY if priority is None else str(priority)
+        priority_rank(prio)  # an unknown class is the caller's bug
+        rid = make_request_id(request_id)
+        meta = {"network": network, "model": model, "request_id": rid}
+        if trace_enabled():
+            meta["trace_id"] = adopt_trace_id(trace_id)
+            meta["span_id"] = new_span_id()
         req = ForecastRequest(
             key=(network, model),
-            payload={
-                "q_prime": qp,
-                "gauges": gauge_sel,
-                "request_id": request_id or uuid.uuid4().hex[:16],
-            },
+            payload={"q_prime": qp, "gauges": gauge_sel},
             deadline=deadline,
+            meta=meta,
+            priority=prio,
         )
-        self._batcher.submit(req)
+        try:
+            self._batcher.submit(req)
+        except QueueFullError as e:
+            e.request_id = rid  # error bodies echo the id the caller sent
+            self._emit("serve_shed", reason="queue-full", policy=self.serve_cfg.backpressure,
+                       network=network, model=model, request_id=rid, priority=prio, age_s=0.0,
+                       **_trace_fields(req))
+            # queue_s None: a rejected arrival never queued
+            self._emit("serve_request", status="shed:queue-full", network=network, model=model,
+                       request_id=rid, priority=prio, latency_s=0.0, queue_s=None,
+                       **_trace_fields(req))
+            raise
         return req.future
 
     def forecast(self, timeout: float | None = None, **kwargs) -> dict:
@@ -265,26 +386,36 @@ class ForecastService:
 
     # ---- execution (batcher worker thread) ----
 
+    def _engine_label(self, net: NetworkEntry) -> str:
+        return f"{net.name}:{net.engine}"
+
+    @staticmethod
+    def _queue_seconds(r: ForecastRequest) -> float | None:
+        """Admission-to-extraction wait, or None for a request that never left
+        the queue."""
+        if not r.extracted:
+            return None
+        return round(max(0.0, r.extracted - r.admitted), 6)
+
     def _run_batch(
-        self, net: NetworkEntry, model: str, qp: np.ndarray,
+        self, net: NetworkEntry, entry: ModelEntry, qp: np.ndarray,
         n_live: int | None = None, warmup: bool = False,
     ) -> tuple[np.ndarray, float | None]:
-        """Route one padded ``(max_batch, horizon, N)`` batch through the
-        registered model ``model``, its first ``n_live`` rows carrying
-        requests (default all); returns the host
+        """Route one padded ``(max_batch, horizon, N)`` batch through
+        ``entry`` (one registry snapshot for the whole batch), its first
+        ``n_live`` rows carrying requests (default all); returns the host
         ``(max_batch, horizon, n_outputs)`` runoff and, on a card, the batch's
         device milliseconds (CUDA events from upload to the last kernel,
         health stats included). Every batch but a warmup's feeds the health
         watchdog."""
         p = self.cfg.params
-        kan = self._models[model]
         on_card = self.device.type == "cuda"
         if on_card:
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
-        with torch.no_grad():
+        with torch.no_grad():  # grad mode is per thread: set here, on the batcher's
             q = torch.from_numpy(qp).to(self.device)
-            raw = kan(net.attrs)
+            raw = entry.kan(net.attrs)
             phys = denormalize_spatial_parameters(
                 raw, p.parameter_ranges, p.log_space_parameters, p.defaults, net.n_segments
             )
@@ -311,37 +442,110 @@ class ForecastService:
         # where the answers leave for their clients
         out = runoff.cpu().numpy()
         if health is not None:
-            self.watchdog.observe(health, network=net.name, model=model,
+            self.watchdog.observe(health, network=net.name, model=entry.name,
                                   batch_size=int(qp.shape[0] if n_live is None else n_live))
         return out, (start.elapsed_time(end) if on_card else None)
 
     def _execute(self, key: tuple, reqs: list[ForecastRequest]) -> None:
+        try:
+            self._execute_inner(key, reqs)
+        except BaseException as e:
+            # the batcher fails the futures; every request still reaches a
+            # terminal status in the metrics
+            now = time.monotonic()
+            for r in reqs:
+                self._emit("serve_request", status=f"error:{type(e).__name__}",
+                           network=r.meta.get("network"), model=r.meta.get("model"),
+                           request_id=r.meta.get("request_id"), latency_s=round(now - r.admitted, 6),
+                           queue_s=self._queue_seconds(r), **_trace_fields(r))
+            raise
+
+    def _execute_inner(self, key: tuple, reqs: list[ForecastRequest]) -> None:
         network_name, model_name = key
         net = self._networks[network_name]
+        entry = self.registry.get(model_name)  # ONE snapshot for the whole batch
         mb = self.serve_cfg.max_batch
         qp = np.zeros((mb, net.horizon, net.n_segments), dtype=np.float32)
         for i, r in enumerate(reqs):
             qp[i] = r.payload["q_prime"]
         t0 = time.perf_counter()
-        runoff, device_ms = self._run_batch(net, model_name, qp, n_live=len(reqs))
-        execute_s = time.perf_counter() - t0
+        runoff, device_ms = self._run_batch(net, entry, qp, n_live=len(reqs))
+        exec_s = round(time.perf_counter() - t0, 6)
         now = time.monotonic()
+        engine = self._engine_label(net)
+        # the metrics are written before any future resolves: a client that
+        # scrapes right after its answer finds its own request counted
+        self._emit("serve_batch", network=network_name, model=model_name, engine=engine,
+                   size=len(reqs), occupancy=round(len(reqs) / mb, 4), seconds=exec_s,
+                   version=entry.version, queue_depth=reqs[0].meta.get("queue_depth"))
+        outs = []
         for i, r in enumerate(reqs):
             sel = r.payload["gauges"]
             out = runoff[i] if sel is None else runoff[i][:, sel]
+            outs.append(out)
+            self._emit("serve_request", status="ok", network=network_name, model=model_name,
+                       request_id=r.meta.get("request_id"), latency_s=round(now - r.admitted, 6),
+                       queue_s=self._queue_seconds(r), execute_s=exec_s, version=entry.version,
+                       n_gauges=int(out.shape[1]), **_trace_fields(r))
+        for r, out in zip(reqs, outs):
             if r.future.set_running_or_notify_cancel():
-                r.future.set_result(
-                    {
-                        "runoff": out,
-                        "network": network_name,
-                        "model": model_name,
-                        "request_id": r.payload["request_id"],
-                        "batch_size": len(reqs),
-                        "latency_s": now - r.admitted,
-                        "execute_s": execute_s,
-                        "device_ms": device_ms,
-                    }
-                )
+                r.future.set_result({
+                    "runoff": out,
+                    "network": network_name,
+                    "model": model_name,
+                    "version": entry.version,
+                    "engine": engine,
+                    "request_id": r.meta.get("request_id"),
+                    "queue_s": self._queue_seconds(r),
+                    "execute_s": exec_s,
+                    **_trace_fields(r),
+                    # the port's own: the batch's size and device ms, and the
+                    # request's admission-to-answer seconds
+                    "batch_size": len(reqs),
+                    "device_ms": device_ms,
+                    "latency_s": now - r.admitted,
+                })
+
+    # ---- observability / lifecycle ----
+
+    def _on_shed(self, req: ForecastRequest, reason: str) -> None:
+        self._emit("serve_shed", reason=reason, policy=self.serve_cfg.backpressure,
+                   network=req.meta.get("network"), model=req.meta.get("model"),
+                   request_id=req.meta.get("request_id"), priority=req.priority,
+                   age_s=round(req.age(), 6), **_trace_fields(req))
+        self._emit("serve_request", status=f"shed:{reason}", network=req.meta.get("network"),
+                   model=req.meta.get("model"), request_id=req.meta.get("request_id"),
+                   priority=req.priority, latency_s=round(req.age(), 6),
+                   queue_s=self._queue_seconds(req), **_trace_fields(req))
+
+    def _emit(self, event: str, **payload) -> None:
+        """One decision into the live metrics registry. The run recorder that
+        would also log it waits for ROADMAP A.10."""
+        try:  # a metrics bug must never fail the batch worker's requests
+            event_tee({"event": event, **payload}, self.metrics)
+        except Exception:
+            log.exception("serve metrics tee failed")
+
+    def models_info(self) -> dict:
+        """The ``/v1/models`` payload: version and source of each model.
+        ``programs`` (the JAX service's XLA cost cards) is empty: program
+        cards come with ROADMAP A.10."""
+        return {
+            entry.name: {"version": entry.version, "source": entry.source, "programs": {}}
+            for entry in (self.registry.get(n) for n in self.registry.names())
+        }
+
+    def networks_info(self) -> dict:
+        """The ``/v1/networks`` payload."""
+        return {
+            name: {
+                "n_reaches": net.n_segments,
+                "horizon": net.horizon,
+                "engine": self._engine_label(net),
+                "n_outputs": net.n_outputs,
+            }
+            for name, net in self.networks().items()
+        }
 
     def status(self) -> dict:
         """The health watchdog's rollup: batches observed, violations,
@@ -356,7 +560,33 @@ class ForecastService:
         return self.watchdog.degraded
 
     def stats(self) -> dict:
-        return {"ready": self._ready, "queue": self._batcher.stats(), "health": self.status()}
+        """The ``/v1/stats`` payload, with the JAX service's keys. ``fleet``,
+        ``compiles``, ``sentinel``, ``skill``, ``verification`` and ``slo``
+        are None: their features are not ported yet (ROADMAP A.9, A.10)."""
+        return {
+            "ready": self._ready,
+            "warmup_error": self._warmup_error,
+            "fleet": None,
+            "config": {
+                "max_batch": self.serve_cfg.max_batch,
+                "queue_cap": self.serve_cfg.queue_cap,
+                "batch_wait_s": self.serve_cfg.batch_wait_s,
+                "deadline_s": self.serve_cfg.deadline_s,
+                "backpressure": self.serve_cfg.backpressure,
+            },
+            "queue": self._batcher.stats(),
+            "compiles": None,
+            "health": self.watchdog.status(),
+            "sentinel": None,
+            "skill": None,
+            "verification": None,
+            "slo": None,
+            "models": self.models_info(),
+            "networks": self.networks_info(),
+        }
 
     def close(self, drain: bool = True) -> None:
+        """Stop the checkpoint watchers, then the batcher (``drain=True``
+        serves what is queued first)."""
+        self.registry.close()
         self._batcher.close(drain=drain)

@@ -58,6 +58,7 @@ __all__ = [
     "AsyncCheckpointWriter",
     "async_checkpoint_from_env",
     "checkpoint_candidates",
+    "checkpoint_degraded",
     "clip_by_global_norm",
     "daily_from_hourly",
     "latest_checkpoint",
@@ -509,6 +510,19 @@ def checkpoint_candidates(save_dir: str | Path) -> list[Path]:
     pkls = [p for p in Path(save_dir).glob("_*_epoch_*_mb_*.pkl")
             if not p.name.endswith((".tmp", ".corrupt"))]
     return sorted(pkls, key=_order, reverse=True)
+
+
+def checkpoint_degraded(path: str | Path) -> bool | None:
+    """The watchdog's verdict recorded at save time, read from the manifest
+    without unpickling the blob: True or False, or None when the checkpoint
+    was saved without a watchdog or its manifest is unreadable (callers treat
+    unknown as not degraded)."""
+    try:
+        meta = json.loads(_manifest_path(Path(path)).read_text())
+    except (OSError, json.JSONDecodeError):
+        return None
+    flag = meta.get("degraded")
+    return bool(flag) if flag is not None else None
 
 
 def latest_checkpoint(save_dir: str | Path) -> Path | None:

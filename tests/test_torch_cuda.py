@@ -8,8 +8,9 @@ on both, a network wide enough that a reach's pair moves between threads
 and blocks from wave to wave, a NaN-poisoned inflow, the stacked band router
 on the card (``n_chunks`` launches of each kernel), the unrolled chunked
 router's variant (a band's own ring with external series and unmasked raw
-sums, a band of local depth 0) and its route, and the step engine in
-float64 on the card. The file imports
+sums, a band of local depth 0) and its route, the step engine in
+float64 on the card, and one forecast served over the HTTP front on the
+card. The file imports
 neither ``jax`` nor ``ddr_tpu``, so it runs on a machine that has only the
 port's dependencies:
 
@@ -25,6 +26,8 @@ since a ``powf`` ulp can flip one rounding and the flip carries downstream.
 """
 
 from __future__ import annotations
+
+import urllib.request
 
 import numpy as np
 import pytest
@@ -529,3 +532,49 @@ def test_step_engine_on_the_card_computes_in_the_inputs_dtype(card):
     errors = step_oracle_errors(wave.double().cpu(), runoff[torch.float64].cpu())
     for name, got, jax_own in zip(("rel_max", "1-NSE"), errors, JAX_STEP_ORACLE_ERRORS):
         assert got <= 10 * jax_own, (name, got, jax_own)
+
+
+@pytest.mark.cuda
+def test_served_http_round_trip_on_the_card(card):
+    """One forecast over the port's HTTP front, served on the card: the
+    answer equals the in-process service's bit for bit (the same kernel on the
+    same shapes; JSON carries float32 values exactly), one ``wave_scan``
+    launch carried the batch, and ``/metrics`` counts it."""
+    from ddr_tpu_torch.nn.kan import Kan
+    from ddr_tpu_torch.observability.registry import MetricsRegistry, set_registry
+    from ddr_tpu_torch.serving.client import HttpForecastClient
+    from ddr_tpu_torch.serving.config import ServeConfig
+    from ddr_tpu_torch.serving.http_api import serve_http
+    from ddr_tpu_torch.serving.service import ForecastService
+    from ddr_tpu_torch.validation.configs import Config, KanConfig
+
+    names = [f"a{i}" for i in range(10)]
+    basin = make_basin(n_segments=4096, n_gauges=4, n_days=2, depth=64, seed=1)
+    set_registry(MetricsRegistry(const_labels={"host": 0}))  # this test's counts alone
+    svc = ForecastService(Config(kan=KanConfig(input_var_names=names)),
+                          ServeConfig(max_batch=4, horizon_hours=24, batch_wait_s=0.0), device=card)
+    server = None
+    try:
+        svc.register_network("basin", basin.routing_data, forcing=basin.q_prime)
+        svc.register_model("default", Kan(names, ("n", "q_spatial"), generator=torch.Generator().manual_seed(0)))
+        svc.warmup()
+        server = serve_http(svc, port=0)
+        client = HttpForecastClient(server.url)
+        assert client.ready()
+        before = wave_scan_tm.launches
+        ans = client.forecast("basin", t0=5, gauges=[0, 2], priority="interactive", request_id="card-1")
+        assert wave_scan_tm.launches == before + 1
+        inproc = svc.forecast(network="basin", t0=5, gauges=[0, 2], timeout=120)
+        assert ans["request_id"] == "card-1" and ans["engine"] == "basin:wavefront"
+        assert np.isfinite(ans["runoff"]).all() and ans["runoff"].shape == (24, 2)
+        np.testing.assert_array_equal(ans["runoff"], inproc["runoff"])
+        assert ans["device_ms"] > 0
+        with urllib.request.urlopen(server.url + "/metrics", timeout=30) as resp:
+            text = resp.read().decode()
+        assert 'status="ok"} 2' in text and "ddr_batches_total" in text
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        svc.close()
+        set_registry(None)

@@ -53,7 +53,13 @@ def test_port_imports_no_jax_and_nothing_of_ddr_tpu():
             "ddr_tpu_torch.geodatazoo.loader", "ddr_tpu_torch.io.readers",
             "ddr_tpu_torch.io.zarrlite", "ddr_tpu_torch.scripts.test", "ddr_tpu_torch.scripts.router",
             "ddr_tpu_torch.scripts.train_and_test", "ddr_tpu_torch.benchmarks.irf",
-            "ddr_tpu_torch.benchmarks.configs", "ddr_tpu_torch.benchmarks.benchmark"} <= names
+            "ddr_tpu_torch.benchmarks.configs", "ddr_tpu_torch.benchmarks.benchmark",
+            # the serve path
+            "ddr_tpu_torch.observability.trace", "ddr_tpu_torch.observability.registry",
+            "ddr_tpu_torch.observability.prometheus", "ddr_tpu_torch.serving.config",
+            "ddr_tpu_torch.serving.batcher", "ddr_tpu_torch.serving.registry",
+            "ddr_tpu_torch.serving.service", "ddr_tpu_torch.serving.http_api",
+            "ddr_tpu_torch.serving.client", "ddr_tpu_torch.scripts.serve"} <= names
     assert bad == "[]", f"the port imported {bad}"
 
 
@@ -83,3 +89,16 @@ def test_the_walk_sees_imports_inside_functions(tmp_path):
     probe = tmp_path / "probe.py"
     probe.write_text("def f():\n    import yaml\n    from pandas import DataFrame\n")
     assert [m for _, m in _imported_modules(probe)] == ["yaml", "pandas"]
+
+
+def test_the_serve_path_imports_the_standard_library_and_nothing_else(tmp_path):
+    """The HTTP front and its client stand on ``http.server`` and ``urllib``,
+    which the walk counts as standard library; a web framework or an HTTP
+    client package would be refused."""
+    serving = sorted((ROOT / "ddr_tpu_torch" / "serving").glob("*.py"))
+    mods = {m for path in serving for _, m in _imported_modules(path)}
+    assert {"http", "urllib", "json", "threading"} <= mods <= ALLOWED
+    probe = tmp_path / "probe.py"
+    probe.write_text("import http.server\nfrom urllib.parse import urlsplit\nimport requests\n"
+                     "from flask import Flask\n")
+    assert [m for _, m in _imported_modules(probe) if m not in ALLOWED] == ["requests", "flask"]

@@ -208,7 +208,7 @@ def test_watchdog_sees_every_served_batch_with_pad_rows_masked(tmp_path, monkeyp
         for i, t0 in enumerate((0, 5, 30)):
             qp[i] = ours.q_prime[t0 : t0 + HORIZON]
         qp[3] = 1e4  # a pad row: if it leaked in, q_max and the residual would show it
-        svc._run_batch(svc._networks["basin"], "default", qp, n_live=3)
+        svc._run_batch(svc._networks["basin"], svc.registry.get("default"), qp, n_live=3)
         stats, ctx = seen[-1]
         assert ctx == {"network": "basin", "model": "default", "batch_size": 3}
     finally:

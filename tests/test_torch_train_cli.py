@@ -397,11 +397,28 @@ def test_cli_defaults_to_the_card(tmp_path, monkeypatch):
         cli.main(["train", CONFIG, "device=tpu", f"params.save_path={tmp_path}"])
 
 
-@pytest.mark.parametrize("command,item", [("summed-q-prime", "A.8"), ("serve", "A.9"), ("tune", "A.13")])
+@pytest.mark.parametrize("command,item", [("summed-q-prime", "A.8"), ("loadtest", "A.9"), ("tune", "A.13")])
 def test_cli_names_the_item_of_an_unported_command(capsys, command, item):
     assert cli.main([command, CONFIG]) == 2
     assert item in capsys.readouterr().err
     assert cli.main(["--help"]) == 0
+
+
+def test_cli_dispatches_serve(tmp_path, monkeypatch):
+    """``serve`` reaches ``scripts/serve.py`` with the config in testing mode
+    and the ``DDR_SERVE_*`` knobs (the server itself runs in
+    ``tests/test_torch_serve_cli.py``)."""
+    from ddr_tpu_torch.scripts import serve as serve_script
+
+    seen = []
+    monkeypatch.setattr(serve_script, "serve", lambda cfg, serve_cfg: seen.append((cfg, serve_cfg)) or 0)
+    monkeypatch.setenv("DDR_SERVE_PORT", "0")
+    monkeypatch.setenv("DDR_SERVE_MAX_BATCH", "3")
+    assert cli.main(["serve", CONFIG, "device=cpu", f"params.save_path={tmp_path}"]) == 0
+    (cfg, serve_cfg), = seen
+    assert cfg.mode.value == "testing" and cfg.device == "cpu"
+    assert (serve_cfg.port, serve_cfg.max_batch) == (0, 3)
+    assert "serve" in cli._COMMANDS and "serve" not in cli._NOT_PORTED
 
 
 #: Each ported evaluation command, the store it writes and that store's arrays.

@@ -7,6 +7,7 @@
     python3 chip_smoke.py --ddr-train   # only the build and phase 18 (ddr train)
     python3 chip_smoke.py --ddr-cli     # only the build and phases 18-19 (every ported command)
     python3 chip_smoke.py --ddr-serve   # only the build and phases 18 and 20 (ddr serve)
+    python3 chip_smoke.py --ddr-loadtest  # only the build and phases 18 and 21 (loadtest, verify)
 
 From the root of a checkout, with one CUDA card visible. Phases, each fatal
 on failure (non-zero exit, no result line):
@@ -146,6 +147,23 @@ on failure (non-zero exit, no result line):
            HTTP with ``queue_s`` and ``execute_s``, the in-process batch,
            occupancy, the ``q_prime`` request's encode, parse and total
            time, the hot-reload time.
+21. ddr loadtest, ddr verify  at the same width from phase 18's newest
+           checkpoint: ``ddr loadtest`` in-process on the run config (an
+           open loop of ``t0`` requests at 80/s for 10 s), then over HTTP
+           against ``serve_http`` (20/s and 80/s for 10 s each, and 80/s for
+           5 s under a priority mix), each with its p50/p95/p99, ``execute_s``
+           apart from the wall, achieved rate, sheds by reason, occupancy and
+           SLO slice, and ``/metrics`` read against the reports and the
+           launches (launch counts zeroed just before each service is built,
+           read just after the scrape); ensembles of E = 8 and 32 members
+           (one ``wave_scan`` launch each, B = E): the launch equal to the
+           plain scan on the same members and to each member's window served
+           alone through ``forecast(q_prime=...)``, bit for bit, the time of
+           one E-member launch beside E single launches (the route and the
+           kernel alone), an E = 64 ensemble for the peak device memory, and
+           the streaming CRPS of an ensemble against the offline reference
+           (1e-9); then ``ddr verify --synthetic`` on the card (65,536
+           reaches, 72 h), whose sharp arm must beat the degraded arm.
 The service of phases 3 and 7 runs with its health watchdog on, which must
 have seen every served batch and not be degraded; phase 8's gradient check
 also holds the bf16 kernels against the bf16 plain scans. Every kernel's
@@ -221,6 +239,14 @@ DDR_TEST_PARITY_WINDOW = ("experiment.end_time=1981/11/10",)
 # parity width within rtol 1e-6 (the evaluation parity measured 2.8e-7).
 DDR_SERVE_THREADS, DDR_SERVE_REQUESTS, DDR_SERVE_PLAIN_WINDOWS = 8, 32, 2
 DDR_SERVE_POLL_MS, DDR_SERVE_PARITY_RTOL = "500", 1e-6
+# `ddr loadtest` and `ddr verify` (phase 21): open loops of t0 requests (a
+# full-width q_prime body measures the JSON parser, phase 20), 10 s at each
+# rate and 5 s under the priority mix; ensembles of 8 and 32 members held bit
+# for bit, one of 64 (the members' cap) for the peak memory; the streaming
+# CRPS against the offline reference within 1e-9, as the JAX package requires
+DDR_LOADTEST_SECONDS, DDR_LOADTEST_RATES, DDR_LOADTEST_INPROCESS_RATE = 10.0, (20.0, 80.0), 80.0
+DDR_LOADTEST_MIX, DDR_LOADTEST_MIX_RATE, DDR_LOADTEST_MIX_SECONDS = "interactive=0.2,batch=0.5,bulk=0.3", 80.0, 5.0
+DDR_ENSEMBLE_MEMBERS, DDR_ENSEMBLE_PEAK_MEMBERS, DDR_VERIFY_CRPS_TOL = (8, 32), 64, 1e-9
 
 
 def fail(msg: str) -> None:
@@ -2404,6 +2430,239 @@ def ddr_serve(smi, dev) -> int:
     return launches
 
 
+def run_command(main, argv, label) -> dict:
+    """A command's ``main(argv)`` in-process with its standard output kept
+    apart; fails unless it exits 0. Returns the JSON record it prints last."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = main(argv)
+    lines = out.getvalue().strip().splitlines()
+    if code != 0 or not lines:
+        fail(f"{label}: exit {code}, output {lines[-3:]}")
+    return json.loads(lines[-1])
+
+
+def loadtest_line(label, report, launches, smi) -> str:
+    """One line of a load-test report: latency, execute_s apart from it,
+    rates, drops, occupancy and the SLO slice."""
+    return (f"ddr loadtest {label}: {report['requests']} requests in {report['wall_s']} s, offered "
+            f"{report['offered_rps']}/s, served {report['throughput_rps']}/s; latency p50/p95/p99 "
+            f"{report['p50_ms']}/{report['p95_ms']}/{report['p99_ms']} ms, queue_s "
+            f"{report['queue_p50_ms']}/{report['queue_p95_ms']}/{report['queue_p99_ms']} ms, execute_s "
+            f"{report['execute_p50_ms']}/{report['execute_p95_ms']}/{report['execute_p99_ms']} ms; ok "
+            f"{report['ok']}, rejected {report['rejected']}, sheds {report['sheds_by_reason']}, errors "
+            f"{report['errors']}; mean batch {report['mean_batch_size']} (occupancy "
+            f"{report['mean_batch_occupancy']}); SLO attainment {report['slo_attainment']} (target "
+            f"{report['slo_target']}), burn {report['slo_burn_rates']}"
+            + (f"; by class {report['by_priority']}" if "by_priority" in report else "")
+            + f"; wave_scan launches {launches}, on {smi}")
+
+
+def ddr_loadtest(smi, dev) -> int:
+    """Phase 21: ``ddr loadtest`` and ``ddr verify`` at the regional width
+    (see the module docstring), from phase 18's newest checkpoint. Returns
+    the phase's main-path ``wave_scan`` launches (the load tests, the
+    ensembles and ``ddr verify``; not those made to compare or time)."""
+    import numpy as np
+    import torch
+
+    from ddr_tpu_torch.fleet.config import FleetConfig
+    from ddr_tpu_torch.fleet.ensemble import member_windows, perturbation_seed
+    from ddr_tpu_torch.observability.registry import MetricsRegistry, set_registry
+    from ddr_tpu_torch.observability.verification import ForecastLedger, VerifyConfig, crps_ensemble
+    from ddr_tpu_torch.routing.mc import reach_physics, route
+    from ddr_tpu_torch.routing.model import denormalize_spatial_parameters
+    from ddr_tpu_torch.routing.wave_kernel import wave_scan_tm
+    from ddr_tpu_torch.scripts import loadtest, verify
+    from ddr_tpu_torch.scripts.common import parse_cli
+    from ddr_tpu_torch.scripts.serve import build_service
+    from ddr_tpu_torch.serving.config import ServeConfig
+    from ddr_tpu_torch.serving.http_api import serve_http
+    from ddr_tpu_torch.training import latest_checkpoint
+
+    here = Path(__file__).resolve().parent / "build"
+    root = here / "ddr_loadtest"
+    shutil.rmtree(root, ignore_errors=True)
+    regional = latest_checkpoint(here / "ddr_train" / "regional" / "saved_models")
+    if regional is None:
+        fail("ddr loadtest: phase 18 left no checkpoint")
+    config_argv = [DDR_TRAIN_CONFIG, f"synthetic_segments={N_SEGMENTS}", f"synthetic_depth={DEPTH}",
+                   f"params.save_path={root / 'regional'}", f"experiment.checkpoint={regional}"]
+    torch.cuda.reset_peak_memory_stats()
+    main_launches = 0
+
+    # ---- 1. ddr loadtest in-process, on the run config ----
+    set_registry(MetricsRegistry(const_labels={"host": 0}))
+    wave_scan_tm.launches = 0
+    report = run_command(loadtest.main, [
+        *config_argv, "--rps", str(DDR_LOADTEST_INPROCESS_RATE), "--duration", str(DDR_LOADTEST_SECONDS),
+        "--out", str(root), "--label", "inprocess"], "ddr loadtest in-process")
+    launches = wave_scan_tm.launches
+    main_launches += launches
+    print(loadtest_line(f"in-process {DDR_LOADTEST_INPROCESS_RATE:g}/s", report, launches, smi))
+    # the observation route, the warmup, the priming request's batch and the run's batches
+    batches = report["ok"] / report["mean_batch_size"]
+    if (report["errors"] or report["ok"] < 1 or report["device"] != torch.cuda.get_device_name(dev)
+            or abs(launches - 3 - batches) > 0.5):
+        fail(f"ddr loadtest in-process: {report['errors']} errors, {report['ok']} ok on {report['device']}, "
+             f"{launches} launches for ~{batches:.2f} batches")
+
+    # ---- 2. ddr loadtest over HTTP, then /metrics against the reports ----
+    set_registry(MetricsRegistry(const_labels={"host": 0}))
+    wave_scan_tm.launches = 0
+    cfg = parse_cli(config_argv, mode="testing")
+    svc = build_service(cfg, ServeConfig.from_env(max_batch=MAX_BATCH, horizon_hours=HORIZON), watch=False)
+    base = wave_scan_tm.launches  # the observation route and the warmup
+    server = serve_http(svc, port=0)
+    try:
+        entry = svc.networks()["default"]
+        span = len(entry.forcing) - HORIZON + 1
+        runs = [(f"HTTP {rate:g}/s", ["--rps", str(rate), "--duration", str(DDR_LOADTEST_SECONDS)])
+                for rate in DDR_LOADTEST_RATES]
+        runs.append((f"HTTP {DDR_LOADTEST_MIX_RATE:g}/s {DDR_LOADTEST_MIX}",
+                     ["--rps", str(DDR_LOADTEST_MIX_RATE), "--duration", str(DDR_LOADTEST_MIX_SECONDS),
+                      "--priority-mix", DDR_LOADTEST_MIX]))
+        reports = []
+        for i, (label, extra) in enumerate(runs):
+            before = wave_scan_tm.launches
+            report = run_command(loadtest.main, ["--url", server.url, "--t0-span", str(span), *extra,
+                                                 "--out", str(root), "--label", f"http-{i}"],
+                                 f"ddr loadtest {label}")
+            print(loadtest_line(label, report, wave_scan_tm.launches - before, smi))
+            if report["errors"] or report["ok"] < 1:
+                fail(f"ddr loadtest {label}: {report['errors']} errors, {report['ok']} ok")
+            reports.append(report)
+        metrics = scrape(server.url)
+        launches = wave_scan_tm.launches
+        main_launches += launches
+        stats = svc.stats()
+        ok = metric_sum(metrics, "ddr_requests_total", 'status="ok"')
+        batches_total = metric_sum(metrics, "ddr_batches_total")
+        sheds = metric_sum(metrics, "ddr_sheds_total")
+        # each run's unmeasured priming request is served too
+        want_ok = sum(r["ok"] for r in reports) + len(reports)
+        want_sheds = sum(r["shed"] + r["rejected"] for r in reports)
+        print(f"ddr loadtest /metrics: requests ok {ok} (reports {want_ok}), batches {batches_total} "
+              f"(launches {launches} less {base} for the observation route and warmup; /v1/stats "
+              f"{stats['queue']['batches']}), sheds {sheds} (reports {want_sheds}); SLO "
+              f"{json.dumps(stats['slo'])}")
+        if (ok != want_ok or sheds != want_sheds or batches_total != launches - base
+                or stats["queue"]["batches"] != batches_total or base != 2):
+            fail(f"ddr loadtest: /metrics ok {ok} sheds {sheds} batches {batches_total} against reports "
+                 f"{want_ok}, {want_sheds} and {launches} - {base} launches")
+        check_watchdog(svc, int(batches_total), "ddr loadtest")
+
+        # ---- 3. ensembles: one launch of E members ----
+        p = cfg.params
+        sigma = FleetConfig.from_env().ensemble_sigma
+        kan = svc.registry.get("default").kan
+        with torch.no_grad():
+            phys_params = denormalize_spatial_parameters(kan(entry.attrs), p.parameter_ranges,
+                                                         p.log_space_parameters, p.defaults, entry.n_segments)
+        phys = reach_physics(entry.network, entry.channels, phys_params, svc.bounds)
+        for E in (*DDR_ENSEMBLE_MEMBERS, DDR_ENSEMBLE_PEAK_MEMBERS):
+            t0w, rid = (E * 37) % span, f"p21-ens-{E}"
+            torch.cuda.reset_peak_memory_stats()
+            before = wave_scan_tm.launches
+            t_host = time.perf_counter()
+            ans = svc.ensemble_forecast(network="default", t0=t0w, members=E, request_id=rid,
+                                        return_members=E != DDR_ENSEMBLE_PEAK_MEMBERS)
+            host_s = time.perf_counter() - t_host
+            n_launch = wave_scan_tm.launches - before
+            main_launches += n_launch
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            if (n_launch != 1 or not np.isfinite(ans["runoff"]).all() or ans["ensemble_nonfinite_members"]
+                    or ans["runoff"].shape != (3, HORIZON, entry.n_outputs)):
+                fail(f"ddr ensemble E={E}: {n_launch} launches, bands {ans['runoff'].shape}, "
+                     f"{ans['ensemble_nonfinite_members']} non-finite members")
+            print(f"ddr ensemble E={E}: one wave_scan launch, forecast {host_s * 1e3:.3f} ms host (execute_s "
+                  f"{ans['execute_s']}), worst gauges {ans['worst']['gauges']}, peak device memory "
+                  f"{peak:.3f} GB, on {smi}")
+            if E == DDR_ENSEMBLE_PEAK_MEMBERS:
+                continue
+            with torch.no_grad():
+                windows = member_windows(torch.as_tensor(entry.forcing[t0w : t0w + HORIZON], device=dev),
+                                         perturbation_seed(rid, 0), E, sigma)
+                qe = windows * entry.flow_scale if entry.flow_scale is not None else windows
+                kw = dict(gauges=entry.gauge_index, bounds=svc.bounds, device=dev)
+                launch = route(entry.network, entry.channels, phys_params, qe, **kw).runoff
+                plain = route(entry.network, entry.channels, phys_params, qe, kernel="reference", **kw).runoff
+            if not np.array_equal(ans["member_runoff"], launch.cpu().numpy()):
+                fail(f"ddr ensemble E={E}: the service's members differ from the same launch")
+            if not torch.equal(launch, plain):
+                compare(plain.cpu(), launch.cpu(), f"ddr ensemble E={E} against the plain scan")
+                fail(f"ddr ensemble E={E}: the launch is not the plain scan bit for bit")
+            worst = 0.0
+            for m in range(E):
+                alone = svc.forecast(network="default", q_prime=windows[m].cpu().numpy(), timeout=900)["runoff"]
+                worst = max(worst, float(np.abs(alone.astype(np.float64) - ans["member_runoff"][m]).max()))
+            if worst:
+                fail(f"ddr ensemble E={E}: a member served alone differs by {worst!r}")
+            # time: one E-member route against E routes of one member, and the kernel alone
+            with torch.no_grad():
+                singles = [qe[m : m + 1].contiguous() for m in range(E)]
+                route_ms = cuda_ms(lambda: route(entry.network, entry.channels, phys_params, qe, **kw), 5)
+                single_ms = cuda_ms(lambda: [route(entry.network, entry.channels, phys_params, s, **kw)
+                                             for s in singles], 3)
+                qk, _ = scan_case(entry.network, phys, E, HORIZON, 21, False, dev)
+                qk1 = [qk[m : m + 1].contiguous() for m in range(E)]
+                kernel_ms = cuda_ms(lambda: wave_scan_tm(qk, entry.network, phys, None), 10)
+                kernel1_ms = cuda_ms(lambda: [wave_scan_tm(x, entry.network, phys, None) for x in qk1], 3)
+            print(f"ddr ensemble E={E}: equal bit for bit to the plain scan and to each member served alone "
+                  f"(a batch of {MAX_BATCH} rows, 7 of them pad); one E-member route {route_ms:.3f} ms against {E} one-member routes "
+                  f"{single_ms:.3f} ms; the kernel alone: one launch at B {E} {kernel_ms:.3f} ms against {E} "
+                  f"launches at B 1 {kernel1_ms:.3f} ms, on {smi}")
+            if E == DDR_ENSEMBLE_MEMBERS[0]:
+                # the streaming CRPS of this ensemble against the offline reference
+                truth = svc.forecast(network="default", t0=t0w, timeout=900)["runoff"]
+                ledger = ForecastLedger(VerifyConfig(), registry=MetricsRegistry())
+                gids = [str(g) for g in range(truth.shape[1])]
+                ledger.record_forecast("default", "default", rid, t0w, ans["valid_times"] if "valid_times" in ans
+                                       else [t0w + 1 + i for i in range(HORIZON)], gids, ans["member_runoff"])
+                join = ledger.observe("default", {g: [(t0w + 1 + i, float(truth[i, int(g)])) for i in range(HORIZON)]
+                                                  for g in gids})
+                sums = ledger.scorer._bin_sums.sum(axis=0)
+                ref = float(np.mean(crps_ensemble(ans["member_runoff"].reshape(E, -1).astype(np.float64),
+                                                  truth.reshape(-1).astype(np.float64))))
+                diff = abs(sums[1] / sums[0] - ref)
+                print(f"ddr verify streaming CRPS {float(sums[1] / sums[0])!r} against the offline reference {ref!r}: "
+                      f"|difference| {diff:.3e} over {join['matched']} samples (limit {DDR_VERIFY_CRPS_TOL:g})")
+                if join["matched"] != HORIZON * truth.shape[1] or diff > DDR_VERIFY_CRPS_TOL:
+                    fail(f"ddr verify: streaming CRPS off the offline reference by {diff}")
+        del qe, windows, launch, plain, qk
+    finally:
+        server.shutdown()
+        server.server_close()
+        svc.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 4. ddr verify --synthetic on the card ----
+    set_registry(MetricsRegistry(const_labels={"host": 0}))
+    wave_scan_tm.launches = 0
+    t0 = time.perf_counter()
+    report = run_command(verify.main, ["--synthetic", "--n", str(N_SEGMENTS), "--horizon", str(HORIZON),
+                                       "--members", "8", "--requests", "6", "--out", str(root), "--label", "p21"],
+                         "ddr verify --synthetic")
+    launches = wave_scan_tm.launches
+    main_launches += launches
+    print(f"ddr verify --synthetic ({N_SEGMENTS} reaches, {HORIZON} h, 6 ensembles of 8): CRPS sharp "
+          f"{report['crps']} against degraded {report['crps_degraded']}, {report['matched_samples']} samples, "
+          f"Brier {report['brier']}, spread-skill {report['spread_skill']}, launches during the join "
+          f"{report['kernel_launches_during_join']}, wave_scan launches {launches}, {time.perf_counter() - t0:.2f} s, "
+          f"on {smi}")
+    if (not report["ordering_ok"] or report["device"] != torch.cuda.get_device_name(dev)
+            or launches != 1 + 6 + 6):  # warmup, 6 truths and 6 ensembles (t0 windows 0..5)
+        fail(f"ddr verify: ordering {report['ordering_ok']} on {report['device']}, {launches} launches")
+    set_registry(None)
+    print(f"ddr loadtest phase: peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB since the last "
+          f"reset (the E = {DDR_ENSEMBLE_PEAK_MEMBERS} ensemble above has its own)")
+    return main_launches
+
+
 def nvidia_smi() -> str:
     """The card's name and power limit, as ``nvidia-smi`` reports them."""
     return subprocess.run(
@@ -2427,11 +2686,12 @@ def main() -> int:
     only_ddr_train = sys.argv[1:] == ["--ddr-train"]
     only_ddr_cli = sys.argv[1:] == ["--ddr-cli"]
     only_ddr_serve = sys.argv[1:] == ["--ddr-serve"]
+    only_ddr_loadtest = sys.argv[1:] == ["--ddr-loadtest"]
     old_log = None
     if len(sys.argv) == 3 and sys.argv[1] == "--old-kernels":
         old_log = sys.argv[2]
-    elif sys.argv[1:] and not (only_ddr_train or only_ddr_cli or only_ddr_serve):
-        print("usage: chip_smoke.py [--time-fp32 | --ddr-train | --ddr-cli | --ddr-serve | "
+    elif sys.argv[1:] and not (only_ddr_train or only_ddr_cli or only_ddr_serve or only_ddr_loadtest):
+        print("usage: chip_smoke.py [--time-fp32 | --ddr-train | --ddr-cli | --ddr-serve | --ddr-loadtest | "
               "--old-kernels LOG]", file=sys.stderr)
         return 2
     import numpy as np
@@ -2459,7 +2719,7 @@ def main() -> int:
     seconds = _build.build(_build.KERNELS, verbose=True)
     print(f"build: {json.dumps({k: round(v, 2) for k, v in seconds.items()})} "
           f"({time.perf_counter() - t0:.2f}s wall) into {_build.build_dir()}")
-    if only_ddr_train or only_ddr_cli or only_ddr_serve:
+    if only_ddr_train or only_ddr_cli or only_ddr_serve or only_ddr_loadtest:
         t0 = time.perf_counter()
         ddr_train(smi, dev)
         print(f"ddr train phase: {time.perf_counter() - t0:.1f}s")
@@ -2471,6 +2731,10 @@ def main() -> int:
             t0 = time.perf_counter()
             ddr_serve(smi, dev)
             print(f"ddr serve phase: {time.perf_counter() - t0:.1f}s")
+        if only_ddr_loadtest:
+            t0 = time.perf_counter()
+            ddr_loadtest(smi, dev)
+            print(f"ddr loadtest and verify phase: {time.perf_counter() - t0:.1f}s")
         print(smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
@@ -2806,6 +3070,11 @@ def main() -> int:
     ddr_serve_launches = ddr_serve(smi, dev)
     print(f"ddr serve phase: {time.perf_counter() - t0:.1f}s")
 
+    # ---- 21. ddr loadtest and ddr verify: SLOs, the client, ensembles, the ledger ----
+    t0 = time.perf_counter()
+    ddr_loadtest_launches = ddr_loadtest(smi, dev)
+    print(f"ddr loadtest and verify phase: {time.perf_counter() - t0:.1f}s")
+
     def band_entry(name, source, replaces, launches, err, t):
         bytes_ms, flops_ms = t["bound"]
         return {
@@ -2823,10 +3092,11 @@ def main() -> int:
         "source": "ddr_tpu_torch/csrc/wave_scan.cu",
         "replaces": "ddr_tpu/routing/pallas_kernel.py:193",
         "launches": (launches + train_launches["wave_scan"] + ddr_train_launches["wave_scan"]
-                     + ddr_eval_launches["wave_scan"] + ddr_serve_launches),
+                     + ddr_eval_launches["wave_scan"] + ddr_serve_launches + ddr_loadtest_launches),
         "ddr_train_launches": ddr_train_launches["wave_scan"],
         "ddr_eval_launches": ddr_eval_launches["wave_scan"],
         "ddr_serve_launches": ddr_serve_launches,
+        "ddr_loadtest_launches": ddr_loadtest_launches,
         "ddr_eval_q_init_launches": ddr_eval_launches["q_init"],
         "max_abs_err": max_abs,
         "ms": kernel_ms,

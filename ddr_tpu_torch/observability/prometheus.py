@@ -8,12 +8,13 @@ The port's copy of the serving half of ``ddr_tpu/observability/prometheus.py``:
   byte for byte the JAX package's text for the same registry operations;
 - :func:`declare_serve_metrics` — the service's and the watchdog's instrument
   set, declared up front so ``GET /metrics`` shows every name from the first
-  scrape. It declares the instruments the port feeds, JAX's set less the SLO
-  (``ddr_slo_*``) and compile (``ddr_compiles_total``) instruments, which
-  come with SLO tracking (ROADMAP A.9) and the observability plane (A.10);
+  scrape. It declares the instruments the port feeds, JAX's set less the
+  compile counter (``ddr_compiles_total``), which comes with the
+  observability plane (ROADMAP A.10). The service sets the SLO gauges
+  (``ddr_slo_attainment``, ``ddr_slo_burn_rate{window}``) from its tracker;
 - :func:`event_tee` — one decision record (``{"event": ..., **payload}``) ->
   instrument updates, for the events the port emits: ``serve_request``,
-  ``serve_batch``, ``serve_shed`` and ``health``.
+  ``serve_batch``, ``serve_shed``, ``slo`` and ``health``.
 
 The standalone exporter (``DDR_PROM_PORT``), the run recorder that tees
 every event, and the training events' cases wait for ROADMAP A.10; ``ddr
@@ -109,6 +110,13 @@ def declare_serve_metrics(registry: MetricsRegistry | None = None) -> MetricsReg
                 "Device execution time attributed to each served request (its "
                 "micro-batch's execute wall time)",
                 labels=("network", "model"))
+    r.gauge("ddr_slo_attainment",
+            "Sliding-window SLO attainment over the longest configured window")
+    r.gauge("ddr_slo_burn_rate",
+            "SLO error-budget burn rate per sliding window (1.0 = spending "
+            "exactly the budget)", labels=("window",))
+    r.counter("ddr_slo_alerts_total",
+              "SLO fast-burn alert transitions", labels=("state",))
     r.counter("ddr_batches_total", "Executed micro-batches",
               labels=("network", "model"))
     r.histogram("ddr_batch_occupancy",
@@ -151,7 +159,7 @@ def event_tee(record: dict, registry: MetricsRegistry | None = None) -> None:
     r = registry or get_registry()
     event = str(record.get("event", "?"))
     r.counter("ddr_events_total", "Telemetry events by type", labels=("event",)).inc(event=event)
-    if event in ("serve_request", "serve_batch", "serve_shed", "health") and (
+    if event in ("serve_request", "serve_batch", "serve_shed", "health", "slo") and (
         r.get("ddr_requests_total") is None  # declare once, not per event
     ):
         declare_serve_metrics(r)
@@ -171,6 +179,8 @@ def event_tee(record: dict, registry: MetricsRegistry | None = None) -> None:
         if record.get("execute_s") is not None:
             r.get("ddr_serve_execute_seconds").observe(
                 _get(record, "execute_s"), network=network, model=model)
+    elif event == "slo":
+        r.get("ddr_slo_alerts_total").inc(state=str(record.get("state", "?")))
     elif event == "serve_batch":
         network = str(record.get("network", "?"))
         model = str(record.get("model", "?"))

@@ -2,13 +2,13 @@
 
 The port's copy of ``ddr_tpu/serving/client.py``'s HTTP half:
 :class:`HttpForecastClient` talks to a running ``serve`` command over
-``urllib`` (standard library and numpy only) and sends each forecast once;
-it writes a ``q_prime`` payload in 9 significant digits a value
-(:func:`q_prime_json`), which carries every float32 exactly in half the bytes
-of JAX's client. JAX's in-process ``ForecastClient``, its retry loop
-(``retries``, ``Retry-After``) and ensemble forecasts come with their
-callers, ``ddr loadtest`` and ensembles (ROADMAP A.9); ensemble forecasts
-raise here.
+``urllib`` (standard library and numpy only), sends each forecast once, and
+asks for ensembles with an ``ensemble`` body; it writes a ``q_prime`` payload
+in 9 significant digits a value (:func:`q_prime_json`), which carries every
+float32 exactly in half the bytes of JAX's client. JAX's in-process
+``ForecastClient`` and its retry loop (``retries``, ``Retry-After``) come
+with a caller that uses them: the fleet router (ROADMAP A.9) or the metrics
+CLI (A.10).
 """
 
 from __future__ import annotations
@@ -21,8 +21,6 @@ from typing import Any
 import numpy as np
 
 __all__ = ["HttpForecastClient", "q_prime_json"]
-
-_ENSEMBLE_NOT_PORTED = "ensemble forecasts are not ported yet (ROADMAP A.9)"
 
 
 def q_prime_json(q_prime: Any) -> str:
@@ -93,9 +91,10 @@ class HttpForecastClient:
         ensemble: dict | None = None,
     ) -> tuple[int, dict]:
         """POST /v1/forecast; returns ``(status, body)`` without raising on an
-        HTTP error (a 429 or 503 is a data point for a load generator)."""
-        if ensemble is not None:
-            raise NotImplementedError(_ENSEMBLE_NOT_PORTED)
+        HTTP error (a 429 or 503 is a data point for a load generator).
+        ``ensemble`` (e.g. ``{"members": 16, "percentiles": [10, 50, 90],
+        "seed": 0}``) asks for an E-member ensemble, whose ``runoff`` is
+        ``(P, T, G)``."""
         body: dict[str, Any] = {"network": network, "model": model}
         if t0 is not None:
             body["t0"] = int(t0)
@@ -105,6 +104,8 @@ class HttpForecastClient:
             body["deadline_ms"] = float(deadline_ms)
         if priority is not None:
             body["priority"] = str(priority)
+        if ensemble is not None:
+            body["ensemble"] = dict(ensemble)
         headers = {"Content-Type": "application/json"}
         if request_id is not None:
             headers["X-DDR-Request-Id"] = str(request_id)
@@ -135,7 +136,8 @@ class HttpForecastClient:
         ensemble: dict | None = None,
     ) -> dict:
         """POST /v1/forecast; raises RuntimeError with the server's error on
-        any non-200. ``runoff`` comes back as a float32 ``(T, G)`` array."""
+        any non-200. ``runoff`` comes back as a float32 array: ``(T, G)``, or
+        the ``(P, T, G)`` bands of an ensemble, whose ``mean`` is one too."""
         code, out = self.forecast_response(
             network, model=model, q_prime=q_prime, t0=t0, gauges=gauges, deadline_ms=deadline_ms,
             request_id=request_id, priority=priority, ensemble=ensemble,
@@ -143,7 +145,6 @@ class HttpForecastClient:
         if code != 200:
             raise RuntimeError(f"forecast failed ({code}): {out.get('error', out)}")
         out["runoff"] = np.asarray(out["runoff"], dtype=np.float32)
+        if "mean" in out:
+            out["mean"] = np.asarray(out["mean"], dtype=np.float32)
         return out
-
-    def ensemble_forecast(self, **kwargs) -> dict:
-        raise NotImplementedError(_ENSEMBLE_NOT_PORTED)

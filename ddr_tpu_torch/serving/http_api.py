@@ -19,15 +19,22 @@ JAX package's:
   minted), and every answer on this path, errors included, echoes it in the
   header and the body; ``X-DDR-Trace-Id`` rides the same way unless
   ``DDR_TRACE=0``. Shed and reject bodies carry a machine-readable
-  ``reason`` (``queue-full``, ``deadline``, ``timeout``, ...);
-- ``POST /v1/observe`` — 404: no verification ledger is attached, as on a
-  JAX server without one.
+  ``reason`` (``queue-full``, ``deadline``, ``timeout``, ...). A body with
+  ``"ensemble": {"members"?: int, "percentiles"?: [num], "seed"?: int}``
+  asks for an E-member ensemble, answered on the connection's thread (it
+  does not ride the micro-batcher) with the ``(P, T, G)`` bands as
+  ``runoff``, ``mean`` and ``worst``;
+- ``POST /v1/observe`` — body ``{"network": str, "observations": [{"gauge":
+  str|int, "times": [int hours], "values": [num]}, ...]}``: joins gauge
+  observations to the forecasts the attached verification ledger holds and
+  answers the join's counts (``matched``, ``unmatched``, ``duplicates``);
+  404 when no ledger is attached (``ForecastService.attach_verifier``).
 
 Error mapping: validation -> 400, unknown name -> 404, queue-full rejection ->
 429 (with ``Retry-After``), shed or deadline -> 503, not warm -> 503.
 
-Refused by name (501) until their pieces are ported: ensemble bodies and
-``GET /metrics?federated=1`` (the fleet tier, ROADMAP A.9), and ``POST
+Refused by name (501) until their pieces are ported: ``GET
+/metrics?federated=1`` (the fleet tier, ROADMAP A.9) and ``POST
 /v1/profile`` (the profiler, A.10).
 """
 
@@ -58,7 +65,6 @@ MAX_BODY_BYTES = 64 * 1024 * 1024
 
 #: What each refused request needs, by ROADMAP item.
 NOT_PORTED = {
-    "ensemble": "ensemble forecasts are not ported yet (ROADMAP A.9)",
     "federated": "federated /metrics is not ported yet (ROADMAP A.9)",
     "profile": "POST /v1/profile is not ported yet (ROADMAP A.10: torch.profiler capture)",
 }
@@ -147,8 +153,7 @@ class _Handler(BaseHTTPRequestHandler):
             self._send(501, {"error": NOT_PORTED["profile"]})
             return
         if path == "/v1/observe":
-            # no verification ledger in the port yet: JAX's answer without one
-            self._send(404, {"error": "no verification ledger attached (service.attach_verifier)"})
+            self._post_observe()
             return
         if path != "/v1/forecast":
             self._send(404, {"error": f"no route for {self.path}"})
@@ -176,7 +181,7 @@ class _Handler(BaseHTTPRequestHandler):
             send(400, {"error": 'body must be an object with "network"'})
             return
         if body.get("ensemble") is not None:
-            send(501, {"error": NOT_PORTED["ensemble"]})
+            self._post_ensemble(svc, body, body["ensemble"], rid, tid, send)
             return
         deadline_ms = body.get("deadline_ms")
         try:
@@ -221,6 +226,69 @@ class _Handler(BaseHTTPRequestHandler):
         result = dict(result)
         result["runoff"] = np.asarray(result["runoff"]).tolist()
         send(200, result)
+
+    @staticmethod
+    def _post_ensemble(svc: ForecastService, body: dict, ensemble: Any, rid: str,
+                       tid: str | None, send: Any) -> None:
+        """The ``"ensemble"`` branch of POST /v1/forecast, with the scalar
+        path's error mapping. It routes on this connection's thread."""
+        if not isinstance(ensemble, dict):
+            send(400, {"error": '"ensemble" must be an object'})
+            return
+        try:
+            result = svc.ensemble_forecast(
+                network=str(body["network"]),
+                model=str(body.get("model", "default")),
+                q_prime=body.get("q_prime"),
+                t0=body.get("t0"),
+                gauges=body.get("gauges"),
+                members=int(ensemble.get("members", 8)),
+                percentiles=ensemble.get("percentiles"),
+                seed=int(ensemble.get("seed", 0)),
+                request_id=rid,
+                trace_id=tid,
+            )
+        except KeyError as e:
+            send(404, {"error": f"unknown model {e}"})
+            return
+        except ValueError as e:
+            send(404 if "unknown network" in str(e) else 400, {"error": str(e)})
+            return
+        except TypeError as e:
+            send(400, {"error": f"malformed request value: {e}"})
+            return
+        except Exception as e:
+            send(500, {"error": f"{type(e).__name__}: {e}"})
+            return
+        result = dict(result)
+        result["runoff"] = np.asarray(result["runoff"]).tolist()  # (P, T, G)
+        result["mean"] = np.asarray(result["mean"]).tolist()
+        result.pop("member_runoff", None)
+        send(200, result)
+
+    def _post_observe(self) -> None:
+        """``POST /v1/observe``: gauge observations into the attached
+        ledger's delayed join; answers its counts. 404 without a ledger."""
+        verifier = self.server.service.verifier
+        if verifier is None:
+            self._send(404, {"error": "no verification ledger attached (service.attach_verifier)"})
+            return
+        body = self._read_json(self._send)
+        if body is None:
+            return
+        if not isinstance(body, dict) or "network" not in body or not isinstance(
+                body.get("observations"), list):
+            self._send(400, {"error": 'body must be an object with "network" and an "observations" list'})
+            return
+        try:
+            stats = verifier.observe(str(body["network"]), body["observations"], source="http")
+        except (KeyError, TypeError, ValueError) as e:
+            self._send(400, {"error": f"malformed observations: {e}"})
+            return
+        except Exception as e:
+            self._send(500, {"error": f"{type(e).__name__}: {e}"})
+            return
+        self._send(200, stats)
 
 
 class ForecastHTTPServer(ThreadingHTTPServer):

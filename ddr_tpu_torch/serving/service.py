@@ -22,7 +22,18 @@ batches. Every request carries a ``request_id`` (a caller's, sanitised by
 a ``trace_id``, and is admitted in a priority class (``interactive``,
 ``batch``, ``bulk``). Every admission, batch and shed decision updates the
 live metrics registry (``GET /metrics``) through
-:func:`~ddr_tpu_torch.observability.prometheus.event_tee`.
+:func:`~ddr_tpu_torch.observability.prometheus.event_tee`, and every terminal
+decision is one good or bad observation of the
+:class:`~ddr_tpu_torch.observability.slo.SloTracker` (``DDR_SLO_*``), which
+the service mirrors onto the ``ddr_slo_*`` gauges and whose fast-burn alert
+changes are ``slo`` events.
+
+:meth:`ForecastService.ensemble_forecast` answers an E-member ensemble
+(:mod:`ddr_tpu_torch.fleet.ensemble`): the KAN runs once and all members
+route in one batched ``route``, one kernel launch for a single-ring network.
+A :class:`~ddr_tpu_torch.observability.verification.ForecastLedger` attached
+with :meth:`ForecastService.attach_verifier` records every forecast, single
+and ensemble, for the delayed observation join (``POST /v1/observe``).
 
 The numerical-health watchdog is on by default (``HealthConfig.from_env()``,
 ``DDR_HEALTH_ENABLED=0`` turns it off), as in the JAX service: every batch
@@ -32,10 +43,10 @@ flow scaling, plus the worst output columns when ``top_k > 0``, and the
 watchdog thresholds them after the batch's copy to the host. Serving routes
 in fp32: the JAX service has no dtype axis.
 
-Not in this slice: SLO tracking, the performance sentinel, the verification
-ledger, ensembles and the fleet (ROADMAP A.9), the run recorder's events and
-program cards (A.10), mesh mode (A.13) and fault injection (A.6). ``stats()``
-carries their keys as None.
+Not in this slice: the replica fleet (ROADMAP A.9), the performance
+sentinel, the skill tracker, the run recorder's events, program cards and
+compile accounting (A.10), mesh mode (A.13) and fault injection (A.6).
+``stats()`` carries their keys as None.
 """
 
 from __future__ import annotations
@@ -60,6 +71,7 @@ from ddr_tpu_torch.observability.health import (
     compute_output_worst,
 )
 from ddr_tpu_torch.observability.prometheus import declare_serve_metrics, event_tee
+from ddr_tpu_torch.observability.slo import SloConfig, SloTracker
 from ddr_tpu_torch.observability.trace import adopt_trace_id, new_span_id, trace_enabled
 from ddr_tpu_torch.routing.chunked import ChunkedNetwork
 from ddr_tpu_torch.routing.mc import Bounds, ChannelState, GaugeIndex, route
@@ -77,7 +89,14 @@ from ddr_tpu_torch.serving.registry import ModelEntry, ModelRegistry
 
 log = logging.getLogger(__name__)
 
-__all__ = ["ForecastService", "NetworkEntry", "QueueFullError", "RequestShedError", "make_request_id"]
+__all__ = [
+    "ForecastService",
+    "NetworkEntry",
+    "QueueFullError",
+    "RequestShedError",
+    "make_request_id",
+    "request_window",
+]
 
 #: Characters allowed in a caller-supplied request id: visible ASCII only,
 #: so the id is safe to echo in a header.
@@ -93,6 +112,46 @@ def make_request_id(supplied: Any = None) -> str:
         if rid:
             return rid
     return uuid.uuid4().hex[:16]
+
+
+def request_window(net: NetworkEntry, network: str, q_prime: Any | None, t0: int | None,
+                   gauges: Any | None, gauge_error: str = "gauges must lie in",
+                   ) -> tuple[np.ndarray, int | None, np.ndarray | None]:
+    """A request's inflow window, its first hour and its gauge selection,
+    checked as the JAX service checks them; every bad field raises
+    ``ValueError``. Exactly one of ``q_prime`` (a ``(horizon, N)`` payload)
+    or ``t0`` (an hourly offset into the registered forcing; default 0)
+    selects the window. Returns ``(window, start, gauge_sel)``: ``start`` is
+    None for a q_prime payload, which has no timeline, and ``gauge_sel`` None
+    for all gauges. ``gauge_error`` opens the out-of-range gauge message (the
+    JAX package words it one way for single forecasts, another for
+    ensembles)."""
+    if q_prime is not None and t0 is not None:
+        raise ValueError("pass q_prime or t0, not both")
+    start = None
+    if q_prime is not None:
+        qp = np.asarray(q_prime, dtype=np.float32)
+        if qp.shape != (net.horizon, net.n_segments):
+            raise ValueError(f"q_prime must be ({net.horizon}, {net.n_segments}), got {qp.shape}")
+    else:
+        if net.forcing is None:
+            raise ValueError(f"network {network!r} has no registered forcing; requests "
+                             "must carry q_prime")
+        start = 0 if t0 is None else int(t0)
+        if not 0 <= start <= len(net.forcing) - net.horizon:
+            raise ValueError(
+                f"t0={start} out of range for forcing of {len(net.forcing)} hourly "
+                f"steps and horizon {net.horizon}"
+            )
+        qp = net.forcing[start : start + net.horizon]
+    gauge_sel = None
+    if gauges is not None:
+        gauge_sel = np.asarray(gauges, dtype=np.int64).ravel()
+        if gauge_sel.size == 0:
+            raise ValueError("gauges must be a non-empty index list (or omitted)")
+        if gauge_sel.min() < 0 or gauge_sel.max() >= net.n_outputs:
+            raise ValueError(f"{gauge_error} [0, {net.n_outputs}) for network {network!r}")
+    return qp, start, gauge_sel
 
 
 def _trace_fields(req: ForecastRequest) -> dict:
@@ -146,11 +205,16 @@ class ForecastService:
         serve_cfg: ServeConfig | None = None,
         device: str | torch.device = "cuda",
         health_cfg: HealthConfig | None = None,
+        slo_cfg: SloConfig | None = None,
     ) -> None:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.serve_cfg = serve_cfg or ServeConfig.from_env()
         self.registry = ModelRegistry()
+        slo_cfg = slo_cfg or SloConfig.from_env()
+        self.slo: SloTracker | None = SloTracker(slo_cfg) if slo_cfg.enabled else None
+        self._verifier: Any = None  # a ForecastLedger, once attached
+        self._ensembles: Any = None  # the EnsembleRunner, built on the first ensemble
         self.health_cfg = health_cfg or HealthConfig.from_env()
         self.watchdog = HealthWatchdog(self.health_cfg)
         # declared up front: GET /metrics shows every serve metric from the first scrape
@@ -323,39 +387,15 @@ class ForecastService:
         if net is None:
             raise ValueError(f"unknown network {network!r}")
         self.registry.get(model)  # raises KeyError on unknown models
-        if q_prime is not None and t0 is not None:
-            raise ValueError("pass q_prime or t0, not both")
-        if q_prime is not None:
-            qp = np.asarray(q_prime, dtype=np.float32)
-            if qp.shape != (net.horizon, net.n_segments):
-                raise ValueError(
-                    f"q_prime must be ({net.horizon}, {net.n_segments}), got {qp.shape}"
-                )
-        else:
-            if net.forcing is None:
-                raise ValueError(f"network {network!r} has no registered forcing; requests "
-                                 "must carry q_prime")
-            start = 0 if t0 is None else int(t0)
-            if not 0 <= start <= len(net.forcing) - net.horizon:
-                raise ValueError(
-                    f"t0={start} out of range for forcing of {len(net.forcing)} hourly "
-                    f"steps and horizon {net.horizon}"
-                )
-            qp = net.forcing[start : start + net.horizon]
-        gauge_sel = None
-        if gauges is not None:
-            gauge_sel = np.asarray(gauges, dtype=np.int64).ravel()
-            if gauge_sel.size == 0:
-                raise ValueError("gauges must be a non-empty index list (or omitted)")
-            if gauge_sel.min() < 0 or gauge_sel.max() >= net.n_outputs:
-                raise ValueError(f"gauges must lie in [0, {net.n_outputs}) for network {network!r}")
+        qp, start, gauge_sel = request_window(net, network, q_prime, t0, gauges)
         deadline = time.monotonic() + (
             self.serve_cfg.deadline_s if deadline_s is None else float(deadline_s)
         )
         prio = DEFAULT_PRIORITY if priority is None else str(priority)
         priority_rank(prio)  # an unknown class is the caller's bug
         rid = make_request_id(request_id)
-        meta = {"network": network, "model": model, "request_id": rid}
+        # start: where the verification ledger's valid hours count from
+        meta = {"network": network, "model": model, "request_id": rid, "t0": start}
         if trace_enabled():
             meta["trace_id"] = adopt_trace_id(trace_id)
             meta["span_id"] = new_span_id()
@@ -375,14 +415,32 @@ class ForecastService:
                        **_trace_fields(req))
             # queue_s None: a rejected arrival never queued
             self._emit("serve_request", status="shed:queue-full", network=network, model=model,
-                       request_id=rid, priority=prio, latency_s=0.0, queue_s=None,
+                       request_id=rid, priority=prio, latency_s=0.0, queue_s=None, slo_ok=False,
                        **_trace_fields(req))
+            self._observe_slo(False)
             raise
         return req.future
 
     def forecast(self, timeout: float | None = None, **kwargs) -> dict:
         """Blocking wrapper over :meth:`submit`."""
         return self.submit(**kwargs).result(timeout=timeout)
+
+    def ensemble_forecast(self, **kwargs) -> dict:
+        """One E-member ensemble forecast
+        (:meth:`~ddr_tpu_torch.fleet.ensemble.EnsembleRunner.forecast`):
+        percentile hydrographs and the worst gauges over all members. Takes
+        :meth:`submit`'s request fields plus ``members``, ``percentiles`` and
+        ``seed``, and runs on the caller's thread: an ensemble is a full
+        batch of work and does not ride the micro-batcher. The runner is
+        built on the first ensemble, as in the JAX service: a bad
+        ``DDR_FLEET_*`` setting refuses ensembles, not the service."""
+        from ddr_tpu_torch.fleet.ensemble import EnsembleRunner
+
+        with self._lock:
+            if self._ensembles is None:
+                self._ensembles = EnsembleRunner(self)
+            runner = self._ensembles
+        return runner.forecast(**kwargs)
 
     # ---- execution (batcher worker thread) ----
 
@@ -457,7 +515,8 @@ class ForecastService:
                 self._emit("serve_request", status=f"error:{type(e).__name__}",
                            network=r.meta.get("network"), model=r.meta.get("model"),
                            request_id=r.meta.get("request_id"), latency_s=round(now - r.admitted, 6),
-                           queue_s=self._queue_seconds(r), **_trace_fields(r))
+                           queue_s=self._queue_seconds(r), slo_ok=False, **_trace_fields(r))
+                self._observe_slo(False)
             raise
 
     def _execute_inner(self, key: tuple, reqs: list[ForecastRequest]) -> None:
@@ -483,11 +542,18 @@ class ForecastService:
             sel = r.payload["gauges"]
             out = runoff[i] if sel is None else runoff[i][:, sel]
             outs.append(out)
+            good = self._slo_good(r, now)
             self._emit("serve_request", status="ok", network=network_name, model=model_name,
                        request_id=r.meta.get("request_id"), latency_s=round(now - r.admitted, 6),
                        queue_s=self._queue_seconds(r), execute_s=exec_s, version=entry.version,
-                       n_gauges=int(out.shape[1]), **_trace_fields(r))
-        for r, out in zip(reqs, outs):
+                       n_gauges=int(out.shape[1]), slo_ok=good, **_trace_fields(r))
+            self._observe_slo(good)
+        # the ledger is fed before any future resolves: a client that posts
+        # observations right after its answer finds its forecast joinable
+        valids = [self._feed_verifier(network_name, model_name, r.meta.get("request_id"), r.meta.get("t0"),
+                                      r.payload["gauges"], np.asarray(out)[None])
+                  for r, out in zip(reqs, outs)]
+        for r, out, vt in zip(reqs, outs, valids):
             if r.future.set_running_or_notify_cancel():
                 r.future.set_result({
                     "runoff": out,
@@ -498,6 +564,7 @@ class ForecastService:
                     "request_id": r.meta.get("request_id"),
                     "queue_s": self._queue_seconds(r),
                     "execute_s": exec_s,
+                    **({"valid_times": vt} if vt is not None else {}),
                     **_trace_fields(r),
                     # the port's own: the batch's size and device ms, and the
                     # request's admission-to-answer seconds
@@ -516,7 +583,88 @@ class ForecastService:
         self._emit("serve_request", status=f"shed:{reason}", network=req.meta.get("network"),
                    model=req.meta.get("model"), request_id=req.meta.get("request_id"),
                    priority=req.priority, latency_s=round(req.age(), 6),
-                   queue_s=self._queue_seconds(req), **_trace_fields(req))
+                   queue_s=self._queue_seconds(req), slo_ok=False, **_trace_fields(req))
+        self._observe_slo(False)
+
+    # ---- SLO accounting ----
+
+    def _slo_good(self, req: ForecastRequest, now: float) -> bool:
+        """Whether a served request met the objective: answered within its
+        deadline (a late answer is a miss even though it ran) and, when one is
+        configured, within the latency ceiling."""
+        if self.slo is None:
+            return True
+        if req.deadline is not None and now > req.deadline:
+            return False
+        ceiling = self.slo.cfg.latency_s
+        return ceiling is None or (now - req.admitted) <= ceiling
+
+    def _observe_slo(self, good: bool) -> None:
+        """One terminal decision into the tracker; on a new time bucket (about
+        once a second, not once a request) the gauges are mirrored and the
+        alert evaluated. Never raises into a request."""
+        if self.slo is None:
+            return
+        try:
+            if self.slo.observe(good):
+                self._slo_sweep()
+        except Exception:
+            log.exception("SLO accounting failed")
+
+    def _slo_sweep(self) -> None:
+        """Mirror the tracker onto the ``ddr_slo_*`` gauges and emit one
+        ``slo`` event per fast-burn alert change. Also run from
+        :meth:`stats`, so an alert on a replica gone idle still resolves."""
+        slo = self.slo
+        if slo is None:
+            return
+        try:
+            att = slo.attainment()
+            if att is not None:
+                self.metrics.get("ddr_slo_attainment").set(att)
+            burn_gauge = self.metrics.get("ddr_slo_burn_rate")
+            for window, burn in slo.burn_rates().items():
+                if burn is not None:
+                    burn_gauge.set(burn, window=window)
+            change = slo.check_alert()
+            if change is not None:
+                self._emit("slo", **change)
+        except Exception:
+            log.exception("SLO accounting failed")
+
+    # ---- verification ----
+
+    def attach_verifier(self, ledger: Any) -> None:
+        """Attach a :class:`~ddr_tpu_torch.observability.verification.ForecastLedger`:
+        every forecast from here on (single and ensemble) is recorded for the
+        delayed observation join (``POST /v1/observe``), answers gain
+        ``valid_times``, and the ledger's rollup is ``stats()["verification"]``."""
+        self._verifier = ledger
+
+    @property
+    def verifier(self) -> Any:
+        return self._verifier
+
+    def _feed_verifier(self, network: str, model: str, request_id: str | None, start: int | None,
+                       gauge_sel: np.ndarray | None, runoff_e: np.ndarray) -> list[int] | None:
+        """Record one answered forecast, an ``(E, T, G)`` member stack (E = 1
+        for a single forecast, whose CRPS is then the absolute error), with
+        the attached ledger. Valid hours are ``issue + 1 + i``, the issue hour
+        being the window's ``start``, or the clock's hour for a q_prime
+        payload (``start`` None). Returns them, or None without a ledger.
+        Never raises: the answer is already computed."""
+        if self._verifier is None:
+            return None
+        try:
+            issue = int(time.time() // 3600) if start is None else int(start)
+            valid = [issue + 1 + i for i in range(int(runoff_e.shape[1]))]
+            gids = ([str(int(g)) for g in gauge_sel] if gauge_sel is not None
+                    else [str(j) for j in range(int(runoff_e.shape[2]))])
+            self._verifier.record_forecast(network, model, request_id, issue, valid, gids, runoff_e)
+            return valid
+        except Exception:
+            log.exception("verification ledger feed failed")
+            return None
 
     def _emit(self, event: str, **payload) -> None:
         """One decision into the live metrics registry. The run recorder that
@@ -560,9 +708,11 @@ class ForecastService:
         return self.watchdog.degraded
 
     def stats(self) -> dict:
-        """The ``/v1/stats`` payload, with the JAX service's keys. ``fleet``,
-        ``compiles``, ``sentinel``, ``skill``, ``verification`` and ``slo``
-        are None: their features are not ported yet (ROADMAP A.9, A.10)."""
+        """The ``/v1/stats`` payload, with the JAX service's keys. ``slo`` is
+        the tracker's status, ``verification`` the attached ledger's (None
+        without one); ``fleet``, ``compiles``, ``sentinel`` and ``skill`` are
+        None: their features are not ported yet (ROADMAP A.9, A.10)."""
+        self._slo_sweep()  # an idle replica resolves a stale alert by polling
         return {
             "ready": self._ready,
             "warmup_error": self._warmup_error,
@@ -579,8 +729,8 @@ class ForecastService:
             "health": self.watchdog.status(),
             "sentinel": None,
             "skill": None,
-            "verification": None,
-            "slo": None,
+            "verification": None if self._verifier is None else self._verifier.status(),
+            "slo": None if self.slo is None else self.slo.status(),
             "models": self.models_info(),
             "networks": self.networks_info(),
         }

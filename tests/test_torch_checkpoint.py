@@ -164,7 +164,8 @@ def step_log():
     handler = _Steps()
     logger = logging.getLogger(train_script.__name__)
     logger.addHandler(handler)
-    level, logger.level = logger.level, logging.INFO
+    level = logger.level
+    logger.setLevel(logging.INFO)  # clears the loggers' cached INFO-is-off answers
     yield handler
     logger.removeHandler(handler)
     logger.setLevel(level)

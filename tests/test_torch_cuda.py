@@ -578,3 +578,56 @@ def test_served_http_round_trip_on_the_card(card):
             server.server_close()
         svc.close()
         set_registry(None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("members", [8, 32])
+def test_ensemble_launch_equals_single_launches_and_the_plain_scan(card, members):
+    """An E-member ensemble on the card: the perturbed windows are routed in
+    one ``wave_scan`` launch with B = E; each member equals the same window
+    routed alone (B = 1) bit for bit, the whole launch equals the plain scan
+    on the same members bit for bit, and the service's ensemble answer is
+    that launch's."""
+    from ddr_tpu_torch.fleet.ensemble import member_windows, perturbation_seed
+    from ddr_tpu_torch.nn.kan import Kan
+    from ddr_tpu_torch.routing.model import denormalize_spatial_parameters
+    from ddr_tpu_torch.serving.config import ServeConfig
+    from ddr_tpu_torch.serving.service import ForecastService
+    from ddr_tpu_torch.validation.configs import Config, KanConfig
+
+    names = [f"a{i}" for i in range(10)]
+    basin = make_basin(n_segments=4096, n_gauges=4, n_days=3, depth=64, seed=2)
+    cfg = Config(kan=KanConfig(input_var_names=names))
+    svc = ForecastService(cfg, ServeConfig(max_batch=4, horizon_hours=24, batch_wait_s=0.0), device=card)
+    try:
+        svc.register_network("basin", basin.routing_data, forcing=basin.q_prime)
+        svc.register_model("default", Kan(names, ("n", "q_spatial"), generator=torch.Generator().manual_seed(3)))
+        svc.warmup()
+        net = svc.networks()["basin"]
+        p = cfg.params
+        with torch.no_grad():
+            phys = denormalize_spatial_parameters(svc.registry.get("default").kan(net.attrs), p.parameter_ranges,
+                                                  p.log_space_parameters, p.defaults, net.n_segments)
+            q = torch.as_tensor(basin.q_prime[7:31], device=card)
+            qe = member_windows(q, perturbation_seed("card-ens", 0), members, 0.1)
+            if net.flow_scale is not None:
+                qe = qe * net.flow_scale
+            before = wave_scan_tm.launches
+            launch = mc.route(net.network, net.channels, phys, qe, gauges=net.gauge_index, bounds=svc.bounds,
+                              device=card).runoff
+            assert wave_scan_tm.launches == before + 1
+            plain = mc.route(net.network, net.channels, phys, qe, gauges=net.gauge_index, bounds=svc.bounds,
+                             kernel="reference", device=card).runoff
+            torch.testing.assert_close(launch, plain, rtol=0, atol=0)
+            for m in range(members):
+                alone = mc.route(net.network, net.channels, phys, qe[m:m + 1].contiguous(),
+                                 gauges=net.gauge_index, bounds=svc.bounds, device=card).runoff
+                torch.testing.assert_close(alone[0], launch[m], rtol=0, atol=0)
+        before = wave_scan_tm.launches
+        ans = svc.ensemble_forecast(network="basin", t0=7, members=members, request_id="card-ens",
+                                    return_members=True)
+        assert wave_scan_tm.launches == before + 1
+        np.testing.assert_array_equal(ans["member_runoff"], launch.cpu().numpy())
+        assert ans["runoff"].shape == (3, 24, 4) and np.isfinite(ans["runoff"]).all()
+    finally:
+        svc.close()

@@ -103,7 +103,8 @@ def test_evaluate_hourly_matches_jax(tmp_path, weights):
     handler = _Chunks()
     logger = logging.getLogger(common.__name__)
     logger.addHandler(handler)
-    level, logger.level = logger.level, logging.INFO
+    level = logger.level
+    logger.setLevel(logging.INFO)  # clears the loggers' cached INFO-is-off answers
     try:
         got = common.evaluate_hourly(cfg, ours, ours.streamflow, kan)
     finally:

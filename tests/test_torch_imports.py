@@ -59,7 +59,12 @@ def test_port_imports_no_jax_and_nothing_of_ddr_tpu():
             "ddr_tpu_torch.observability.prometheus", "ddr_tpu_torch.serving.config",
             "ddr_tpu_torch.serving.batcher", "ddr_tpu_torch.serving.registry",
             "ddr_tpu_torch.serving.service", "ddr_tpu_torch.serving.http_api",
-            "ddr_tpu_torch.serving.client", "ddr_tpu_torch.scripts.serve"} <= names
+            "ddr_tpu_torch.serving.client", "ddr_tpu_torch.scripts.serve",
+            # the load test, SLOs, ensembles and verification
+            "ddr_tpu_torch.observability.slo", "ddr_tpu_torch.observability.verification",
+            "ddr_tpu_torch.fleet", "ddr_tpu_torch.fleet.config", "ddr_tpu_torch.fleet.prng",
+            "ddr_tpu_torch.fleet.ensemble", "ddr_tpu_torch.scripts.loadtest",
+            "ddr_tpu_torch.scripts.verify"} <= names
     assert bad == "[]", f"the port imported {bad}"
 
 

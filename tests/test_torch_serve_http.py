@@ -9,14 +9,19 @@ synthetic basin (``make_basin(96, depth=10, seed=23)``, as
 - the same status codes and ``reason`` for 200, 400, 404, 429 (a
   ``queue_cap=1`` server with a blocked executor), 503 ``deadline`` and 503
   ``warming``; ``/readyz`` in all four states;
-- equal ``/v1/networks``; the JAX ``/v1/stats`` and ``/v1/models`` keys;
+- equal ``/v1/networks``; the JAX ``/v1/stats`` and ``/v1/models`` keys, and
+  an equal ``slo`` slice under one clock;
 - equal echoed request and trace ids where supplied, of the same form where
   minted, and no trace ids under ``DDR_TRACE=0``;
 - runoff within rtol 1e-5, atol 1e-5 x the largest magnitude (the bound of
   ``tests/test_torch_service.py``).
 
-The three refusals (ensemble bodies, ``/metrics?federated=1``, ``POST
-/v1/profile``) answer 501 and name their ROADMAP item.
+- for ensemble bodies and ``POST /v1/observe`` with a ledger attached:
+  the same status codes, answer keys and ``reason``, ensemble bands within
+  the runoff bound, and equal join counts.
+
+The two refusals (``/metrics?federated=1``, ``POST /v1/profile``) answer 501
+and name their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -230,8 +235,14 @@ def test_get_endpoints_equal_jax(pair):
     assert jc == pc == 200 and set(jb) <= set(pb), set(jb) - set(pb)
     assert pb["config"] == jb["config"] and pb["networks"] == jb["networks"]
     assert set(jb["queue"]) <= set(pb["queue"]) and set(jb["health"]) <= set(pb["health"])
-    for key in ("compiles", "sentinel", "skill", "verification", "slo", "fleet"):
+    for key in ("compiles", "sentinel", "skill", "fleet"):
         assert pb[key] is None
+    # no ledger attached on either side
+    assert pb["verification"] is None and jb["verification"] is None
+    # the SLO slice: JAX's keys, and JAX's values when both trackers read at one instant
+    assert pb["slo"].keys() == jb["slo"].keys()
+    now = time.monotonic()
+    assert pair.port.slo.status(now=now) == pair.jax.slo.status(now=now)
     (jc, jh, _), (pc, ph, text) = pair.both("GET", "/metrics")
     assert jc == pc == 200 and jh["Content-Type"] == ph["Content-Type"] == CONTENT_TYPE
     assert "ddr_requests_total" in text and "ddr_health_status" in text
@@ -244,19 +255,120 @@ def test_get_endpoints_equal_jax(pair):
     assert jc == pc == 404 and jb == pb
 
 
-@pytest.mark.parametrize("request_kind,item", [("ensemble", "A.9"), ("federated", "A.9"), ("profile", "A.10")])
+@pytest.mark.parametrize("request_kind,item", [("federated", "A.9"), ("profile", "A.10")])
 def test_unported_requests_answer_501_naming_their_item(pair, request_kind, item):
     url = pair.urls[1]
-    if request_kind == "ensemble":
-        code, _, body = _request(url, "POST", "/v1/forecast",
-                                 {"network": "basin", "t0": 0, "ensemble": {"members": 4}})
-    elif request_kind == "federated":
+    if request_kind == "federated":
         code, _, body = _request(url, "GET", "/metrics?federated=1")
     else:
         code, _, body = _request(url, "POST", "/v1/profile?seconds=1", {})
     assert code == 501 and item in body["error"]
-    with pytest.raises(NotImplementedError, match="A.9"):
-        HttpForecastClient(url).forecast("basin", t0=0, ensemble={"members": 4})
+
+
+ENSEMBLES = {
+    "default": ({"t0": 3, "ensemble": {"members": 4}}, {"X-DDR-Request-Id": "ens-1"}),
+    "percentiles and gauges": ({"t0": 20, "gauges": [0, 2],
+                                "ensemble": {"members": 6, "percentiles": [5, 50, 95], "seed": 7}},
+                               {"X-DDR-Request-Id": "ens-2", "X-DDR-Trace-Id": "trace-ens"}),
+    "q_prime": ({"q_prime": "payload", "ensemble": {"members": 3, "seed": 1}}, {"X-DDR-Request-Id": "ens-3"}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENSEMBLES))
+def test_ensemble_answers_equal_jax(pair, name):
+    """The same ensemble body to both servers: the same keys, request id,
+    members and percentiles, bands and member mean within the runoff bound;
+    a replayed request id answers the same bands."""
+    body, headers = ENSEMBLES[name]
+    if body.get("q_prime") == "payload":
+        body = {**body, "q_prime": _payload(pair.basin, 5).tolist()}
+    (jc, jh, jb), (pc, ph, pb) = pair.both("POST", "/v1/forecast", {"network": "basin", **body}, headers)
+    assert jc == pc == 200, (jb, pb)
+    assert set(jb) == set(pb), set(jb) ^ set(pb)
+    for key in ("request_id", "members", "seed", "percentiles", "network", "model", "version",
+                "ensemble_nonfinite_members"):
+        assert pb[key] == jb[key], key
+    assert pb["engine"] == jb["engine"] and pb["engine"].endswith(f":ensemble{pb['members']}")
+    assert ph["X-DDR-Request-Id"] == jh["X-DDR-Request-Id"] == headers["X-DDR-Request-Id"]
+    assert np.asarray(pb["runoff"]).shape == np.asarray(jb["runoff"]).shape
+    _close(jb["runoff"], pb["runoff"], f"ensemble {name} bands")
+    _close(jb["mean"], pb["mean"], f"ensemble {name} mean")
+    assert set(pb["worst"]["gauges"]) == set(jb["worst"]["gauges"])
+    again = HttpForecastClient(pair.urls[1]).forecast("basin", request_id=headers["X-DDR-Request-Id"],
+                                                      **{k: v for k, v in body.items()})
+    np.testing.assert_array_equal(again["runoff"], np.asarray(pb["runoff"], np.float32))
+
+
+ENSEMBLE_ERRORS = {
+    "not an object": {"t0": 0, "ensemble": 4},
+    "members zero": {"t0": 0, "ensemble": {"members": 0}},
+    "members over the cap": {"t0": 0, "ensemble": {"members": 65}},
+    "members not a number": {"t0": 0, "ensemble": {"members": "many"}},
+    "percentile above 100": {"t0": 0, "ensemble": {"percentiles": [50, 101]}},
+    "percentiles empty": {"t0": 0, "ensemble": {"percentiles": []}},
+    "percentiles not a list": {"t0": 0, "ensemble": {"percentiles": 50}},
+    "t0 out of range": {"t0": 10_000, "ensemble": {}},
+    "q_prime and t0": {"t0": 0, "q_prime": [[0.0] * 96] * HORIZON, "ensemble": {}},
+    "gauges out of range": {"gauges": [9], "ensemble": {}},
+    "unknown model": {"model": "nope", "ensemble": {}},
+    "unknown network": {"network": "nope", "ensemble": {}},
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENSEMBLE_ERRORS))
+def test_ensemble_errors_map_as_jax(pair, name):
+    body = {"network": "basin", **ENSEMBLE_ERRORS[name]}
+    (jc, _, jb), (pc, _, pb) = pair.both("POST", "/v1/forecast", body, {"X-DDR-Request-Id": f"ee-{name}"})
+    assert pc == jc and pc in (400, 404), (name, jc, jb, pc, pb)
+    assert pb.keys() == jb.keys() and pb.get("reason") == jb.get("reason")
+    assert pb["request_id"] == jb["request_id"] == f"ee-{name}".replace(" ", "")
+
+
+def test_observe_with_a_ledger_answers_as_jax(tmp_path):
+    """With a ledger attached to each service: single and ensemble answers
+    carry the same ``valid_times``; ``POST /v1/observe`` answers the same
+    join counts (a re-post counts duplicates), the same 400s for malformed
+    bodies, and the two ledgers' rollups agree in their counts."""
+    from ddr_tpu.observability.registry import MetricsRegistry as JaxRegistry
+    from ddr_tpu.observability.verification import ForecastLedger as JaxLedger
+    from ddr_tpu.observability.verification import VerifyConfig as JaxVerifyConfig
+    from ddr_tpu_torch.observability.registry import MetricsRegistry
+    from ddr_tpu_torch.observability.verification import ForecastLedger, VerifyConfig
+
+    p = Pair(tmp_path)
+    try:
+        p.jax.attach_verifier(JaxLedger(JaxVerifyConfig(thresholds=("p90", "0.5")), registry=JaxRegistry()))
+        p.port.attach_verifier(ForecastLedger(VerifyConfig(thresholds=("p90", "0.5")), registry=MetricsRegistry()))
+        single = p.both("POST", "/v1/forecast", {"network": "basin", "t0": 4})
+        ens = p.both("POST", "/v1/forecast", {"network": "basin", "t0": 4, "ensemble": {"members": 4}},
+                     {"X-DDR-Request-Id": "obs-ens"})
+        for (jc, _, jb), (pc, _, pb) in (single, ens):
+            assert jc == pc == 200 and pb["valid_times"] == jb["valid_times"] == list(range(5, 5 + HORIZON))
+        truth = np.asarray(single[0][2]["runoff"])
+        observations = [{"gauge": str(g), "times": list(range(5, 5 + HORIZON)),
+                         "values": [float(v) for v in truth[:, g]]} for g in range(truth.shape[1])]
+        observations.append({"gauge": 0, "times": [999], "values": [1.0]})  # nothing issued there
+        for _ in range(2):  # the second post finds every key already matched
+            (jc, _, jb), (pc, _, pb) = p.both("POST", "/v1/observe",
+                                              {"network": "basin", "observations": observations})
+            assert jc == pc == 200 and pb == jb, (jb, pb)
+        for bad in ({"observations": []}, {"network": "basin"}, [1],
+                    {"network": "basin", "observations": [{"gauge": 0, "times": [1, 2], "values": [1.0]}]},
+                    {"network": "basin", "observations": [{"times": [1], "values": [1.0]}]}):
+            (jc, _, jb), (pc, _, pb) = p.both("POST", "/v1/observe", bad)
+            assert jc == pc == 400 and jb.keys() == pb.keys(), (bad, jb, pb)
+        (jc, _, jb), (pc, _, pb) = p.both("POST", "/v1/observe", raw=b"{oops")
+        assert jc == pc == 400
+        (_, _, js), (_, _, ps) = p.both("GET", "/v1/stats")
+        jv, pv = js["verification"], ps["verification"]
+        assert pv.keys() == jv.keys() and pv["scorer"].keys() == jv["scorer"].keys()
+        for key in ("forecasts", "cells_pending", "matched", "unmatched_obs", "duplicate_obs", "evicted"):
+            assert pv[key] == jv[key], key
+        assert pv["scorer"]["samples"] == jv["scorer"]["samples"] == 2 * HORIZON * truth.shape[1]
+        np.testing.assert_allclose(pv["scorer"]["scores"]["crps"], jv["scorer"]["scores"]["crps"],
+                                   rtol=1e-4, atol=1e-6)
+    finally:
+        p.close()
 
 
 def test_http_client_reads_the_port_server(pair):

@@ -4,8 +4,8 @@
   gauge and histogram operations (labels that need escaping, NaN and
   infinite values, constant labels) renders to text byte for byte
   equal to JAX's; so do ``declare_serve_metrics``'s first scrape and the
-  registry after the same ``event_tee`` records, less the SLO and compile
-  families the port does not declare yet;
+  registry after the same ``event_tee`` records, less the compile family the
+  port does not declare yet;
 - ``make_request_id``, ``adopt_trace_id`` and ``trace_enabled`` equal JAX's
   on the same inputs and environments (minted ids: the same form);
 - ``ServeConfig.from_env`` equals JAX's on the same environments, keyword
@@ -88,8 +88,8 @@ def test_render_text_equals_jax_byte_for_byte(seed):
 
 
 #: JAX's serve instruments that the port does not feed yet and so does not
-#: declare: SLO tracking (ROADMAP A.9) and compile counts (A.10).
-UNPORTED = {"ddr_slo_attainment", "ddr_slo_burn_rate", "ddr_slo_alerts_total", "ddr_compiles_total"}
+#: declare: compile counts (ROADMAP A.10).
+UNPORTED = {"ddr_compiles_total"}
 
 
 def _ported(text: str) -> str:

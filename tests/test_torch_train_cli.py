@@ -90,7 +90,8 @@ def port_losses():
     handler = _Losses()
     logger = logging.getLogger(train_script.__name__)
     logger.addHandler(handler)
-    level, logger.level = logger.level, logging.INFO
+    level = logger.level
+    logger.setLevel(logging.INFO)  # clears the loggers' cached INFO-is-off answers
     yield handler.losses
     logger.removeHandler(handler)
     logger.setLevel(level)
@@ -397,7 +398,7 @@ def test_cli_defaults_to_the_card(tmp_path, monkeypatch):
         cli.main(["train", CONFIG, "device=tpu", f"params.save_path={tmp_path}"])
 
 
-@pytest.mark.parametrize("command,item", [("summed-q-prime", "A.8"), ("loadtest", "A.9"), ("tune", "A.13")])
+@pytest.mark.parametrize("command,item", [("summed-q-prime", "A.8"), ("fleet", "A.9"), ("tune", "A.13")])
 def test_cli_names_the_item_of_an_unported_command(capsys, command, item):
     assert cli.main([command, CONFIG]) == 2
     assert item in capsys.readouterr().err
@@ -419,6 +420,35 @@ def test_cli_dispatches_serve(tmp_path, monkeypatch):
     assert cfg.mode.value == "testing" and cfg.device == "cpu"
     assert (serve_cfg.port, serve_cfg.max_batch) == (0, 3)
     assert "serve" in cli._COMMANDS and "serve" not in cli._NOT_PORTED
+
+
+def test_cli_dispatches_loadtest(tmp_path, capsys):
+    """``loadtest --synthetic`` runs an in-process service on the CPU when
+    asked (``device=cpu`` applies to the synthetic config), writes its
+    report and prints it last; ``--fleet`` names its ROADMAP item."""
+    code = cli.main(["loadtest", "--synthetic", "--n", "32", "--horizon", "6", "--rps", "40",
+                     "--duration", "0.5", "--out", str(tmp_path), "--label", "cli", "device=cpu"])
+    assert code == 0
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert report == json.loads((tmp_path / "LOADTEST_cli.json").read_text())
+    assert report["device"] == "cpu" and report["ok"] == report["requests"] > 0
+    assert cli.main(["loadtest", "--synthetic", "--fleet", "2", "device=cpu"]) == 2
+    assert "A.9" in capsys.readouterr().err
+    assert "loadtest" in cli._COMMANDS and "loadtest" not in cli._NOT_PORTED
+
+
+def test_cli_dispatches_verify(tmp_path, capsys):
+    """``verify --synthetic`` runs the self-test on the CPU when asked; the
+    run-log replay mode names its ROADMAP item."""
+    code = cli.main(["verify", "--synthetic", "--n", "32", "--horizon", "8", "--members", "4",
+                     "--requests", "3", "--out", str(tmp_path), "--label", "cli", "device=cpu"])
+    assert code == 0
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert report["ordering_ok"] and report["matched_samples"] > 0 and report["device"] == "cpu"
+    assert (tmp_path / "VERIFY_cli.md").read_text().startswith("## ddr verify")
+    assert cli.main(["verify", str(tmp_path)]) == 2
+    assert "A.10" in capsys.readouterr().err
+    assert "verify" in cli._COMMANDS and "verify" not in cli._NOT_PORTED
 
 
 #: Each ported evaluation command, the store it writes and that store's arrays.

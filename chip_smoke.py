@@ -8,6 +8,7 @@
     python3 chip_smoke.py --ddr-cli     # only the build and phases 18-19 (every ported command)
     python3 chip_smoke.py --ddr-serve   # only the build and phases 18 and 20 (ddr serve)
     python3 chip_smoke.py --ddr-loadtest  # only the build and phases 18 and 21 (loadtest, verify)
+    python3 chip_smoke.py --ddr-merit   # only the build and phases 18 and 22 (the MERIT path)
 
 From the root of a checkout, with one CUDA card visible. Phases, each fatal
 on failure (non-zero exit, no result line):
@@ -164,6 +165,30 @@ on failure (non-zero exit, no result line):
            the streaming CRPS of an ensemble against the offline reference
            (1e-9); then ``ddr verify --synthetic`` on the card (65,536
            reaches, 72 h), whose sharp arm must beat the degraded arm.
+22. ddr merit  the MERIT real-data path on the port's own store builders,
+           readers and ``merit`` dataset: ``examples/merit_basin`` copied to
+           ``build/ddr_merit/`` and its five stores built there by
+           ``ddr_tpu_torch.scripts.prepare_merit_example``; ``ddr train``
+           on the example with ``device=cpu`` and on the card from one
+           initial checkpoint (per-step losses held to rtol 1e-4), then
+           ``ddr test`` and ``ddr route`` from the card's checkpoint on
+           both (predictions and discharge held to 1e-5); then the
+           regional width: a MERIT-format ``flowpaths.csv`` (COMID,
+           NextDownID, up1-up4, lengthkm, slope) with the topology of
+           ``make_basin(65536, depth=512, seed=0)``, whose 65 outlets are
+           joined into one by a merge tree of fan-in at most four, 8 gauges
+           (the outlet, so every batch's union is all 65,536 reaches, and 7
+           large tributary basins), 400 days of daily inflow and
+           observations drawn as the example's are; the stores built with
+           the port's engine builders (timed), ``ddr train`` at
+           ``experiment.batch_size=8`` with the launch counts zeroed just
+           before and read just after (one ``wave_scan`` and one
+           ``reverse_scan`` launch a step: there is no twin observation
+           route), each step's routed reaches and host ms, the wall time,
+           the peak device memory and the host ms of the streamflow store's
+           whole-variable read (``HydroStore.select``); then ``ddr test`` at
+           that width, one ``wave_scan`` launch a chunk, all but the first
+           from the carried ``q_init``.
 The service of phases 3 and 7 runs with its health watchdog on, which must
 have seen every served batch and not be degraded; phase 8's gradient check
 also holds the bf16 kernels against the bf16 plain scans. Every kernel's
@@ -247,6 +272,13 @@ DDR_SERVE_POLL_MS, DDR_SERVE_PARITY_RTOL = "500", 1e-6
 DDR_LOADTEST_SECONDS, DDR_LOADTEST_RATES, DDR_LOADTEST_INPROCESS_RATE = 10.0, (20.0, 80.0), 80.0
 DDR_LOADTEST_MIX, DDR_LOADTEST_MIX_RATE, DDR_LOADTEST_MIX_SECONDS = "interactive=0.2,batch=0.5,bulk=0.3", 80.0, 5.0
 DDR_ENSEMBLE_MEMBERS, DDR_ENSEMBLE_PEAK_MEMBERS, DDR_VERIFY_CRPS_TOL = (8, 32), 64, 1e-9
+# The MERIT path (phase 22): the example (12 reaches, 2 gauges, 2 epochs of one
+# step each), then the regional table: 8 gauges in one batch of 8, so each of
+# the example config's 2 epochs is one step over all 65,536 reaches, and
+# `ddr test` over the config's 182 days in 8-day chunks.
+MERIT_EXAMPLE, MERIT_STEPS = "examples/merit_basin", 2
+MERIT_GAUGES, MERIT_BATCH, MERIT_MAX_FAN_IN = 8, 8, 4
+MERIT_SQKM_PER_REACH = 25.0  # the drainage area a gauge reports, per upstream reach
 
 
 def fail(msg: str) -> None:
@@ -2663,6 +2695,291 @@ def ddr_loadtest(smi, dev) -> int:
     return main_launches
 
 
+def merit_overrides(data: Path, gages: Path, save: Path) -> list[str]:
+    """A MERIT config's stores, gauge table and run directory as absolute paths."""
+    return [f"data_sources.attributes={data / 'attributes.zarr'}",
+            f"data_sources.conus_adjacency={data / 'merit_conus_adjacency.zarr'}",
+            f"data_sources.gages_adjacency={data / 'merit_gages_adjacency.zarr'}",
+            f"data_sources.streamflow={data / 'streamflow.zarr'}",
+            f"data_sources.observations={data / 'observations.zarr'}",
+            f"data_sources.gages={gages}", f"data_sources.statistics={save / 'stats'}",
+            f"params.save_path={save}"]
+
+
+def regional_merit_table(root: Path) -> dict:
+    """Write ``root/flowpaths.csv`` and ``root/gages.csv``: the topology of
+    ``make_basin(N_SEGMENTS, depth=DEPTH, seed=0)`` as a MERIT table. Its
+    outlets (every reach of the last level) are joined into the one with
+    the most upstream reaches by a breadth-first merge tree in which no
+    reach takes more than ``MERIT_MAX_FAN_IN`` upstream reaches (no reach
+    of the generated topology has more). Gauges: that outlet, and the other
+    former outlets with the most upstream reaches."""
+    import csv
+
+    import numpy as np
+
+    from ddr_tpu_torch.geodatazoo.synthetic import make_basin
+    from ddr_tpu_torch.routing.network import compute_levels
+
+    rd = make_basin(N_SEGMENTS, n_gauges=N_GAUGES, n_days=2, depth=DEPTH, seed=0).routing_data
+    n, rows, cols = N_SEGMENTS, rd.adjacency_rows, rd.adjacency_cols
+    fan_in_before = int(np.bincount(rows, minlength=n).max())
+    if fan_in_before > MERIT_MAX_FAN_IN:
+        fail(f"merit table: the generated topology has fan-in {fan_in_before} > {MERIT_MAX_FAN_IN}")
+    down = np.full(n, -1)
+    down[cols] = rows
+    level = compute_levels(rows, cols, n)
+    area = np.ones(n, dtype=np.int64)  # upstream reaches, the reach included
+    for i in np.argsort(level, kind="stable"):
+        if down[i] >= 0:
+            area[down[i]] += area[i]
+    outlets = np.flatnonzero(down < 0)
+    outlets = outlets[np.argsort(-area[outlets], kind="stable")]
+    main, rest = int(outlets[0]), [int(o) for o in outlets[1:]]
+    ups: list[list[int]] = [[] for _ in range(n)]
+    for r, c in zip(rows.tolist(), cols.tolist()):
+        ups[r].append(c)
+    receivers, k = [main], 0
+    for o in rest:
+        while len(ups[receivers[k]]) >= MERIT_MAX_FAN_IN:
+            k += 1
+        ups[receivers[k]].append(o)
+        down[o] = receivers[k]
+        receivers.append(o)
+    new_rows = np.asarray([r for r in range(n) for _ in ups[r]])
+    new_cols = np.asarray([c for r in range(n) for c in ups[r]])
+    depth = int(compute_levels(new_rows, new_cols, n).max())
+    comid = 71_000_001 + np.random.default_rng(0).permutation(n)  # ids not in topological order
+    with (root / "flowpaths.csv").open("w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["COMID", "NextDownID", "up1", "up2", "up3", "up4", "lengthkm", "slope"])
+        for i in range(n):
+            u = [int(comid[j]) for j in ups[i]] + [0] * (MERIT_MAX_FAN_IN - len(ups[i]))
+            w.writerow([int(comid[i]), int(comid[down[i]]) if down[i] >= 0 else 0, *u,
+                        f"{rd.length[i] / 1000.0:.6f}", f"{rd.slope[i]:.8f}"])
+    gauges = [main] + rest[: MERIT_GAUGES - 1]
+    with (root / "gages.csv").open("w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["STAID", "STANAME", "DRAIN_SQKM", "LAT_GAGE", "LNG_GAGE", "COMID", "DA_VALID"])
+        for k, g in enumerate(gauges):
+            # STAIDs with a leading zero: the CSV reader must keep them as padded text
+            w.writerow([f"0{9100000 + k}", "outlet" if k == 0 else f"tributary {k}",
+                        f"{MERIT_SQKM_PER_REACH * area[g]:.1f}" if k else f"{MERIT_SQKM_PER_REACH * n:.1f}",
+                        40.0, -75.0, int(comid[g]), True])
+    return {"n": n, "outlets": len(outlets), "depth": depth, "fan_in": int(np.bincount(new_rows, minlength=n).max()),
+            "gauge_reaches": [n] + [int(area[g]) for g in gauges[1:]]}
+
+
+def ddr_merit(smi, dev) -> dict:
+    """Phase 22: the MERIT real-data path (see the module docstring).
+    Returns the launch counts of its card runs."""
+    import numpy as np
+    import torch
+
+    from ddr_tpu_torch import cli
+    from ddr_tpu_torch.engine.merit import build_gauge_adjacencies, build_merit_adjacency, read_flowpaths
+    from ddr_tpu_torch.geodatazoo.dataclasses import MERITGauge, validate_gages
+    from ddr_tpu_torch.geodatazoo.merit import Merit
+    from ddr_tpu_torch.io import zarrlite
+    from ddr_tpu_torch.io.readers import StreamflowReader
+    from ddr_tpu_torch.io.stores import write_attribute_store, write_hydro_store
+    from ddr_tpu_torch.routing.reverse_kernel import reverse_scan_tm
+    from ddr_tpu_torch.routing.wave_kernel import wave_scan_tm
+    from ddr_tpu_torch.scripts import prepare_merit_example as prep
+    from ddr_tpu_torch.scripts import train as train_script
+    from ddr_tpu_torch.scripts.common import build_kan, kan_arch
+    from ddr_tpu_torch.training import latest_checkpoint, save_state
+    from ddr_tpu_torch.validation.configs import load_config
+
+    here = Path(__file__).resolve().parent
+    root = here / "build" / "ddr_merit"
+    shutil.rmtree(root, ignore_errors=True)
+    example = root / "example"
+    shutil.copytree(here / MERIT_EXAMPLE, example, ignore=shutil.ignore_patterns("data", "output"))
+    t0 = time.perf_counter()
+    prep.prepare(example)
+    print(f"ddr merit example: stores {sorted(p.name for p in (example / 'data').iterdir())} built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    config = str(example / "config.yaml")
+    loggers = [logging.getLogger(name) for name in (
+        train_script.__name__, "ddr_tpu_torch.scripts.common", "ddr_tpu_torch.scripts.router",
+        "ddr_tpu_torch.geodatazoo.base")]
+    for logger in loggers:
+        logger.setLevel(logging.INFO)
+
+    class MeritLog(logging.Handler):
+        """Train steps, evaluation chunks and each batch's routed reaches."""
+
+        SHAPE = re.compile(r"Created adjacency matrix of shape: \((\d+), \d+\)")
+
+        def __init__(self):
+            super().__init__()
+            self.train, self.eval, self.shapes = TrainLog(), EvalLog(), []
+
+        def emit(self, record):
+            self.train.emit(record)
+            self.eval.emit(record)
+            if m := self.SHAPE.match(record.getMessage()):
+                self.shapes.append(int(m[1]))
+
+    def run(command, data, gages, name, *extra):
+        log = MeritLog()
+        for logger in loggers:
+            logger.addHandler(log)
+        t0 = time.perf_counter()
+        try:
+            code = cli.main([command, config, *merit_overrides(data, gages, root / name), *extra])
+            torch.cuda.synchronize()
+        finally:
+            for logger in loggers:
+                logger.removeHandler(log)
+        wall = time.perf_counter() - t0
+        if code != 0:
+            fail(f"ddr merit {command} {name}: exit {code}")
+        return log, wall
+
+    def stored(name, zarr, array):
+        out = zarrlite.open_group(root / name / zarr)[array][:]
+        if out.size == 0 or not np.isfinite(out).all():
+            fail(f"ddr merit {name}/{zarr}: {array} {out.shape} is empty or not finite")
+        return torch.as_tensor(out)
+
+    # ---- the example: CPU against the card from one initial checkpoint ----
+    data, gages = example / "data", example / "gages.csv"
+    init_cfg = load_config(config, merit_overrides(data, gages, root / "init"), save_config=False)
+    init = save_state(root / "init", init_cfg.name, 1, 0, build_kan(init_cfg, device="cpu").state_dict(), None,
+                      arch=kan_arch(init_cfg))
+    launches = {"wave_scan": 0, "reverse_scan": 0}
+    wave_scan_tm.launches = reverse_scan_tm.launches = 0
+    steps = {}
+    for device in ("cpu", "cuda"):
+        log, wall = run("train", data, gages, f"example-train-{device}", f"device={device}",
+                        f"experiment.checkpoint={init}")
+        steps[device] = log.train.steps
+        print(f"ddr merit example train {device}: steps {[(e, b) for e, b, *_ in log.train.steps]}, losses "
+              f"{[s[2] for s in log.train.steps]}, step host ms {[s[3] for s in log.train.steps]}, engine "
+              f"{sorted({s[4] for s in log.train.steps})}, routed reaches {log.shapes}, run wall {wall:.2f} s on {smi}")
+    if ([s[:2] for s in steps["cpu"]] != [s[:2] for s in steps["cuda"]] or len(steps["cuda"]) != MERIT_STEPS
+            or not np.all(np.isfinite([s[2] for s in steps["cuda"]]))):
+        fail(f"ddr merit example train: the CPU ran {steps['cpu']}, the card {steps['cuda']}")
+    for (epoch, mb, ref, *_), (*_, got, _, _) in zip(steps["cpu"], steps["cuda"]):
+        rel = abs(got - ref) / abs(ref)
+        print(f"ddr merit example train parity epoch {epoch} mini-batch {mb}: card {got!r} cpu {ref!r} rel {rel:.3e}")
+        if rel > DDR_TRAIN_RTOL:
+            fail(f"ddr merit example train: epoch {epoch} mini-batch {mb} loss rel {rel:.3e} > {DDR_TRAIN_RTOL}")
+    card_ckpt = latest_checkpoint(root / "example-train-cuda" / "saved_models")
+    if card_ckpt is None:
+        fail("ddr merit example train: the card run left no checkpoint")
+    for command, zarr, array in (("test", "model_test.zarr", "predictions"), ("route", "chrout.zarr", "discharge")):
+        out = {}
+        for device in ("cpu", "cuda"):
+            log, wall = run(command, data, gages, f"example-{command}-{device}", f"device={device}",
+                            f"experiment.checkpoint={card_ckpt}")
+            out[device] = stored(f"example-{command}-{device}", zarr, array)
+            print(f"ddr merit example {command} {device}: {len(log.eval.chunks)} chunks, {zarr} {array} "
+                  f"{tuple(out[device].shape)}, run wall {wall:.2f} s")
+        compare(out["cpu"], out["cuda"], f"ddr merit example {command}, card against CPU")
+    launches["wave_scan"] += wave_scan_tm.launches
+    launches["reverse_scan"] += reverse_scan_tm.launches
+
+    # ---- the regional width: a MERIT-format table of 65,536 reaches ----
+    regional = root / "regional"
+    rdata = regional / "data"
+    rdata.mkdir(parents=True)
+    t0 = time.perf_counter()
+    table = regional_merit_table(regional)
+    t_table = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fp = read_flowpaths(regional / "flowpaths.csv")
+    build_merit_adjacency(fp, rdata / "merit_conus_adjacency.zarr")
+    t_conus = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    build_gauge_adjacencies(fp, rdata / "merit_conus_adjacency.zarr",
+                            validate_gages(regional / "gages.csv", gauge_type=MERITGauge),
+                            rdata / "merit_gages_adjacency.zarr")
+    t_gauges = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    comids = fp["COMID"].tolist()
+    rng = np.random.default_rng(7)
+    write_attribute_store(rdata / "attributes.zarr", comids, {
+        name: rng.normal(loc=5.0, scale=2.0, size=len(comids)).astype(np.float32) for name in prep.ATTRS})
+    qr = prep.lateral_inflows(rng, len(comids))
+    write_hydro_store(rdata / "streamflow.zarr", comids, prep.START_DATE, "D", {"Qr": qr},
+                      units={"Qr": "m3 s-1"})
+    pos = {c: i for i, c in enumerate(comids)}
+    subsets = zarrlite.open_group(rdata / "merit_gages_adjacency.zarr")
+    staids = sorted(subsets.keys())
+    obs = np.stack([qr[[pos[int(c)] for c in subsets[g]["order"].read()]].sum(axis=0) * rng.uniform(0.9, 1.1)
+                    for g in staids]).astype(np.float32)
+    write_hydro_store(rdata / "observations.zarr", staids, prep.START_DATE, "D", {"streamflow": obs},
+                      id_dim="gage_id", units={"streamflow": "m3 s-1"})
+    t_forcing = time.perf_counter() - t0
+    sizes = [len(subsets[g]["order"].read()) for g in staids]
+    print(f"ddr merit regional table: {table['n']} reaches, {table['outlets']} outlets joined into one, depth "
+          f"{table['depth']} (make_basin's {DEPTH}), fan-in at most {table['fan_in']}, gauges {staids} over "
+          f"{sizes} reaches; built in {t_table:.2f} s (table) + {t_conus:.2f} s (conus adjacency) + "
+          f"{t_gauges:.2f} s (8 gauge subsets) + {t_forcing:.2f} s (attributes, {qr.shape} inflow, "
+          f"observations) on the host")
+    if sizes[0] != N_SEGMENTS or len(staids) != MERIT_GAUGES:
+        fail(f"ddr merit regional: gauge subsets {dict(zip(staids, sizes))}")
+
+    torch.cuda.reset_peak_memory_stats()
+    wave_scan_tm.launches = reverse_scan_tm.launches = 0
+    gages = regional / "gages.csv"
+    log, wall = run("train", rdata, gages, "regional-train", f"experiment.batch_size={MERIT_BATCH}")
+    train_launches = {"wave_scan": wave_scan_tm.launches, "reverse_scan": reverse_scan_tm.launches}
+    n_steps = len(log.train.steps)
+    print(f"ddr merit regional train: {n_steps} steps {[(e, b) for e, b, *_ in log.train.steps]}, routed reaches "
+          f"per step {log.shapes}, losses {[s[2] for s in log.train.steps]}, step host ms "
+          f"{[s[3] for s in log.train.steps]}, engine {sorted({s[4] for s in log.train.steps})}, launches "
+          f"{train_launches}, run wall {wall:.2f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB on {smi}")
+    if (n_steps != MERIT_STEPS or log.shapes != [N_SEGMENTS] * n_steps
+            or not np.all(np.isfinite([s[2] for s in log.train.steps]))
+            or train_launches != {"wave_scan": n_steps, "reverse_scan": n_steps}):
+        fail(f"ddr merit regional train: {n_steps} steps over {log.shapes} reaches, launches {train_launches}")
+
+    # the streamflow reader's whole-variable read, alone and within one batch's forcing
+    cfg = load_config(config, [*merit_overrides(rdata, gages, root / "regional-select"), "mode=training",
+                               f"experiment.batch_size={MERIT_BATCH}"], save_config=False)
+    dataset = Merit(cfg)
+    batch = dataset.collate_fn([dataset[i] for i in range(len(dataset))])
+    reader = StreamflowReader(cfg)
+    rows = np.arange(len(batch.divide_ids))
+    days = batch.dates.numerical_time_range - reader.store.time_offset_days
+    select_ms, forward_ms = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        reader.store.select("Qr", rows, days)
+        select_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        q = reader(routing_dataclass=batch)
+        forward_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"ddr merit regional forcing: HydroStore.select of {len(rows)} x {len(days)} from Qr {qr.shape} "
+          f"({qr.nbytes / 1e6:.1f} MB read whole) host ms {[round(t, 1) for t in select_ms]}, the batch's "
+          f"StreamflowReader {q.shape} host ms {[round(t, 1) for t in forward_ms]}")
+
+    ckpt = latest_checkpoint(root / "regional-train" / "saved_models")
+    wave_scan_tm.launches = wave_scan_tm.q_init_launches = reverse_scan_tm.launches = 0
+    log, wall = run("test", rdata, gages, "regional-test", f"experiment.batch_size={MERIT_BATCH}",
+                    f"experiment.checkpoint={ckpt}")
+    chunks = len(log.eval.chunks)
+    test_launches = {"wave_scan": wave_scan_tm.launches, "q_init": wave_scan_tm.q_init_launches,
+                     "reverse_scan": reverse_scan_tm.launches}
+    ms = [c[1] for c in log.eval.chunks]
+    preds = stored("regional-test", "model_test.zarr", "predictions")
+    print(f"ddr merit regional test: {chunks} chunks of {sorted({c[2] for c in log.eval.chunks})} h over "
+          f"{log.shapes[:1]} reaches, launches {test_launches}, chunk host ms median {np.median(ms):.2f} min "
+          f"{min(ms):.2f} max {max(ms):.2f}, predictions {tuple(preds.shape)}, run wall {wall:.2f} s on {smi}")
+    if chunks < 2 or test_launches != {"wave_scan": chunks, "q_init": chunks - 1, "reverse_scan": 0}:
+        fail(f"ddr merit regional test: {chunks} chunks, launches {test_launches}")
+    if tuple(preds.shape) != (MERIT_GAUGES, 180):
+        fail(f"ddr merit regional test: predictions {tuple(preds.shape)}")
+    launches["wave_scan"] += train_launches["wave_scan"] + test_launches["wave_scan"]
+    launches["reverse_scan"] += train_launches["reverse_scan"]
+    return launches
+
+
 def nvidia_smi() -> str:
     """The card's name and power limit, as ``nvidia-smi`` reports them."""
     return subprocess.run(
@@ -2687,12 +3004,14 @@ def main() -> int:
     only_ddr_cli = sys.argv[1:] == ["--ddr-cli"]
     only_ddr_serve = sys.argv[1:] == ["--ddr-serve"]
     only_ddr_loadtest = sys.argv[1:] == ["--ddr-loadtest"]
+    only_ddr_merit = sys.argv[1:] == ["--ddr-merit"]
     old_log = None
     if len(sys.argv) == 3 and sys.argv[1] == "--old-kernels":
         old_log = sys.argv[2]
-    elif sys.argv[1:] and not (only_ddr_train or only_ddr_cli or only_ddr_serve or only_ddr_loadtest):
+    elif sys.argv[1:] and not (only_ddr_train or only_ddr_cli or only_ddr_serve or only_ddr_loadtest
+                               or only_ddr_merit):
         print("usage: chip_smoke.py [--time-fp32 | --ddr-train | --ddr-cli | --ddr-serve | --ddr-loadtest | "
-              "--old-kernels LOG]", file=sys.stderr)
+              "--ddr-merit | --old-kernels LOG]", file=sys.stderr)
         return 2
     import numpy as np
 
@@ -2719,7 +3038,7 @@ def main() -> int:
     seconds = _build.build(_build.KERNELS, verbose=True)
     print(f"build: {json.dumps({k: round(v, 2) for k, v in seconds.items()})} "
           f"({time.perf_counter() - t0:.2f}s wall) into {_build.build_dir()}")
-    if only_ddr_train or only_ddr_cli or only_ddr_serve or only_ddr_loadtest:
+    if only_ddr_train or only_ddr_cli or only_ddr_serve or only_ddr_loadtest or only_ddr_merit:
         t0 = time.perf_counter()
         ddr_train(smi, dev)
         print(f"ddr train phase: {time.perf_counter() - t0:.1f}s")
@@ -2735,6 +3054,10 @@ def main() -> int:
             t0 = time.perf_counter()
             ddr_loadtest(smi, dev)
             print(f"ddr loadtest and verify phase: {time.perf_counter() - t0:.1f}s")
+        if only_ddr_merit:
+            t0 = time.perf_counter()
+            ddr_merit(smi, dev)
+            print(f"ddr merit phase: {time.perf_counter() - t0:.1f}s")
         print(smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
@@ -3075,6 +3398,11 @@ def main() -> int:
     ddr_loadtest_launches = ddr_loadtest(smi, dev)
     print(f"ddr loadtest and verify phase: {time.perf_counter() - t0:.1f}s")
 
+    # ---- 22. the MERIT real-data path: store builders, readers, the merit dataset ----
+    t0 = time.perf_counter()
+    ddr_merit_launches = ddr_merit(smi, dev)
+    print(f"ddr merit phase: {time.perf_counter() - t0:.1f}s")
+
     def band_entry(name, source, replaces, launches, err, t):
         bytes_ms, flops_ms = t["bound"]
         return {
@@ -3092,11 +3420,13 @@ def main() -> int:
         "source": "ddr_tpu_torch/csrc/wave_scan.cu",
         "replaces": "ddr_tpu/routing/pallas_kernel.py:193",
         "launches": (launches + train_launches["wave_scan"] + ddr_train_launches["wave_scan"]
-                     + ddr_eval_launches["wave_scan"] + ddr_serve_launches + ddr_loadtest_launches),
+                     + ddr_eval_launches["wave_scan"] + ddr_serve_launches + ddr_loadtest_launches
+                     + ddr_merit_launches["wave_scan"]),
         "ddr_train_launches": ddr_train_launches["wave_scan"],
         "ddr_eval_launches": ddr_eval_launches["wave_scan"],
         "ddr_serve_launches": ddr_serve_launches,
         "ddr_loadtest_launches": ddr_loadtest_launches,
+        "ddr_merit_launches": ddr_merit_launches["wave_scan"],
         "ddr_eval_q_init_launches": ddr_eval_launches["q_init"],
         "max_abs_err": max_abs,
         "ms": kernel_ms,
@@ -3110,8 +3440,10 @@ def main() -> int:
         "route": "cuda",
         "source": "ddr_tpu_torch/csrc/reverse_scan.cu",
         "replaces": "ddr_tpu/routing/pallas_kernel.py:348",
-        "launches": train_launches["reverse_scan"] + ddr_train_launches["reverse_scan"],
+        "launches": (train_launches["reverse_scan"] + ddr_train_launches["reverse_scan"]
+                     + ddr_merit_launches["reverse_scan"]),
         "ddr_train_launches": ddr_train_launches["reverse_scan"],
+        "ddr_merit_launches": ddr_merit_launches["reverse_scan"],
         "max_abs_err": reverse_err,
         "ms": reverse_ms,
         "plain_ms": reverse_plain_ms,

@@ -1,7 +1,8 @@
 """Batch contracts between the data layer and the routing engine: the port's
 copy of ``ddr_tpu/geodatazoo/dataclasses.py`` on numpy and the standard library.
 
-Gauge records are validated dataclasses; :class:`Dates` keeps its day and
+Gauge records (:class:`Gauge`, :class:`MERITGauge`, gathered in a
+:class:`GaugeSet`) are validated dataclasses; :class:`Dates` keeps its day and
 hour ranges as numpy ``datetime64`` arrays, and draws and indexes batch
 windows exactly as the JAX package's pandas form does, so one
 ``np.random.Generator`` state gives the same windows in both;
@@ -12,13 +13,15 @@ arrays on the host.
 from __future__ import annotations
 
 import copy
+import csv
 import dataclasses
 from datetime import datetime
+from pathlib import Path
 from typing import Any
 
 import numpy as np
 
-__all__ = ["Dates", "Gauge", "RoutingData"]
+__all__ = ["Dates", "Gauge", "GaugeSet", "MERITGauge", "RoutingData", "validate_gages"]
 
 DAILY_FORMAT = "%Y/%m/%d"
 ORIGIN_START_DATE = "1980/01/01"  # day 0 of the streamflow stores
@@ -47,15 +50,44 @@ class Gauge:
             if value is not None:
                 setattr(self, name, None if str(value).strip() == "" else float(value))
 
+    #: the columns a row must have
+    _REQUIRED = ("STAID", "DRAIN_SQKM")
+
     @classmethod
     def model_validate(cls, row: dict[str, Any]) -> "Gauge":
         """A gauge from one CSV row (a mapping of column name to text)."""
         known = {f.name for f in dataclasses.fields(cls)} - {"extra"}
-        missing = [name for name in ("STAID", "DRAIN_SQKM") if name not in row]
+        missing = [name for name in cls._REQUIRED if name not in row]
         if missing:
             raise ValueError(f"gauge row {row!r}: missing {missing}")
         kwargs = {k: v for k, v in row.items() if k in known}
         return cls(**kwargs, extra={k: v for k, v in row.items() if k not in known})
+
+
+@dataclasses.dataclass
+class MERITGauge(Gauge):
+    """A MERIT gauge: a :class:`Gauge` with the COMID of its catchment."""
+
+    COMID: int | None = None
+
+    _REQUIRED = ("STAID", "DRAIN_SQKM", "COMID")
+
+    def __post_init__(self) -> None:
+        super().__post_init__()
+        if self.COMID is None:
+            raise ValueError(f"gauge {self.STAID}: COMID is required")
+        self.COMID = int(self.COMID)
+
+
+@dataclasses.dataclass
+class GaugeSet:
+    gauges: list[Gauge]
+
+
+def validate_gages(file_path: str | Path, gauge_type: type[Gauge] = Gauge) -> GaugeSet:
+    """A gauge CSV as a validated :class:`GaugeSet`."""
+    with Path(file_path).open() as f:
+        return GaugeSet(gauges=[gauge_type.model_validate(row) for row in csv.DictReader(f)])
 
 
 def _day(text: str) -> np.datetime64:

@@ -37,7 +37,7 @@ def kan_state_from_flax(params: dict[str, Any]) -> dict[str, torch.Tensor]:
         layer = tree[f"KANLayer_{i}"]
         if "knots" in layer:
             raise NotImplementedError(
-                "adaptive-grid KAN layers (per-feature knots) are a later slice of the port"
+                "adaptive-grid KAN layers (per-feature knots) are not ported yet (ROADMAP A.5)"
             )
         state[f"layers.{i}.w_base"] = t(layer["w_base"])
         state[f"layers.{i}.spline_coef"] = t(layer["spline_coef"])

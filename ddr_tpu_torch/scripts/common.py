@@ -17,6 +17,7 @@ import torch
 
 from ddr_tpu_torch.device import resolve_device
 from ddr_tpu_torch.geodatazoo.loader import DataLoader
+from ddr_tpu_torch.io.readers import StreamflowReader
 from ddr_tpu_torch.nn.kan import Kan
 from ddr_tpu_torch.routing.model import dmc
 from ddr_tpu_torch.training import load_state
@@ -110,13 +111,12 @@ def kan_arch(cfg: Config) -> dict:
 
 
 def get_flow_fn(cfg: Config, dataset: Any) -> Callable[..., np.ndarray]:
-    """The lateral-inflow source: the dataset's own generator. The store
-    reader of the real-data datasets is not ported yet."""
+    """The lateral-inflow source: the dataset's own generator (synthetic) or
+    a :class:`~ddr_tpu_torch.io.readers.StreamflowReader` over the
+    configured store."""
     if hasattr(dataset, "streamflow"):
         return dataset.streamflow
-    raise NotImplementedError(
-        "reading lateral inflow from a streamflow store is not ported yet (ROADMAP A.8)"
-    )
+    return StreamflowReader(cfg)
 
 
 def daily_observation_targets(rd: Any) -> tuple[np.ndarray, np.ndarray]:

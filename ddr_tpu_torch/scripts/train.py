@@ -68,7 +68,7 @@ __all__ = ["main", "train"]
 TELEMETRY_ABSENT = (
     "not in this port yet, so off in this run: drift and skill tracking, the performance "
     "sentinel and heartbeats (they write into the telemetry plane, ROADMAP A.10), and the "
-    "validation plots (ROADMAP A.7)"
+    "validation plots (they need matplotlib)"
 )
 
 

@@ -208,7 +208,7 @@ class _Section:
 
 @dataclasses.dataclass
 class DataSources(_Section):
-    """Data source paths (read by the store-backed datasets, ROADMAP A.8)."""
+    """Data source paths, read by the store-backed datasets (``merit``)."""
 
     attributes: str | None = None
     geospatial_fabric_gpkg: Path | None = None

@@ -20,12 +20,19 @@ class GeoDataset(str, Enum):
     synthetic = "synthetic"  # in-memory fixture dataset, no external data needed
 
     def get_dataset_class(self, cfg, device=None):
-        """The dataset ``cfg`` names, on ``device`` (default ``cfg.device``).
-        Only the synthetic twin is ported; the store-backed datasets raise."""
-        if self is not GeoDataset.synthetic:
+        """The dataset ``cfg`` names; the synthetic twin routes its
+        observations on ``device`` (default ``cfg.device``), the store-backed
+        datasets hand out host arrays only. ``lynker_hydrofabric`` is not
+        ported yet and raises."""
+        if self is GeoDataset.merit:
+            from ddr_tpu_torch.geodatazoo.merit import Merit
+
+            return Merit(cfg, device=device)
+        if self is GeoDataset.lynker_hydrofabric:
             raise NotImplementedError(
-                f"geodataset {self.value!r} reads the real-data stores, which the port does not "
-                "have yet (ROADMAP A.8); use geodataset=synthetic"
+                "geodataset 'lynker_hydrofabric' (the Lynker hydrofabric dataset and its engine "
+                "builders) is not ported yet (ROADMAP A.8, its lynker_hydrofabric item); use "
+                "geodataset=merit or geodataset=synthetic"
             )
         from ddr_tpu_torch.geodatazoo.synthetic import Synthetic
 

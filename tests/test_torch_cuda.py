@@ -631,3 +631,46 @@ def test_ensemble_launch_equals_single_launches_and_the_plain_scan(card, members
         assert ans["runoff"].shape == (3, 24, 4) and np.isfinite(ans["runoff"]).all()
     finally:
         svc.close()
+
+
+@pytest.mark.cuda
+def test_merit_example_commands_launch_once_a_step_and_once_a_chunk(card, tmp_path):
+    """``ddr train`` and ``ddr test`` on the MERIT example's stores, on the
+    card: one ``wave_scan`` and one ``reverse_scan`` launch a train step (no
+    twin observation route on a store-backed dataset), one ``wave_scan``
+    launch an evaluation chunk, each chunk after the first from the carried
+    ``q_init``."""
+    import logging
+    import shutil
+    from pathlib import Path
+
+    from ddr_tpu_torch import cli
+    from ddr_tpu_torch.scripts.prepare_merit_example import prepare
+    from ddr_tpu_torch.training import latest_checkpoint
+    from chip_smoke import EvalLog, TrainLog, merit_overrides
+
+    example = tmp_path / "merit_basin"
+    shutil.copytree(Path(__file__).resolve().parents[1] / "examples" / "merit_basin", example,
+                    ignore=shutil.ignore_patterns("data", "output"))
+    prepare(example)
+    overrides = merit_overrides(example / "data", example / "gages.csv", tmp_path / "run")
+    train_log, eval_log = TrainLog(), EvalLog()
+    loggers = [logging.getLogger(n) for n in ("ddr_tpu_torch.scripts.train", "ddr_tpu_torch.scripts.common")]
+    for logger, handler in zip(loggers, (train_log, eval_log)):
+        logger.addHandler(handler)
+        logger.setLevel(logging.INFO)
+    try:
+        wave_scan_tm.launches = reverse_scan_tm.launches = 0
+        assert cli.main(["train", str(example / "config.yaml"), *overrides]) == 0
+        steps = len(train_log.steps)
+        assert steps == 2 and (wave_scan_tm.launches, reverse_scan_tm.launches) == (steps, steps)
+        ckpt = latest_checkpoint(tmp_path / "run" / "saved_models")
+        wave_scan_tm.launches = wave_scan_tm.q_init_launches = reverse_scan_tm.launches = 0
+        assert cli.main(["test", str(example / "config.yaml"), *overrides, f"experiment.checkpoint={ckpt}"]) == 0
+        chunks = len(eval_log.chunks)
+        assert chunks == 91
+        assert (wave_scan_tm.launches, wave_scan_tm.q_init_launches, reverse_scan_tm.launches) == (
+            chunks, chunks - 1, 0)
+    finally:
+        for logger, handler in zip(loggers, (train_log, eval_log)):
+            logger.removeHandler(handler)

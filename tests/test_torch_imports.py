@@ -64,7 +64,13 @@ def test_port_imports_no_jax_and_nothing_of_ddr_tpu():
             "ddr_tpu_torch.observability.slo", "ddr_tpu_torch.observability.verification",
             "ddr_tpu_torch.fleet", "ddr_tpu_torch.fleet.config", "ddr_tpu_torch.fleet.prng",
             "ddr_tpu_torch.fleet.ensemble", "ddr_tpu_torch.scripts.loadtest",
-            "ddr_tpu_torch.scripts.verify"} <= names
+            "ddr_tpu_torch.scripts.verify",
+            # the MERIT real-data path: engine builders, stores, readers, the dataset
+            "ddr_tpu_torch.engine", "ddr_tpu_torch.engine.core", "ddr_tpu_torch.engine.graph",
+            "ddr_tpu_torch.engine.merit", "ddr_tpu_torch.engine.merit_cli",
+            "ddr_tpu_torch.scripts.prepare_merit_example", "ddr_tpu_torch.io.stores",
+            "ddr_tpu_torch.io.statistics", "ddr_tpu_torch.io.builders",
+            "ddr_tpu_torch.geodatazoo.base", "ddr_tpu_torch.geodatazoo.merit"} <= names
     assert bad == "[]", f"the port imported {bad}"
 
 

@@ -8,7 +8,8 @@
     python3 chip_smoke.py --ddr-cli     # only the build and phases 18-19 (every ported command)
     python3 chip_smoke.py --ddr-serve   # only the build and phases 18 and 20 (ddr serve)
     python3 chip_smoke.py --ddr-loadtest  # only the build and phases 18 and 21 (loadtest, verify)
-    python3 chip_smoke.py --ddr-merit   # only the build and phases 18 and 22 (the MERIT path)
+    python3 chip_smoke.py --ddr-merit   # only the build and phases 18 and 22 (the MERIT path, ΣQ')
+    python3 chip_smoke.py --ddr-lynker  # only the build and phases 18 and 23 (the Lynker path)
 
 From the root of a checkout, with one CUDA card visible. Phases, each fatal
 on failure (non-zero exit, no result line):
@@ -188,7 +189,37 @@ on failure (non-zero exit, no result line):
            the peak device memory and the host ms of the streamflow store's
            whole-variable read (``HydroStore.select``); then ``ddr test`` at
            that width, one ``wave_scan`` launch a chunk, all but the first
-           from the carried ``q_init``.
+           from the carried ``q_init``. Then the un-routed baseline: ``ddr
+           summed-q-prime`` on the example with ``device=cpu`` and on the
+           card (predictions held to 1e-6 relative) and on the regional
+           table, each timed, and ``ddr benchmark`` with
+           ``summed_q_prime: <its store>`` on both (the ΣQ' battery beside
+           MC's and LTI's, both mass balances, one ``wave_scan`` launch a
+           chunk at the regional width, over the config's first 92 days).
+23. ddr lynker  the Lynker hydrofabric path: a hydrofabric GeoPackage
+           (sqlite: ``flowpaths``, ``network`` with ``wb-``/``nex-`` ids and
+           ``hl_uri`` gauges, ``flowpath-attributes-ml`` with ``Length_m``,
+           ``So`` and ``TopWdth``, ``ChSlp``, ``MusX`` drawn from a seed)
+           of 12 flowpaths and 2 gauges, its stores built by ``python -m
+           ddr_tpu_torch.engine.lynker_cli ... --gages`` and its inflow keyed
+           ``cat-{id}``; ``ddr train`` (2 steps), ``ddr test`` and ``ddr
+           route`` on the example config with ``geodataset:
+           lynker_hydrofabric``, on the CPU and the card (losses rtol 1e-4,
+           predictions and discharge 1e-5); then the regional topology of
+           phase 22 as a hydrofabric with 8 gauges and 400 days of inflow,
+           its stores built by ``lynker_cli`` in-process with the host
+           seconds of each part (table reads, matrix, attributes, collapse,
+           gauge subsets), ``ddr train`` at batch 8 (2 steps over all 65,536
+           reaches, one launch of each kernel a step) and ``ddr test`` in
+           8-day chunks over 92 days, each step's and chunk's host ms, and both kernels on
+           that network, per-reach ``x`` from ``MusX``, against their plain
+           versions.
+Phases 18, 19, 21, 22 and 23 run with ``DDR_METRICS_DIR`` set to a
+directory per run, and print each run log's split: a ``ddr train`` run's
+step phases (``summarize_phases``), the steps' loop wall and the share of
+the run's wall left untimed; an evaluation run's chunk seconds against its
+wall. Phase 21 then replays its ``ddr verify --synthetic`` run log with
+``ddr verify <logdir>`` beside the live report.
 The service of phases 3 and 7 runs with its health watchdog on, which must
 have seen every served batch and not be degraded; phase 8's gradient check
 also holds the bf16 kernels against the bf16 plain scans. Every kernel's
@@ -279,6 +310,15 @@ DDR_ENSEMBLE_MEMBERS, DDR_ENSEMBLE_PEAK_MEMBERS, DDR_VERIFY_CRPS_TOL = (8, 32), 
 MERIT_EXAMPLE, MERIT_STEPS = "examples/merit_basin", 2
 MERIT_GAUGES, MERIT_BATCH, MERIT_MAX_FAN_IN = 8, 8, 4
 MERIT_SQKM_PER_REACH = 25.0  # the drainage area a gauge reports, per upstream reach
+# The Lynker hydrofabric path (phase 23): the regional topology's 8 gauges in
+# one batch of 8, as on the MERIT table; a flowpath's drainage area per
+# upstream reach
+LYNKER_GAUGES, LYNKER_SQKM_PER_REACH = 8, 25.0
+# ddr summed-q-prime's predictions, the card's torch.nansum against the CPU's
+SQP_RTOL = 1e-6
+# the regional ddr benchmark with its ΣQ' store and the regional Lynker ddr
+# test cover the config's first 92 days (12 chunks of up to 8 days), not its 182
+REGIONAL_SHORT_WINDOW = ("experiment.end_time=1981/12/31",)
 
 
 def fail(msg: str) -> None:
@@ -1932,14 +1972,17 @@ def ddr_train(smi, dev) -> dict:
     logger = logging.getLogger(train_script.__name__)
     logger.setLevel(logging.INFO)
 
-    def run(name, *overrides):
+    def run(name, *overrides, log_name=None):
         log = TrainLog()
         logger.addHandler(log)
+        logs = root / "logs" / (log_name or name)
+        os.environ["DDR_METRICS_DIR"] = str(logs)
         t0 = time.perf_counter()
         try:
             code = cli.main(["train", DDR_TRAIN_CONFIG, *overrides, f"params.save_path={root / name}"])
             torch.cuda.synchronize()
         finally:
+            os.environ.pop("DDR_METRICS_DIR", None)
             logger.removeHandler(log)
         wall = time.perf_counter() - t0
         losses = [loss for *_, loss, _, _ in log.steps]
@@ -1949,7 +1992,10 @@ def ddr_train(smi, dev) -> dict:
         engines = sorted({engine for *_, engine in log.steps})
         print(f"ddr train {name}: {len(log.steps)} steps {[(e, b) for e, b, *_ in log.steps]}, "
               f"losses {losses}, step host ms [{ms}], engine {engines}, run wall {wall:.2f} s on {smi}")
+        run_log_split(logs, "train", smi)
         return log, wall
+
+    import os
 
     import numpy as np
     import torch
@@ -1978,7 +2024,8 @@ def ddr_train(smi, dev) -> dict:
     newest = latest_checkpoint(saved)
     if newest is None or not newest.name.endswith("_epoch_2_mb_1.pkl") or len(list(saved.glob("*.pkl"))) != steps:
         fail(f"ddr train regional: checkpoints {sorted(p.name for p in saved.glob('*.pkl'))}")
-    resumed, _ = run("regional", *full_size, "experiment.epochs=3", f"experiment.checkpoint={saved}")
+    resumed, _ = run("regional", *full_size, "experiment.epochs=3", f"experiment.checkpoint={saved}",
+                     log_name="regional-resume")
     if (resumed.resumed != [(newest.name, 2)] or resumed.skipped != [0, 1]
             or [s[:2] for s in resumed.steps] != [(3, 0), (3, 1)]):
         fail(f"ddr train resume: resumed {resumed.resumed}, skipped {resumed.skipped}, "
@@ -2012,6 +2059,8 @@ def ddr_eval(smi, dev) -> dict:
     """Phase 19: ``ddr test``, ``ddr route``, ``ddr train-and-test`` and
     ``ddr benchmark`` through the port's CLI (see the module docstring), from
     phase 18's checkpoints. Returns the launch counts of the full-width runs."""
+    import os
+
     import numpy as np
     import torch
 
@@ -2037,11 +2086,14 @@ def ddr_eval(smi, dev) -> dict:
         log = EvalLog()
         for logger in loggers:
             logger.addHandler(log)
+        logs = root / "logs" / name
+        os.environ["DDR_METRICS_DIR"] = str(logs)
         t0 = time.perf_counter()
         try:
             code = cli.main([command, DDR_TRAIN_CONFIG, *overrides, f"params.save_path={root / name}"])
             torch.cuda.synchronize()
         finally:
+            os.environ.pop("DDR_METRICS_DIR", None)
             for logger in loggers:
                 logger.removeHandler(log)
         wall = time.perf_counter() - t0
@@ -2052,6 +2104,9 @@ def ddr_eval(smi, dev) -> dict:
             print(f"ddr {command} {name}: {len(ms)} chunks of {sorted({c[2] for c in log.chunks})} h, chunk "
                   f"host ms median {np.median(ms):.2f} min {min(ms):.2f} max {max(ms):.2f} (first "
                   f"{ms[0]:.2f}), sum {sum(ms) / 1e3:.2f} s, run wall {wall:.2f} s on {smi}")
+        for cmd in ("test", "route", "train-and-test"):
+            if (logs / f"run_log.{cmd}.jsonl").exists():
+                run_log_split(logs, cmd, smi)
         return log, wall
 
     def store(name, zarr, arrays):
@@ -2498,6 +2553,8 @@ def ddr_loadtest(smi, dev) -> int:
     (see the module docstring), from phase 18's newest checkpoint. Returns
     the phase's main-path ``wave_scan`` launches (the load tests, the
     ensembles and ``ddr verify``; not those made to compare or time)."""
+    import os
+
     import numpy as np
     import torch
 
@@ -2529,10 +2586,12 @@ def ddr_loadtest(smi, dev) -> int:
     # ---- 1. ddr loadtest in-process, on the run config ----
     set_registry(MetricsRegistry(const_labels={"host": 0}))
     wave_scan_tm.launches = 0
+    os.environ["DDR_METRICS_DIR"] = str(root / "logs" / "inprocess")
     report = run_command(loadtest.main, [
         *config_argv, "--rps", str(DDR_LOADTEST_INPROCESS_RATE), "--duration", str(DDR_LOADTEST_SECONDS),
         "--out", str(root), "--label", "inprocess"], "ddr loadtest in-process")
     launches = wave_scan_tm.launches
+    run_log_split(root / "logs" / "inprocess", "loadtest", smi)
     main_launches += launches
     print(loadtest_line(f"in-process {DDR_LOADTEST_INPROCESS_RATE:g}/s", report, launches, smi))
     # the observation route, the warmup, the priming request's batch and the run's batches
@@ -2560,13 +2619,16 @@ def ddr_loadtest(smi, dev) -> int:
         reports = []
         for i, (label, extra) in enumerate(runs):
             before = wave_scan_tm.launches
+            os.environ["DDR_METRICS_DIR"] = str(root / "logs" / f"http-{i}")
             report = run_command(loadtest.main, ["--url", server.url, "--t0-span", str(span), *extra,
                                                  "--out", str(root), "--label", f"http-{i}"],
                                  f"ddr loadtest {label}")
+            run_log_split(root / "logs" / f"http-{i}", "loadtest", smi)
             print(loadtest_line(label, report, wave_scan_tm.launches - before, smi))
             if report["errors"] or report["ok"] < 1:
                 fail(f"ddr loadtest {label}: {report['errors']} errors, {report['ok']} ok")
             reports.append(report)
+        os.environ.pop("DDR_METRICS_DIR", None)
         metrics = scrape(server.url)
         launches = wave_scan_tm.launches
         main_launches += launches
@@ -2676,9 +2738,13 @@ def ddr_loadtest(smi, dev) -> int:
     set_registry(MetricsRegistry(const_labels={"host": 0}))
     wave_scan_tm.launches = 0
     t0 = time.perf_counter()
-    report = run_command(verify.main, ["--synthetic", "--n", str(N_SEGMENTS), "--horizon", str(HORIZON),
-                                       "--members", "8", "--requests", "6", "--out", str(root), "--label", "p21"],
-                         "ddr verify --synthetic")
+    os.environ["DDR_METRICS_DIR"] = str(root / "logs" / "verify")
+    try:
+        report = run_command(verify.main, ["--synthetic", "--n", str(N_SEGMENTS), "--horizon", str(HORIZON),
+                                           "--members", "8", "--requests", "6", "--out", str(root), "--label",
+                                           "p21"], "ddr verify --synthetic")
+    finally:
+        os.environ.pop("DDR_METRICS_DIR", None)
     launches = wave_scan_tm.launches
     main_launches += launches
     print(f"ddr verify --synthetic ({N_SEGMENTS} reaches, {HORIZON} h, 6 ensembles of 8): CRPS sharp "
@@ -2689,6 +2755,16 @@ def ddr_loadtest(smi, dev) -> int:
     if (not report["ordering_ok"] or report["device"] != torch.cuda.get_device_name(dev)
             or launches != 1 + 6 + 6):  # warmup, 6 truths and 6 ensembles (t0 windows 0..5)
         fail(f"ddr verify: ordering {report['ordering_ok']} on {report['device']}, {launches} launches")
+    run_log_split(root / "logs" / "verify", "verify", smi)
+    # ddr verify <logdir>: the run log's verify events, replayed
+    replay = run_command(verify.main, [str(root / "logs" / "verify"), "--out", str(root), "--label", "p21-replay"],
+                         "ddr verify <logdir>")
+    print(f"ddr verify <logdir> (replay of the run log): CRPS {replay['crps']}, {replay['matched_samples']} samples, "
+          f"Brier {replay['brier']}, spread-skill {replay['spread_skill']}, {replay['files']} file(s); beside the live "
+          f"report above: CRPS sharp {report['crps']}, degraded {report['crps_degraded']}, "
+          f"{report['matched_samples']} samples")
+    if replay["files"] != 1 or not replay["matched_samples"] or replay["crps"] is None:
+        fail(f"ddr verify <logdir>: {replay}")
     set_registry(None)
     print(f"ddr loadtest phase: peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB since the last "
           f"reset (the E = {DDR_ENSEMBLE_PEAK_MEMBERS} ensemble above has its own)")
@@ -2706,16 +2782,15 @@ def merit_overrides(data: Path, gages: Path, save: Path) -> list[str]:
             f"params.save_path={save}"]
 
 
-def regional_merit_table(root: Path) -> dict:
-    """Write ``root/flowpaths.csv`` and ``root/gages.csv``: the topology of
-    ``make_basin(N_SEGMENTS, depth=DEPTH, seed=0)`` as a MERIT table. Its
-    outlets (every reach of the last level) are joined into the one with
-    the most upstream reaches by a breadth-first merge tree in which no
-    reach takes more than ``MERIT_MAX_FAN_IN`` upstream reaches (no reach
-    of the generated topology has more). Gauges: that outlet, and the other
-    former outlets with the most upstream reaches."""
-    import csv
-
+def regional_topology() -> dict:
+    """The topology of ``make_basin(N_SEGMENTS, depth=DEPTH, seed=0)`` with
+    its outlets (every reach of the last level) joined into the one with the
+    most upstream reaches by a breadth-first merge tree in which no reach
+    takes more than ``MERIT_MAX_FAN_IN`` upstream reaches (no reach of the
+    generated topology has more): each reach's upstream list ``ups`` and
+    downstream ``down`` (-1 at the outlet), its upstream reach count
+    ``area``, the outlet ``main`` and the other former outlets ``rest``
+    (largest first), and the basin's routing data (lengths, slopes)."""
     import numpy as np
 
     from ddr_tpu_torch.geodatazoo.synthetic import make_basin
@@ -2725,7 +2800,7 @@ def regional_merit_table(root: Path) -> dict:
     n, rows, cols = N_SEGMENTS, rd.adjacency_rows, rd.adjacency_cols
     fan_in_before = int(np.bincount(rows, minlength=n).max())
     if fan_in_before > MERIT_MAX_FAN_IN:
-        fail(f"merit table: the generated topology has fan-in {fan_in_before} > {MERIT_MAX_FAN_IN}")
+        fail(f"regional topology: the generated topology has fan-in {fan_in_before} > {MERIT_MAX_FAN_IN}")
     down = np.full(n, -1)
     down[cols] = rows
     level = compute_levels(rows, cols, n)
@@ -2748,7 +2823,21 @@ def regional_merit_table(root: Path) -> dict:
         receivers.append(o)
     new_rows = np.asarray([r for r in range(n) for _ in ups[r]])
     new_cols = np.asarray([c for r in range(n) for c in ups[r]])
-    depth = int(compute_levels(new_rows, new_cols, n).max())
+    return {"rd": rd, "n": n, "ups": ups, "down": down, "area": area, "main": main, "rest": rest,
+            "outlets": len(outlets), "depth": int(compute_levels(new_rows, new_cols, n).max()),
+            "fan_in": int(np.bincount(new_rows, minlength=n).max())}
+
+
+def regional_merit_table(root: Path) -> dict:
+    """Write ``root/flowpaths.csv`` and ``root/gages.csv``: the regional
+    topology (:func:`regional_topology`) as a MERIT table. Gauges: the
+    outlet, and the other former outlets with the most upstream reaches."""
+    import csv
+
+    import numpy as np
+
+    topo = regional_topology()
+    rd, n, ups, down, area, main, rest = (topo[k] for k in ("rd", "n", "ups", "down", "area", "main", "rest"))
     comid = 71_000_001 + np.random.default_rng(0).permutation(n)  # ids not in topological order
     with (root / "flowpaths.csv").open("w", newline="") as f:
         w = csv.writer(f)
@@ -2766,13 +2855,15 @@ def regional_merit_table(root: Path) -> dict:
             w.writerow([f"0{9100000 + k}", "outlet" if k == 0 else f"tributary {k}",
                         f"{MERIT_SQKM_PER_REACH * area[g]:.1f}" if k else f"{MERIT_SQKM_PER_REACH * n:.1f}",
                         40.0, -75.0, int(comid[g]), True])
-    return {"n": n, "outlets": len(outlets), "depth": depth, "fan_in": int(np.bincount(new_rows, minlength=n).max()),
+    return {"n": n, "outlets": topo["outlets"], "depth": topo["depth"], "fan_in": topo["fan_in"],
             "gauge_reaches": [n] + [int(area[g]) for g in gauges[1:]]}
 
 
 def ddr_merit(smi, dev) -> dict:
     """Phase 22: the MERIT real-data path (see the module docstring).
     Returns the launch counts of its card runs."""
+    import os
+
     import numpy as np
     import torch
 
@@ -2826,11 +2917,13 @@ def ddr_merit(smi, dev) -> dict:
         log = MeritLog()
         for logger in loggers:
             logger.addHandler(log)
+        os.environ["DDR_METRICS_DIR"] = str(root / "logs" / name)
         t0 = time.perf_counter()
         try:
             code = cli.main([command, config, *merit_overrides(data, gages, root / name), *extra])
             torch.cuda.synchronize()
         finally:
+            os.environ.pop("DDR_METRICS_DIR", None)
             for logger in loggers:
                 logger.removeHandler(log)
         wall = time.perf_counter() - t0
@@ -2879,6 +2972,19 @@ def ddr_merit(smi, dev) -> dict:
             print(f"ddr merit example {command} {device}: {len(log.eval.chunks)} chunks, {zarr} {array} "
                   f"{tuple(out[device].shape)}, run wall {wall:.2f} s")
         compare(out["cpu"], out["cuda"], f"ddr merit example {command}, card against CPU")
+    # the un-routed baseline: ddr summed-q-prime on the CPU and the card, then ddr benchmark reading it
+    sqp = {}
+    for device in ("cpu", "cuda"):
+        sqp[device] = summed_q_prime(root, config, merit_overrides(data, gages, root / f"example-sqp-{device}"),
+                                     f"example {device}", f"device={device}")
+    rel = float(np.max(np.abs(sqp["cuda"] - sqp["cpu"]) / np.abs(sqp["cpu"])))
+    print(f"ddr summed-q-prime example: predictions {sqp['cuda'].shape}, card against CPU max rel {rel:.3e} "
+          f"(limit {SQP_RTOL:g})")
+    if rel > SQP_RTOL:
+        fail(f"ddr summed-q-prime example: card against CPU max rel {rel:.3e} > {SQP_RTOL}")
+    sqp_benchmark(root, config, merit_overrides(data, gages, root / "example-bench"),
+                  root / "example-sqp-cuda" / "summed_q_prime.zarr", "example", smi, "mode=testing",
+                  f"experiment.checkpoint={card_ckpt}")
     launches["wave_scan"] += wave_scan_tm.launches
     launches["reverse_scan"] += reverse_scan_tm.launches
 
@@ -2938,6 +3044,7 @@ def ddr_merit(smi, dev) -> dict:
             or not np.all(np.isfinite([s[2] for s in log.train.steps]))
             or train_launches != {"wave_scan": n_steps, "reverse_scan": n_steps}):
         fail(f"ddr merit regional train: {n_steps} steps over {log.shapes} reaches, launches {train_launches}")
+    run_log_split(root / "logs" / "regional-train", "train", smi)
 
     # the streamflow reader's whole-variable read, alone and within one batch's forcing
     cfg = load_config(config, [*merit_overrides(rdata, gages, root / "regional-select"), "mode=training",
@@ -2973,10 +3080,474 @@ def ddr_merit(smi, dev) -> dict:
           f"{min(ms):.2f} max {max(ms):.2f}, predictions {tuple(preds.shape)}, run wall {wall:.2f} s on {smi}")
     if chunks < 2 or test_launches != {"wave_scan": chunks, "q_init": chunks - 1, "reverse_scan": 0}:
         fail(f"ddr merit regional test: {chunks} chunks, launches {test_launches}")
+    run_log_split(root / "logs" / "regional-test", "test", smi)
     if tuple(preds.shape) != (MERIT_GAUGES, 180):
         fail(f"ddr merit regional test: predictions {tuple(preds.shape)}")
     launches["wave_scan"] += train_launches["wave_scan"] + test_launches["wave_scan"]
     launches["reverse_scan"] += train_launches["reverse_scan"]
+
+    regional_sqp = summed_q_prime(root, config, merit_overrides(rdata, gages, root / "regional-sqp"), "regional")
+    if regional_sqp.shape != (MERIT_GAUGES, 182):
+        fail(f"ddr summed-q-prime regional: predictions {regional_sqp.shape}")
+    wave_scan_tm.launches = wave_scan_tm.q_init_launches = 0
+    chunks = sqp_benchmark(root, config, merit_overrides(rdata, gages, root / "regional-bench"),
+                           root / "regional-sqp" / "summed_q_prime.zarr", "regional", smi, "mode=testing",
+                           *REGIONAL_SHORT_WINDOW, f"experiment.batch_size={MERIT_BATCH}",
+                           f"experiment.checkpoint={ckpt}")
+    if (wave_scan_tm.launches, wave_scan_tm.q_init_launches) != (chunks, chunks - 1):
+        fail(f"ddr benchmark regional: {chunks} chunks, launches {wave_scan_tm.launches}/"
+             f"{wave_scan_tm.q_init_launches}")
+    launches["wave_scan"] += wave_scan_tm.launches
+    return launches
+
+
+def summed_q_prime(root: Path, config: str, overrides: list[str], label: str, *extra: str):
+    """``ddr summed-q-prime`` through the port's CLI, timed; returns its
+    stored daily predictions ``(G, D)``."""
+    import numpy as np
+
+    from ddr_tpu_torch import cli
+    from ddr_tpu_torch.io import zarrlite
+
+    save = Path(next(o for o in overrides if o.startswith("params.save_path=")).split("=", 1)[1])
+    t0 = time.perf_counter()
+    code = cli.main(["summed-q-prime", config, *overrides, *extra])
+    wall = time.perf_counter() - t0
+    if code != 0:
+        fail(f"ddr summed-q-prime {label}: exit {code}")
+    group = zarrlite.open_group(save / "summed_q_prime.zarr")
+    preds = group["predictions"][:]
+    summary = json.loads((save / "summed_q_prime_summary.json").read_text())
+    if preds.size == 0 or not np.isfinite(preds).all():
+        fail(f"ddr summed-q-prime {label}: predictions {preds.shape} empty or not finite")
+    print(f"ddr summed-q-prime {label}: gauges {group.attrs['gage_ids']}, predictions {preds.shape}, NSE median "
+          f"{summary['nse']['median']:.4f}, KGE median {summary['kge']['median']:.4f}, eval_q_prime through the "
+          f"CLI {wall:.3f} s of wall")
+    return preds
+
+
+def sqp_benchmark(root: Path, config: str, overrides: list[str], store: Path, label: str, smi: str,
+                  *extra: str) -> int:
+    """``ddr benchmark`` with ``summed_q_prime: store`` through the port's
+    CLI on the card: prints the ΣQ' battery beside MC's and LTI's and the
+    two mass balances; returns the evaluation's chunk count."""
+    import numpy as np
+
+    from ddr_tpu_torch import cli
+    from ddr_tpu_torch.benchmarks import benchmark as bench
+
+    captured, lines = {}, []
+
+    class MassLog(logging.Handler):
+        def emit(self, record):
+            msg = record.getMessage()
+            if msg.startswith("Mass balance") or msg.startswith("Summed Q'"):
+                lines.append(msg)
+
+    original = bench.benchmark
+    bench.benchmark = lambda cfg: captured.setdefault("results", original(cfg))
+    logger, handler, chunks = logging.getLogger(bench.__name__), MassLog(), EvalLog()
+    logger.setLevel(logging.INFO)
+    logger.addHandler(handler)
+    common = logging.getLogger("ddr_tpu_torch.scripts.common")
+    common.addHandler(chunks)
+    t0 = time.perf_counter()
+    try:
+        code = cli.main(["benchmark", config, *overrides, f"summed_q_prime={store}", *extra])
+    finally:
+        bench.benchmark = original
+        logger.removeHandler(handler)
+        common.removeHandler(chunks)
+    wall = time.perf_counter() - t0
+    results = captured.get("results", {})
+    if code != 0 or sorted(results) != ["lti", "mc", "summed_q_prime"] or len(lines) != 3:
+        fail(f"ddr benchmark {label} with a ΣQ' store: exit {code}, batteries {sorted(results)}, log {lines}")
+    battery = {name: {m: round(float(np.nanmedian(getattr(r, m))), 4) for m in ("nse", "kge", "pbias")}
+               for name, r in results.items()}
+    print(f"ddr benchmark {label} with its ΣQ' store: medians {json.dumps(battery)}; {'; '.join(lines)}; "
+          f"{len(chunks.chunks)} chunks, run wall {wall:.2f} s on {smi}")
+    return len(chunks.chunks)
+
+
+def write_hydrofabric(root: Path, down, length_m, slope, gauges: dict, seed: int) -> dict:
+    """Write ``root/hydrofabric.gpkg`` (sqlite, as a Lynker hydrofabric v2.2
+    GeoPackage lays it out) for the reaches of ``down`` (each reach's
+    downstream reach, -1 at an outlet) and ``root/gages.csv`` for
+    ``gauges`` (STAID -> reach). Waterbody ids are ``wb-{id}`` with ids in no
+    topological order; every flowpath drains into the nexus ``nex-{id}`` of
+    its downstream waterbody, an outlet into a terminal nexus whose ``toid``
+    is NULL. ``flowpath-attributes-ml`` holds ``Length_m`` and ``So`` from
+    the arguments and ``TopWdth``, ``ChSlp`` and ``MusX`` drawn from
+    ``seed``. Returns the waterbody ids and each reach's upstream reach count."""
+    import csv
+    import sqlite3
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = len(down)
+    ids = 2_000_001 + rng.permutation(n)
+    area = np.ones(n, dtype=np.int64)
+    order = []  # upstream before downstream
+    indeg = np.bincount(down[down >= 0], minlength=n)
+    ready = list(np.flatnonzero(indeg == 0))
+    while ready:
+        i = ready.pop()
+        order.append(i)
+        if down[i] >= 0:
+            area[down[i]] += area[i]
+            indeg[down[i]] -= 1
+            if indeg[down[i]] == 0:
+                ready.append(down[i])
+    if len(order) != n:
+        fail("hydrofabric: the topology has a cycle")
+    hl = {reach: staid for staid, reach in gauges.items()}
+    toid = [f"nex-{ids[down[i]]}" if down[i] >= 0 else f"nex-{9_000_000 + i}" for i in range(n)]
+    flowpaths = [(f"wb-{ids[i]}", toid[i], float(LYNKER_SQKM_PER_REACH * area[i])) for i in range(n)]
+    receivers = sorted(set(int(d) for d in down if d >= 0))
+    network = [(f"wb-{ids[i]}", toid[i], f"gages-{hl[i]}" if i in hl else None) for i in range(n)]
+    network += [(f"nex-{ids[r]}", f"wb-{ids[r]}", None) for r in receivers]
+    network += [(f"nex-{9_000_000 + i}", None, None) for i in range(n) if down[i] < 0]
+    attrs = [(f"wb-{ids[i]}", float(length_m[i]), float(slope[i]), float(rng.uniform(3.0, 60.0)),
+              float(rng.uniform(0.5, 4.0)), float(rng.uniform(0.1, 0.45))) for i in range(n)]
+    path = root / "hydrofabric.gpkg"
+    with sqlite3.connect(path) as conn:
+        conn.execute('CREATE TABLE flowpaths ("id" TEXT, "toid" TEXT, "tot_drainage_areasqkm" REAL)')
+        conn.executemany("INSERT INTO flowpaths VALUES (?, ?, ?)", flowpaths)
+        conn.execute('CREATE TABLE network ("id" TEXT, "toid" TEXT, "hl_uri" TEXT)')
+        conn.executemany("INSERT INTO network VALUES (?, ?, ?)", network)
+        conn.execute('CREATE TABLE "flowpath-attributes-ml" ("id" TEXT, "Length_m" REAL, "So" REAL, '
+                     '"TopWdth" REAL, "ChSlp" REAL, "MusX" REAL)')
+        conn.executemany('INSERT INTO "flowpath-attributes-ml" VALUES (?, ?, ?, ?, ?, ?)', attrs)
+    with (root / "gages.csv").open("w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["STAID", "STANAME", "DRAIN_SQKM", "LAT_GAGE", "LNG_GAGE"])
+        for staid, reach in gauges.items():
+            w.writerow([staid, f"gauge {staid}", f"{LYNKER_SQKM_PER_REACH * area[reach]:.1f}", 40.0, -75.0])
+    return {"ids": ids, "area": area}
+
+
+def lynker_overrides(data: Path, gages: Path, save: Path) -> list[str]:
+    """The MERIT example config turned into a Lynker run: the geodataset, the
+    stores ``lynker_cli`` and :func:`lynker_forcing` wrote under ``data``, no
+    drainage-area filter (the gauge table has no ABS_DIFF), and the run
+    directory."""
+    return ["geodataset=lynker_hydrofabric", "experiment.max_area_diff_sqkm=null",
+            f"data_sources.attributes={data / 'attributes.zarr'}",
+            f"data_sources.conus_adjacency={data / 'hydrofabric_v2.2_conus_adjacency.zarr'}",
+            f"data_sources.gages_adjacency={data / 'hydrofabric_v2.2_gages_conus_adjacency.zarr'}",
+            f"data_sources.streamflow={data / 'streamflow.zarr'}",
+            f"data_sources.observations={data / 'observations.zarr'}",
+            f"data_sources.gages={gages}", f"data_sources.statistics={save / 'stats'}",
+            f"params.save_path={save}"]
+
+
+def lynker_forcing(data: Path, ids, seed: int) -> tuple:
+    """The attribute, streamflow and observation stores of a Lynker basin
+    under ``data``, keyed ``cat-{id}``: the MERIT example's 8 attributes and
+    400 days of daily inflow drawn as it draws them, and each gauge's
+    observations the inflow summed over its subset, with noise. Returns the
+    inflow's shape and each gauge's subset size."""
+    import numpy as np
+
+    from ddr_tpu_torch.io import zarrlite
+    from ddr_tpu_torch.io.stores import write_attribute_store, write_hydro_store
+    from ddr_tpu_torch.scripts import prepare_merit_example as prep
+
+    rng = np.random.default_rng(seed)
+    cats = [f"cat-{i}" for i in ids]
+    write_attribute_store(data / "attributes.zarr", cats, {
+        name: rng.normal(loc=5.0, scale=2.0, size=len(cats)).astype(np.float32) for name in prep.ATTRS})
+    qr = prep.lateral_inflows(rng, len(cats))
+    write_hydro_store(data / "streamflow.zarr", cats, prep.START_DATE, "D", {"Qr": qr}, units={"Qr": "m3 s-1"})
+    pos = {int(i): k for k, i in enumerate(ids)}
+    subsets = zarrlite.open_group(data / "hydrofabric_v2.2_gages_conus_adjacency.zarr")
+    staids = sorted(subsets.keys())
+    members = [[pos[int(w)] for w in subsets[g]["order"].read()] for g in staids]
+    obs = np.stack([qr[m].sum(axis=0) * rng.uniform(0.9, 1.1) for m in members]).astype(np.float32)
+    write_hydro_store(data / "observations.zarr", staids, prep.START_DATE, "D", {"streamflow": obs},
+                      id_dim="gage_id", units={"streamflow": "m3 s-1"})
+    return qr.shape, dict(zip(staids, (len(m) for m in members)))
+
+
+def build_lynker_stores(gpkg: Path, data: Path, gages: Path) -> dict:
+    """``python -m ddr_tpu_torch.engine.lynker_cli gpkg --path data --gages
+    gages`` in-process, with the host seconds of each part of the build: the
+    table reads, the matrix (the wb->nex->wb assembly and its topological
+    sort), the flowpath attributes, the wb->nex->wb collapse of the gauge
+    subsets and the subsets themselves."""
+    from ddr_tpu_torch.engine import lynker, lynker_cli
+
+    seconds: dict[str, float] = {}
+
+    def timed_call(name, fn):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+        return wrapper
+
+    patched = [(lynker, "read_gpkg_table"), (lynker_cli, "read_gpkg_table"), (lynker, "create_matrix"),
+               (lynker, "write_flowpath_attributes"), (lynker, "preprocess_river_network"),
+               (lynker_cli, "build_gauge_adjacencies")]
+    names = {"read_gpkg_table": "table read", "create_matrix": "matrix",
+             "write_flowpath_attributes": "attributes", "preprocess_river_network": "collapse",
+             "build_gauge_adjacencies": "gauge subsets"}
+    originals = [(mod, attr, getattr(mod, attr)) for mod, attr in patched]
+    for mod, attr, fn in originals:
+        setattr(mod, attr, timed_call(names[attr], fn))
+    t0 = time.perf_counter()
+    try:
+        code = lynker_cli.main([str(gpkg), "--path", str(data), "--gages", str(gages)])
+    finally:
+        for mod, attr, fn in originals:
+            setattr(mod, attr, fn)
+    seconds["total"] = time.perf_counter() - t0
+    if code != 0:
+        fail(f"lynker_cli {gpkg}: exit {code}")
+    # the gauge subsets' time includes their collapse; the attributes' includes their table reads
+    seconds["gauge subsets"] -= seconds.get("collapse", 0.0)
+    return {k: round(v, 3) for k, v in seconds.items()}
+
+
+def run_log_split(log_dir: Path, cmd: str, smi: str) -> dict | None:
+    """The wall-clock split of one command's run log
+    (``run_log.<cmd>.jsonl``): its steps' phases (``summarize_phases``) and
+    the steps' loop wall against the run's, or its evaluation chunks'
+    seconds against the run's; prints it and returns it."""
+    from ddr_tpu_torch.observability.phases import summarize_phases
+
+    path = log_dir / f"run_log.{cmd}.jsonl"
+    if not path.exists():
+        fail(f"{cmd}: no run log at {path}")
+    events = [json.loads(line) for line in path.read_text().splitlines() if line.strip()]
+    if events[0]["event"] != "run_start" or events[-1]["event"] != "run_end" or events[-1]["status"] != "ok":
+        fail(f"{path}: run log from {events[0]['event']} to {events[-1]['event']} "
+             f"({events[-1].get('status')})")
+    wall = float(events[-1]["duration_s"])
+    steps = [e for e in events if e["event"] == "step"]
+    chunks = [e for e in events if e["event"] == "eval"]
+    out = {"wall_s": wall, "events": events[-1]["summary"]["events"]}
+    if steps:
+        split = summarize_phases(steps)
+        loop = sum(float(e["loop_s"]) for e in steps)
+        main = {k: split[k]["seconds"] for k in ("device_step", "eval", "checkpoint") if k in split}
+        ahead = {k: split[k]["seconds"] for k in ("data_load", "host_prep") if k in split}
+        in_loop = loop - sum(main.values())
+        out.update(loop_s=loop, main=main, ahead=ahead, untimed_s=wall - loop + in_loop)
+        print(f"run log {cmd} ({path.parent.name}): wall {wall:.3f} s; {len(steps)} steps' loop {loop:.3f} s "
+              f"({100 * loop / wall:.1f}%): main thread {json.dumps({k: round(v, 3) for k, v in main.items()})}, "
+              f"{in_loop:.3f} s of the loop waiting on the prefetch pool or untimed; prefetch thread "
+              f"(overlapping) {json.dumps({k: round(v, 3) for k, v in ahead.items()})}; outside the loop "
+              f"{wall - loop:.3f} s ({100 * (wall - loop) / wall:.1f}%: config, dataset, KAN, the run's "
+              f"end); untimed in all {100 * out['untimed_s'] / wall:.1f}% of wall; busy share "
+              f"{split.get('_overlap', {}).get('busy_frac')} on {smi}")
+    elif chunks:
+        timed = sum(float(e["seconds"]) for e in chunks)
+        out.update(chunks_s=timed, untimed_s=wall - timed)
+        print(f"run log {cmd} ({path.parent.name}): wall {wall:.3f} s; {len(chunks)} chunks' eval events "
+              f"{timed:.3f} s ({100 * timed / wall:.1f}%), untimed {wall - timed:.3f} s "
+              f"({100 * (wall - timed) / wall:.1f}%: the inflow read before each chunk, the dataset, the KAN, "
+              f"the store writes) on {smi}")
+    else:
+        print(f"run log {cmd} ({path.parent.name}): wall {wall:.3f} s, events {out['events']}")
+    return out
+
+
+def ddr_lynker(smi, dev) -> dict:
+    """Phase 23: the Lynker hydrofabric path (see the module docstring).
+    Returns the launch counts of its card runs (the parity launches apart)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from ddr_tpu_torch import cli
+    from ddr_tpu_torch.geodatazoo.lynker import LynkerHydrofabric
+    from ddr_tpu_torch.io import zarrlite
+    from ddr_tpu_torch.routing.mc import Bounds, reach_physics
+    from ddr_tpu_torch.routing.model import denormalize_spatial_parameters, prepare_batch
+    from ddr_tpu_torch.routing.reverse_kernel import reverse_scan_tm, reverse_scan_tm_reference
+    from ddr_tpu_torch.routing.wave_kernel import wave_scan_tm, wave_scan_tm_reference
+    from ddr_tpu_torch.scripts import train as train_script
+    from ddr_tpu_torch.scripts.common import build_kan, kan_arch, load_kan
+    from ddr_tpu_torch.training import latest_checkpoint, save_state
+    from ddr_tpu_torch.validation.configs import load_config
+
+    here = Path(__file__).resolve().parent
+    root = here / "build" / "ddr_lynker"
+    shutil.rmtree(root, ignore_errors=True)
+    config = str(here / MERIT_EXAMPLE / "config.yaml")
+    loggers = [logging.getLogger(name) for name in (
+        train_script.__name__, "ddr_tpu_torch.scripts.common", "ddr_tpu_torch.scripts.router")]
+    for logger in loggers:
+        logger.setLevel(logging.INFO)
+
+    def run(command, data, name, *extra):
+        log = TrainLog(), EvalLog()
+        for logger in loggers:
+            for h in log:
+                logger.addHandler(h)
+        os.environ["DDR_METRICS_DIR"] = str(root / "logs" / name)
+        t0 = time.perf_counter()
+        try:
+            code = cli.main([command, config, *lynker_overrides(data, data.parent / "gages.csv", root / name),
+                             *extra])
+            torch.cuda.synchronize()
+        finally:
+            os.environ.pop("DDR_METRICS_DIR", None)
+            for logger in loggers:
+                for h in log:
+                    logger.removeHandler(h)
+        wall = time.perf_counter() - t0
+        if code != 0:
+            fail(f"ddr lynker {command} {name}: exit {code}")
+        return log[0], log[1], wall
+
+    def stored(name, zarr, array):
+        out = zarrlite.open_group(root / name / zarr)[array][:]
+        if out.size == 0 or not np.isfinite(out).all():
+            fail(f"ddr lynker {name}/{zarr}: {array} {out.shape} is empty or not finite")
+        return torch.as_tensor(out)
+
+    # ---- the small basin: 12 flowpaths, 2 gauges, CPU against the card ----
+    small = root / "small"
+    (small / "data").mkdir(parents=True)
+    down = np.asarray([2, 2, 4, 4, 8, 7, 7, 8, 10, 10, -1, 9])
+    rng = np.random.default_rng(3)
+    fab = write_hydrofabric(small, down, rng.uniform(800.0, 4000.0, len(down)), rng.uniform(1e-3, 0.02, len(down)),
+                            {"01300004": 4, "01300010": 10}, seed=5)
+    proc = subprocess.run([sys.executable, "-m", "ddr_tpu_torch.engine.lynker_cli", str(small / "hydrofabric.gpkg"),
+                           "--path", str(small / "data"), "--gages", str(small / "gages.csv")],
+                          capture_output=True, text=True, timeout=300, cwd=here)
+    if proc.returncode != 0:
+        fail(f"python -m ddr_tpu_torch.engine.lynker_cli: exit {proc.returncode}: {proc.stderr[-2000:]}")
+    shape, sizes = lynker_forcing(small / "data", fab["ids"], seed=6)
+    init_cfg = load_config(config, lynker_overrides(small / "data", small / "gages.csv", root / "init"),
+                           save_config=False)
+    init = save_state(root / "init", init_cfg.name, 1, 0, build_kan(init_cfg, device="cpu").state_dict(), None,
+                      arch=kan_arch(init_cfg))
+    launches = {"wave_scan": 0, "reverse_scan": 0}
+    wave_scan_tm.launches = reverse_scan_tm.launches = 0
+    steps = {}
+    for device in ("cpu", "cuda"):
+        train_log, _, wall = run("train", small / "data", f"small-train-{device}", f"device={device}",
+                                 f"experiment.checkpoint={init}")
+        steps[device] = train_log.steps
+        print(f"ddr lynker small train {device}: gauge subsets {sizes}, steps "
+              f"{[(e, b) for e, b, *_ in train_log.steps]}, losses {[s[2] for s in train_log.steps]}, step host "
+              f"ms {[s[3] for s in train_log.steps]}, engine {sorted({s[4] for s in train_log.steps})}, run wall "
+              f"{wall:.2f} s on {smi}")
+    if ([s[:2] for s in steps["cpu"]] != [s[:2] for s in steps["cuda"]] or len(steps["cuda"]) != MERIT_STEPS
+            or not np.all(np.isfinite([s[2] for s in steps["cuda"]]))):
+        fail(f"ddr lynker small train: the CPU ran {steps['cpu']}, the card {steps['cuda']}")
+    for (epoch, mb, ref, *_), (*_, got, _, _) in zip(steps["cpu"], steps["cuda"]):
+        rel = abs(got - ref) / abs(ref)
+        print(f"ddr lynker small train parity epoch {epoch} mini-batch {mb}: card {got!r} cpu {ref!r} rel {rel:.3e}")
+        if rel > DDR_TRAIN_RTOL:
+            fail(f"ddr lynker small train: epoch {epoch} mini-batch {mb} loss rel {rel:.3e} > {DDR_TRAIN_RTOL}")
+    card_ckpt = latest_checkpoint(root / "small-train-cuda" / "saved_models")
+    for command, zarr, array in (("test", "model_test.zarr", "predictions"), ("route", "chrout.zarr", "discharge")):
+        out = {}
+        for device in ("cpu", "cuda"):
+            _, eval_log, wall = run(command, small / "data", f"small-{command}-{device}", f"device={device}",
+                                    f"experiment.checkpoint={card_ckpt}")
+            out[device] = stored(f"small-{command}-{device}", zarr, array)
+            print(f"ddr lynker small {command} {device}: {len(eval_log.chunks)} chunks, {zarr} {array} "
+                  f"{tuple(out[device].shape)}, run wall {wall:.2f} s")
+        compare(out["cpu"], out["cuda"], f"ddr lynker small {command}, card against CPU")
+    launches["wave_scan"] += wave_scan_tm.launches
+    launches["reverse_scan"] += reverse_scan_tm.launches
+
+    # ---- the regional width: make_basin's topology as a hydrofabric ----
+    regional = root / "regional"
+    (regional / "data").mkdir(parents=True)
+    t0 = time.perf_counter()
+    topo = regional_topology()
+    gauges = [topo["main"]] + topo["rest"][: LYNKER_GAUGES - 1]
+    fab = write_hydrofabric(regional, topo["down"], topo["rd"].length, topo["rd"].slope,
+                            {f"0{9200000 + k}": g for k, g in enumerate(gauges)}, seed=8)
+    t_gpkg = time.perf_counter() - t0
+    split = build_lynker_stores(regional / "hydrofabric.gpkg", regional / "data", regional / "gages.csv")
+    t0 = time.perf_counter()
+    shape, sizes = lynker_forcing(regional / "data", fab["ids"], seed=9)
+    t_forcing = time.perf_counter() - t0
+    conus = zarrlite.open_group(regional / "data" / "hydrofabric_v2.2_conus_adjacency.zarr")
+    x_store = conus["muskingum_x"].read()
+    print(f"ddr lynker regional hydrofabric: {topo['n']} flowpaths ({topo['outlets']} outlets joined into one, "
+          f"depth {topo['depth']}), gauges {sizes}; GeoPackage written in {t_gpkg:.2f} s; lynker_cli build "
+          f"{json.dumps(split)} s; attributes, {shape} inflow and observations {t_forcing:.2f} s, on the host; "
+          f"MusX {len(np.unique(x_store))} distinct values in [{x_store.min():.3f}, {x_store.max():.3f}]")
+    if (sorted(sizes.values())[-1] != N_SEGMENTS or len(sizes) != LYNKER_GAUGES
+            or int(conus.attrs["shape"][0]) != N_SEGMENTS):
+        fail(f"ddr lynker regional: conus {conus.attrs['shape']}, gauge subsets {sizes}")
+
+    torch.cuda.reset_peak_memory_stats()
+    wave_scan_tm.launches = reverse_scan_tm.launches = 0
+    train_log, _, wall = run("train", regional / "data", "regional-train", f"experiment.batch_size={LYNKER_GAUGES}")
+    train_launches = {"wave_scan": wave_scan_tm.launches, "reverse_scan": reverse_scan_tm.launches}
+    n_steps = len(train_log.steps)
+    print(f"ddr lynker regional train: {n_steps} steps {[(e, b) for e, b, *_ in train_log.steps]}, losses "
+          f"{[s[2] for s in train_log.steps]}, step host ms {[s[3] for s in train_log.steps]}, engine "
+          f"{sorted({s[4] for s in train_log.steps})}, launches {train_launches}, run wall {wall:.2f} s, peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB on {smi}")
+    if (n_steps != MERIT_STEPS or not np.all(np.isfinite([s[2] for s in train_log.steps]))
+            or train_launches != {"wave_scan": n_steps, "reverse_scan": n_steps}):
+        fail(f"ddr lynker regional train: {n_steps} steps, launches {train_launches}")
+    run_log_split(root / "logs" / "regional-train", "train", smi)
+
+    ckpt = latest_checkpoint(root / "regional-train" / "saved_models")
+    wave_scan_tm.launches = wave_scan_tm.q_init_launches = reverse_scan_tm.launches = 0
+    _, eval_log, wall = run("test", regional / "data", "regional-test", *REGIONAL_SHORT_WINDOW,
+                            f"experiment.batch_size={LYNKER_GAUGES}", f"experiment.checkpoint={ckpt}")
+    chunks = len(eval_log.chunks)
+    test_launches = {"wave_scan": wave_scan_tm.launches, "q_init": wave_scan_tm.q_init_launches,
+                     "reverse_scan": reverse_scan_tm.launches}
+    ms = [c[1] for c in eval_log.chunks]
+    preds = stored("regional-test", "model_test.zarr", "predictions")
+    print(f"ddr lynker regional test: {chunks} chunks of {sorted({c[2] for c in eval_log.chunks})} h, launches "
+          f"{test_launches}, chunk host ms median {np.median(ms):.2f} min {min(ms):.2f} max {max(ms):.2f}, "
+          f"predictions {tuple(preds.shape)}, run wall {wall:.2f} s on {smi}")
+    if chunks < 2 or test_launches != {"wave_scan": chunks, "q_init": chunks - 1, "reverse_scan": 0}:
+        fail(f"ddr lynker regional test: {chunks} chunks, launches {test_launches}")
+    run_log_split(root / "logs" / "regional-test", "test", smi)
+    launches["wave_scan"] += train_launches["wave_scan"] + test_launches["wave_scan"]
+    launches["reverse_scan"] += train_launches["reverse_scan"]
+
+    # ---- both kernels on the Lynker network, per-reach x from MusX, against their plain versions ----
+    cfg = load_config(config, [*lynker_overrides(regional / "data", regional / "gages.csv", root / "parity"),
+                               "mode=training", f"experiment.batch_size={LYNKER_GAUGES}"], save_config=False)
+    dataset = LynkerHydrofabric(cfg)
+    rd = dataset.collate_fn([dataset[i] for i in range(len(dataset))])
+    p = cfg.params
+    net, ch, _ = prepare_batch(rd, p.attribute_minimums["slope"], device=dev)
+    cfg.experiment.checkpoint = ckpt
+    kan = load_kan(cfg, purpose="the kernels' parity")
+    with torch.no_grad():
+        params = denormalize_spatial_parameters(kan(torch.as_tensor(rd.normalized_spatial_attributes, device=dev)),
+                                                p.parameter_ranges, p.log_space_parameters, p.defaults, net.n)
+        phys = reach_physics(net, ch, params, Bounds.from_config(p.attribute_minimums))
+        x_live = len(torch.unique(ch.x_storage))
+        T = len(rd.dates.batch_hourly_time_range)
+        errs = {}
+        for label, with_init in (("hotstart", False), ("q_init", True)):
+            q, qi = scan_case(net, phys, 1, T, 31, with_init, dev)
+            raw = wave_scan_tm(q, net, phys, qi)
+            torch.cuda.synchronize()
+            errs[f"wave_scan/{label}"] = compare(wave_scan_tm_reference(q, net, phys, qi), raw,
+                                                 f"wave_scan on the Lynker network ({label}, T {T})")
+        rev = reverse_inputs(net, 1, T, 37, dev)
+        lam = reverse_scan_tm(*rev, net)
+        torch.cuda.synchronize()
+        errs["reverse_scan"] = compare(reverse_scan_tm_reference(*rev, net), lam,
+                                       f"reverse_scan on the Lynker network (T {T})")
+    print(f"ddr lynker kernels: n {net.n}, depth {net.depth}, {x_live} distinct per-reach x from MusX, "
+          f"max abs err {json.dumps({k: float(v) for k, v in errs.items()})}")
+    if x_live < net.n // 2:
+        fail(f"ddr lynker: only {x_live} distinct Muskingum x over {net.n} reaches")
+    launches["err"] = errs
     return launches
 
 
@@ -3005,13 +3576,14 @@ def main() -> int:
     only_ddr_serve = sys.argv[1:] == ["--ddr-serve"]
     only_ddr_loadtest = sys.argv[1:] == ["--ddr-loadtest"]
     only_ddr_merit = sys.argv[1:] == ["--ddr-merit"]
+    only_ddr_lynker = sys.argv[1:] == ["--ddr-lynker"]
     old_log = None
     if len(sys.argv) == 3 and sys.argv[1] == "--old-kernels":
         old_log = sys.argv[2]
     elif sys.argv[1:] and not (only_ddr_train or only_ddr_cli or only_ddr_serve or only_ddr_loadtest
-                               or only_ddr_merit):
+                               or only_ddr_merit or only_ddr_lynker):
         print("usage: chip_smoke.py [--time-fp32 | --ddr-train | --ddr-cli | --ddr-serve | --ddr-loadtest | "
-              "--ddr-merit | --old-kernels LOG]", file=sys.stderr)
+              "--ddr-merit | --ddr-lynker | --old-kernels LOG]", file=sys.stderr)
         return 2
     import numpy as np
 
@@ -3038,7 +3610,7 @@ def main() -> int:
     seconds = _build.build(_build.KERNELS, verbose=True)
     print(f"build: {json.dumps({k: round(v, 2) for k, v in seconds.items()})} "
           f"({time.perf_counter() - t0:.2f}s wall) into {_build.build_dir()}")
-    if only_ddr_train or only_ddr_cli or only_ddr_serve or only_ddr_loadtest or only_ddr_merit:
+    if only_ddr_train or only_ddr_cli or only_ddr_serve or only_ddr_loadtest or only_ddr_merit or only_ddr_lynker:
         t0 = time.perf_counter()
         ddr_train(smi, dev)
         print(f"ddr train phase: {time.perf_counter() - t0:.1f}s")
@@ -3058,6 +3630,10 @@ def main() -> int:
             t0 = time.perf_counter()
             ddr_merit(smi, dev)
             print(f"ddr merit phase: {time.perf_counter() - t0:.1f}s")
+        if only_ddr_lynker:
+            t0 = time.perf_counter()
+            ddr_lynker(smi, dev)
+            print(f"ddr lynker phase: {time.perf_counter() - t0:.1f}s")
         print(smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
@@ -3403,6 +3979,13 @@ def main() -> int:
     ddr_merit_launches = ddr_merit(smi, dev)
     print(f"ddr merit phase: {time.perf_counter() - t0:.1f}s")
 
+    # ---- 23. the Lynker hydrofabric path: its builders, lynker_cli, the dataset ----
+    t0 = time.perf_counter()
+    ddr_lynker_launches = ddr_lynker(smi, dev)
+    max_abs = max(max_abs, *(ddr_lynker_launches["err"][k] for k in ("wave_scan/hotstart", "wave_scan/q_init")))
+    reverse_err = max(reverse_err, ddr_lynker_launches["err"]["reverse_scan"])
+    print(f"ddr lynker phase: {time.perf_counter() - t0:.1f}s")
+
     def band_entry(name, source, replaces, launches, err, t):
         bytes_ms, flops_ms = t["bound"]
         return {
@@ -3421,12 +4004,13 @@ def main() -> int:
         "replaces": "ddr_tpu/routing/pallas_kernel.py:193",
         "launches": (launches + train_launches["wave_scan"] + ddr_train_launches["wave_scan"]
                      + ddr_eval_launches["wave_scan"] + ddr_serve_launches + ddr_loadtest_launches
-                     + ddr_merit_launches["wave_scan"]),
+                     + ddr_merit_launches["wave_scan"] + ddr_lynker_launches["wave_scan"]),
         "ddr_train_launches": ddr_train_launches["wave_scan"],
         "ddr_eval_launches": ddr_eval_launches["wave_scan"],
         "ddr_serve_launches": ddr_serve_launches,
         "ddr_loadtest_launches": ddr_loadtest_launches,
         "ddr_merit_launches": ddr_merit_launches["wave_scan"],
+        "ddr_lynker_launches": ddr_lynker_launches["wave_scan"],
         "ddr_eval_q_init_launches": ddr_eval_launches["q_init"],
         "max_abs_err": max_abs,
         "ms": kernel_ms,
@@ -3441,9 +4025,10 @@ def main() -> int:
         "source": "ddr_tpu_torch/csrc/reverse_scan.cu",
         "replaces": "ddr_tpu/routing/pallas_kernel.py:348",
         "launches": (train_launches["reverse_scan"] + ddr_train_launches["reverse_scan"]
-                     + ddr_merit_launches["reverse_scan"]),
+                     + ddr_merit_launches["reverse_scan"] + ddr_lynker_launches["reverse_scan"]),
         "ddr_train_launches": ddr_train_launches["reverse_scan"],
         "ddr_merit_launches": ddr_merit_launches["reverse_scan"],
+        "ddr_lynker_launches": ddr_lynker_launches["reverse_scan"],
         "max_abs_err": reverse_err,
         "ms": reverse_ms,
         "plain_ms": reverse_plain_ms,

@@ -6,15 +6,11 @@ Phase 1 is the sequential evaluation loop of ``ddr test``
 (:func:`~ddr_tpu_torch.scripts.common.evaluate_hourly`). Phase 2 routes the
 same lateral inflows over the whole window through the frequency-domain LTI
 router (:func:`~ddr_tpu_torch.benchmarks.irf.route_lti`) and aggregates
-them at the gauges. Headwater gauges are masked, daily metrics are logged
-for each model, and ``benchmark_results.zarr`` gets the JAX package's
-arrays and attributes.
-
-The port's deltas: a ΣQ' store (``summed_q_prime``) raises, since its
-reader is not ported (ROADMAP A.8). Instead, a dataset that holds its
-lateral inflow in memory (the synthetic twin) gets its ΣQ' baseline
-computed here, the sum of the inflow over each gauge's upstream reaches, and
-the routed volumes are mass-balanced against it. The comparison plots need
+them at the gauges. Headwater gauges are masked and daily metrics are logged
+for each model. When the config names a ΣQ' store (``summed_q_prime``, the
+output of ``ddr summed-q-prime``), its gauges join the battery and the
+routed volumes are mass-balanced against it. ``benchmark_results.zarr``
+gets the JAX package's arrays and attributes. The comparison plots need
 matplotlib, which the card machine lacks, and are skipped.
 """
 
@@ -35,7 +31,6 @@ from ddr_tpu_torch.device import resolve_device
 from ddr_tpu_torch.io import zarrlite
 from ddr_tpu_torch.routing.mc import GaugeIndex
 from ddr_tpu_torch.routing.model import prepare_batch
-from ddr_tpu_torch.routing.solver import solve_lower_triangular
 from ddr_tpu_torch.scripts.common import (
     evaluate_hourly,
     get_flow_fn,
@@ -55,10 +50,10 @@ log = logging.getLogger(__name__)
 __all__ = [
     "benchmark",
     "build_headwater_mask",
+    "load_summed_q_prime",
     "main",
     "mass_balance",
     "run_lti_benchmark",
-    "summed_q_prime_hourly",
 ]
 
 #: Logged once by every ``ddr benchmark`` run.
@@ -78,19 +73,33 @@ def build_headwater_mask(rd: Any) -> np.ndarray:
     return mask
 
 
-def _full_window(cfg, dataset, flow, dev):
-    """The whole window's ``(T, N)`` inflow on ``dev``, the network (plain
-    :class:`RiverNetwork`, whose solve schedule the LTI router and the ΣQ'
-    accumulation read) and the gauge index."""
-    rd = dataset.routing_data
-    dataset.dates.set_date_range(np.arange(len(dataset.dates.daily_time_range)))
-    q_prime = torch.as_tensor(np.asarray(flow(routing_dataclass=rd), dtype=np.float32), device=dev)
-    network, _, gauges = prepare_batch(
-        rd, cfg.params.attribute_minimums["slope"], device=dev, chunked=False
-    )
-    if gauges is None:
-        gauges = GaugeIndex.from_ragged(rd.outflow_idx, device=dev)
-    return q_prime, network, gauges
+def load_summed_q_prime(
+    path: str | Path, gage_ids: np.ndarray, daily_obs: np.ndarray, warmup: int
+) -> tuple[Metrics, np.ndarray, np.ndarray] | None:
+    """Align a ΣQ' store (``ddr summed-q-prime``'s ``summed_q_prime.zarr``)
+    with the benchmark gauges: ``(metrics, daily predictions of the matched
+    gauges, boolean mask into gage_ids)``, or None with a warning when the
+    store cannot be opened or shares no gauge."""
+    try:
+        root = zarrlite.open_group(path)
+        sqp_gages = np.asarray(root.attrs["gage_ids"], dtype=str)
+        sqp_preds = root["predictions"][:]
+    except (FileNotFoundError, KeyError, ValueError):
+        log.warning(f"Failed to open summed Q' store at {path}")
+        return None
+
+    gage_ids = np.asarray(gage_ids, dtype=str)
+    common = np.isin(gage_ids, sqp_gages)
+    if not common.any():
+        log.warning("No common gauges between benchmark and summed Q' store")
+        return None
+    sqp_idx = [int(np.where(sqp_gages == g)[0][0]) for g in gage_ids[common]]
+    num_days = min(sqp_preds.shape[1], daily_obs.shape[1])
+    sqp_aligned = sqp_preds[sqp_idx, :num_days]
+    obs_aligned = daily_obs[common, :num_days]
+    log.info(f"Summed Q': {int(common.sum())}/{len(gage_ids)} gauges matched, {num_days} days")
+    metrics = Metrics(pred=sqp_aligned[:, warmup:], target=obs_aligned[:, warmup:])
+    return metrics, sqp_aligned, common
 
 
 def run_lti_benchmark(bench_cfg: BenchmarkConfig, dataset: Any, flow: Any) -> np.ndarray:
@@ -100,8 +109,15 @@ def run_lti_benchmark(bench_cfg: BenchmarkConfig, dataset: Any, flow: Any) -> np
     device memory."""
     cfg, lti = bench_cfg.ddr, bench_cfg.lti
     dev = resolve_device(cfg.device)
-    q_prime, network, gauges = _full_window(cfg, dataset, flow, dev)
-    n = dataset.routing_data.n_segments
+    rd = dataset.routing_data
+    dataset.dates.set_date_range(np.arange(len(dataset.dates.daily_time_range)))
+    q_prime = torch.as_tensor(np.asarray(flow(routing_dataclass=rd), dtype=np.float32), device=dev)
+    # a plain RiverNetwork: route_lti reads its solve schedule
+    network, _, gauges = prepare_batch(rd, cfg.params.attribute_minimums["slope"], device=dev,
+                                       chunked=False)
+    if gauges is None:
+        gauges = GaugeIndex.from_ragged(rd.outflow_idx, device=dev)
+    n = rd.n_segments
     k_val = lti.k if lti.k is not None else 0.1042
     kernels = irf_kernels(lti.irf_fn, np.full(n, k_val), np.full(n, lti.x), lti.dt, lti.max_delay,
                           lti.nash_n)
@@ -121,23 +137,10 @@ def run_lti_benchmark(bench_cfg: BenchmarkConfig, dataset: Any, flow: Any) -> np
     return out
 
 
-def summed_q_prime_hourly(cfg, dataset: Any, flow: Any) -> np.ndarray | None:
-    """The un-routed ΣQ' baseline ``(G, T_hourly)`` of a dataset that holds
-    its inflow in memory: each reach's inflow summed over all its upstream
-    reaches (``(I - N) x = q'``), aggregated at the gauges. None for a
-    store-backed dataset."""
-    if not hasattr(dataset, "streamflow"):
-        return None
-    dev = resolve_device(cfg.device)
-    q_prime, network, gauges = _full_window(cfg, dataset, flow, dev)
-    with torch.no_grad():
-        acc = solve_lower_triangular(network, torch.ones_like(q_prime), q_prime)
-    return gauges.aggregate(acc).T.cpu().numpy()
-
-
 def mass_balance(daily: np.ndarray, sqp_daily: np.ndarray, warmup: int) -> np.ndarray:
     """Per-gauge relative error of the total routed volume after ``warmup``
-    days against ΣQ''s, over the days both cover."""
+    days against ΣQ''s, over the days both cover; ``daily`` holds the
+    gauges the ΣQ' store matched, in its order."""
     num_days = sqp_daily.shape[1]
     sqp_total = np.nansum(sqp_daily[:, warmup:], axis=1)
     denom = np.where(sqp_total != 0, sqp_total, 1.0)
@@ -147,7 +150,7 @@ def mass_balance(daily: np.ndarray, sqp_daily: np.ndarray, warmup: int) -> np.nd
 def benchmark(bench_cfg: BenchmarkConfig) -> dict[str, Metrics]:
     """Run the whole comparison on ``cfg.device``; returns each model's
     metric battery (``mc``, ``lti`` when enabled, ``summed_q_prime`` when the
-    dataset has its baseline)."""
+    config names a ΣQ' store that shares gauges with the run)."""
     log.info(BENCHMARK_PARTS_ABSENT)
     cfg = bench_cfg.ddr
     dev = resolve_device(cfg.device)
@@ -167,7 +170,6 @@ def benchmark(bench_cfg: BenchmarkConfig) -> dict[str, Metrics]:
     if bench_cfg.lti.enabled:
         log.info(f"Phase 2: LTI routing ({bench_cfg.lti.irf_fn})...")
         lti_hourly = run_lti_benchmark(bench_cfg, dataset, flow)
-    sqp_hourly = summed_q_prime_hourly(cfg, dataset, flow)
 
     keep = build_headwater_mask(rd0)
     gage_ids, observations = gage_ids[keep], observations[keep]
@@ -185,14 +187,17 @@ def benchmark(bench_cfg: BenchmarkConfig) -> dict[str, Metrics]:
         results["lti"] = Metrics(pred=lti_daily[:, warmup:], target=daily_obs[:, warmup:])
         log_metrics(results["lti"], header=f"=== LTI ({bench_cfg.lti.irf_fn}) metrics ===")
 
-    if sqp_hourly is not None:
-        sqp_daily = compute_daily_runoff(sqp_hourly[keep], cfg.params.tau)
-        results["summed_q_prime"] = Metrics(pred=sqp_daily[:, warmup:], target=daily_obs[:, warmup:])
-        log_metrics(results["summed_q_prime"], header="=== ΣQ' baseline metrics ===")
+    sqp = None
+    if bench_cfg.summed_q_prime is not None:
+        sqp = load_summed_q_prime(bench_cfg.summed_q_prime, gage_ids, daily_obs, warmup)
+    if sqp is not None:
+        sqp_metrics, sqp_daily, common = sqp
+        results["summed_q_prime"] = sqp_metrics
+        log_metrics(sqp_metrics, header="=== ΣQ' baseline metrics ===")
         for name, daily in (("MC", mc_daily), ("LTI", lti_daily)):
             if name == "LTI" and not bench_cfg.lti.enabled:
                 continue
-            err = mass_balance(daily, sqp_daily, warmup)
+            err = mass_balance(daily[common], sqp_daily, warmup)
             log.info(f"Mass balance {name} vs ΣQ': mean rel err {err.mean():.4f}, "
                      f"median {np.median(err):.4f}")
 

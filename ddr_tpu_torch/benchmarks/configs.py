@@ -3,8 +3,8 @@ the port's standard-library validation (:mod:`ddr_tpu_torch.validation.configs`)
 
 :class:`BenchmarkConfig` wraps the core :class:`Config` under ``ddr`` and
 adds the LTI comparator's section (``lti``, or its older name
-``diffroute``) and the optional ΣQ' store path. Reading that store is not
-ported yet (ROADMAP A.8), so a config that names one raises.
+``diffroute``) and the optional ΣQ' store path (``ddr summed-q-prime``'s
+``summed_q_prime.zarr``).
 """
 
 from __future__ import annotations
@@ -58,13 +58,6 @@ class BenchmarkConfig(_Section):
     ddr: Config = _required()
     lti: LTIRouteConfig = dataclasses.field(default_factory=LTIRouteConfig)
     summed_q_prime: Path | None = None
-
-    def _check(self, where: str) -> None:
-        if self.summed_q_prime is not None:
-            raise NotImplementedError(
-                f"summed_q_prime={str(self.summed_q_prime)!r}: reading a ΣQ' store is not ported "
-                "yet (ROADMAP A.8); leave summed_q_prime unset"
-            )
 
 
 def validate_benchmark_config(raw: dict[str, Any]) -> BenchmarkConfig:

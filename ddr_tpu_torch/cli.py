@@ -1,10 +1,10 @@
 """The port's command-line dispatcher: ``python -m ddr_tpu_torch.cli
-{train,test,route,train-and-test,benchmark,serve,loadtest,verify} [config.yaml]
-[a.b=c ...]``.
+{train,test,route,train-and-test,benchmark,summed-q-prime,serve,loadtest,verify}
+[config.yaml] [a.b=c ...]``.
 
 The subcommands are the JAX package's ``ddr`` CLI's. ``train``, ``test``,
-``route``, ``train-and-test``, ``benchmark``, ``serve``, ``loadtest`` and
-``verify`` are ported; each runs on the card unless the config or an
+``route``, ``train-and-test``, ``benchmark``, ``summed-q-prime``, ``serve``,
+``loadtest`` and ``verify`` are ported; each runs on the card unless the config or an
 override says ``device=cpu``. Every other subcommand exits with a message
 naming the ROADMAP item that ports it.
 """
@@ -22,13 +22,13 @@ _COMMANDS = {
     "route": "ddr_tpu_torch.scripts.router",
     "train-and-test": "ddr_tpu_torch.scripts.train_and_test",
     "benchmark": "ddr_tpu_torch.benchmarks.benchmark",
+    "summed-q-prime": "ddr_tpu_torch.scripts.summed_q_prime",
     "serve": "ddr_tpu_torch.scripts.serve",
     "loadtest": "ddr_tpu_torch.scripts.loadtest",
     "verify": "ddr_tpu_torch.scripts.verify",
 }
 #: Subcommands of the JAX package's CLI that are not ported yet, by ROADMAP item.
 _NOT_PORTED = {
-    "summed-q-prime": "A.8",
     "fleet": "A.9",
     "chaos": "A.6",
     "metrics": "A.10",

@@ -26,6 +26,7 @@ __all__ = [
     "convert_ft3_s_to_m3_s",
     "csv_column",
     "read_gage_info",
+    "derive_gage_reference_columns",
     "filter_gages_by_area_threshold",
     "filter_gages_by_da_valid",
     "filter_headwater_gages",
@@ -124,6 +125,39 @@ def read_gage_info(gage_info_path: Path | str) -> dict[str, list]:
     for col in optional:
         if col in raw:
             out[col] = column(col)
+    return out
+
+
+def derive_gage_reference_columns(table: dict[str, Any]) -> dict[str, Any]:
+    """Derive the ABS_DIFF / DA_VALID / FLOW_SCALE gauge-reference columns
+    from raw drainage areas, over a column mapping (name -> values, as
+    :func:`read_gage_info` returns). Requires ``DRAIN_SQKM``,
+    ``COMID_DRAIN_SQKM`` and ``COMID_UNITAREA_SQKM``:
+
+    - ``ABS_DIFF`` = |DRAIN_SQKM - COMID_DRAIN_SQKM|
+    - ``DA_VALID`` = ABS_DIFF <= max(COMID_UNITAREA_SQKM, 100 km²)
+    - ``FLOW_SCALE`` = (unit - ABS_DIFF) / unit when the gauge sits upstream
+      of the catchment outlet (DRAIN < COMID_DRAIN) and the mismatch is
+      inside one unit area; 1.0 otherwise.
+
+    Returns a copy with the three columns added as numpy arrays (float64,
+    bool, float64). A NaN area compares false, as in pandas.
+    """
+    required = {"DRAIN_SQKM", "COMID_DRAIN_SQKM", "COMID_UNITAREA_SQKM"}
+    missing = required - set(table)
+    if missing:
+        raise KeyError(f"gage table is missing columns: {sorted(missing)}")
+    out = dict(table)
+    drain = np.asarray(table["DRAIN_SQKM"], dtype=np.float64)
+    unit = np.asarray(table["COMID_UNITAREA_SQKM"], dtype=np.float64)
+    diff = drain - np.asarray(table["COMID_DRAIN_SQKM"], dtype=np.float64)
+    abs_diff = np.abs(diff)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        out["ABS_DIFF"] = abs_diff
+        # pandas' clip(lower=) keeps a NaN a NaN, so its comparison is False
+        out["DA_VALID"] = abs_diff <= np.where(np.isnan(unit), np.nan, np.maximum(unit, 100.0))
+        scale = (unit - abs_diff) / unit
+        out["FLOW_SCALE"] = np.where((diff < 0) & (abs_diff < unit), scale, 1.0)
     return out
 
 

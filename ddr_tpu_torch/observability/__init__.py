@@ -1,5 +1,6 @@
 """Run observability of the port: the numerical-health stats and watchdog,
-and the recovery supervisor that acts on them."""
+the recovery supervisor that acts on them, and (in their own modules) the
+run recorder (``events``), its phase timer, throughput counter and spans."""
 
 from ddr_tpu_torch.observability.health import (
     HealthConfig,

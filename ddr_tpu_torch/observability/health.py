@@ -31,8 +31,9 @@ filled with ``+inf``/``-inf``, so empty bands read the JAX identities;
 ``torch.finfo(torch.bfloat16)`` (eps ``2**-7``, the same max). The
 watchdog sets the ``ddr_health_status`` gauge on every observation and counts
 ``ddr_health_violations_total`` by reason in its metrics registry (the
-process default unless given one), as JAX's does; the ``health`` event of the
-run recorder waits for ROADMAP A.10, so a violation is also logged.
+process default unless given one), as JAX's does: a violation is one
+``health`` event of the active run recorder, whose tee counts it (straight
+into the registry with no run log), and one warning.
 """
 
 from __future__ import annotations
@@ -574,15 +575,20 @@ class HealthWatchdog:
         return consecutive
 
     def _report(self, reasons: list[str], payload: dict[str, Any]) -> None:
-        """A violating observation: ``ddr_health_violations_total`` by
-        reason, through the same event mapping as the service's decisions,
-        and one warning."""
+        """A violating observation: one ``health`` event (the recorder's tee
+        counts ``ddr_health_violations_total`` by reason; with no recorder
+        the event goes to the registry directly) and one warning."""
+        from ddr_tpu_torch.observability.events import get_recorder
         from ddr_tpu_torch.observability.prometheus import event_tee
 
-        try:  # metrics must never fail the batch that is being observed
-            event_tee({"event": "health", "reasons": reasons, **payload}, self._registry)
-        except Exception:
-            log.exception("health metrics tee failed")
+        rec = get_recorder()
+        if rec is not None:
+            rec.emit("health", reasons=reasons, **payload)
+        else:
+            try:  # metrics must never fail the batch that is being observed
+                event_tee({"event": "health", "reasons": reasons, **payload}, self._registry)
+            except Exception:
+                log.exception("health metrics tee failed")
         log.warning(
             f"numerical health violation ({', '.join(reasons)}): "
             + " ".join(f"{k}={v}" for k, v in payload.items())

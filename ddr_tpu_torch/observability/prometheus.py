@@ -16,9 +16,10 @@ The port's copy of the serving half of ``ddr_tpu/observability/prometheus.py``:
   instrument updates, for the events the port emits: ``serve_request``,
   ``serve_batch``, ``serve_shed``, ``slo`` and ``health``.
 
-The standalone exporter (``DDR_PROM_PORT``), the run recorder that tees
-every event, and the training events' cases wait for ROADMAP A.10; ``ddr
-serve`` answers the same text on its own ``/metrics``.
+The active run recorder (:mod:`~ddr_tpu_torch.observability.events`) tees
+every event it writes through :func:`event_tee`. The standalone exporter
+(``DDR_PROM_PORT``) and the training events' cases wait for ROADMAP A.10's
+second part; ``ddr serve`` answers the same text on its own ``/metrics``.
 """
 
 from __future__ import annotations

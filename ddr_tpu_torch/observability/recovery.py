@@ -18,8 +18,8 @@ downwards:
 
 The supervisor is host-side bookkeeping only: every decision is a function
 of the reasons and the remaining budgets, so a run replays the same
-recoveries. Its decisions are logged; the JAX package's ``recovery`` event of
-the run recorder is not ported yet.
+recoveries. Each committed stage is logged and is one ``recovery`` event of
+the active run recorder.
 """
 
 from __future__ import annotations
@@ -143,18 +143,31 @@ class RecoverySupervisor:
 
     def record(self, stage: str, reasons: list[str], **context: Any) -> None:
         """Commit one executed stage: spend its budget, quarantine the batch
-        identity (``epoch``/``batch`` of a skip), log."""
+        identity (``epoch``/``batch`` of a skip), log, and emit the
+        ``recovery`` event."""
         if stage not in RECOVERY_STAGES:
             raise ValueError(f"unknown recovery stage {stage!r}")
         with self._lock:
             self._counts[stage] += 1
             if stage == "skip" and len(self._quarantined) < self.MAX_QUARANTINE:
                 self._quarantined.append({k: context[k] for k in ("epoch", "batch") if k in context})
+        payload = {
+            "stage": stage,
+            "reasons": list(reasons),
+            **{k: v for k, v in context.items() if isinstance(v, (bool, int, float, str)) or v is None},
+        }
         log.warning(
             "recovery: %s (%s) %s", stage, ", ".join(reasons) or "-",
-            " ".join(f"{k}={v}" for k, v in context.items()
-                     if isinstance(v, (bool, int, float, str)) or v is None),
+            " ".join(f"{k}={v}" for k, v in payload.items() if k not in ("stage", "reasons")),
         )
+        try:
+            from ddr_tpu_torch.observability.events import get_recorder
+
+            rec = get_recorder()
+            if rec is not None:
+                rec.emit("recovery", **payload)
+        except Exception:  # telemetry must never mask the recovery itself
+            log.exception("could not record recovery event")
 
     def count(self, stage: str) -> int:
         with self._lock:

@@ -24,8 +24,9 @@ running sums, never series, and run on the host:
 The scorer writes the ``ddr_verify_crps``, ``ddr_verify_brier`` and
 ``ddr_verify_spread_skill`` histograms and the worst-K
 ``ddr_verify_worst_crps{gauge}`` gauges into the metrics registry directly.
-The JAX ledger also writes one ``verify`` event a join into its run log;
-the port has no run recorder yet (ROADMAP A.10), so it writes none.
+Each join is also one ``verify`` event of the active run recorder (the join
+counters, the caller's context and the scorer's bounded summary), which
+``ddr verify <logdir>`` folds.
 
 Valid times are integer hours: step ``i`` of a ``t0``-window forecast is
 valid at hour ``t0 + 1 + i`` of the network's forcing, a ``q_prime``
@@ -833,8 +834,8 @@ class ForecastLedger:
         or the HTTP-body list form ``[{"gauge": ..., "times": [...],
         "values": [...]}, ...]``. Every matched (forecast, obs) pair is
         scored. Returns the join stats dict (the ``/v1/observe`` response
-        body). ``context`` (e.g. ``source="http"``) would ride the run log's
-        ``verify`` event, which waits for ROADMAP A.10."""
+        body). ``context`` (e.g. ``source="http"``) rides the run log's
+        ``verify`` event."""
         net = str(network)
         pairs: list[tuple[str, int, float]] = []
         if isinstance(observations, dict):
@@ -889,13 +890,27 @@ class ForecastLedger:
             lead = np.array([c[2] for c in cells])
             gids = [c[3] for c in cells]
             self.scorer.update_samples(members, obs, lead, gids)
-        return {
+        stats = {
             "network": net,
             "observations": len(pairs),
             "matched": matched,
             "unmatched": unmatched,
             "duplicates": duplicates,
         }
+        self._emit_verify(stats, context)
+        return stats
+
+    def _emit_verify(self, stats: dict[str, Any], context: dict) -> None:
+        """One ``verify`` event a join, to the active recorder only."""
+        from ddr_tpu_torch.observability.events import get_recorder
+
+        rec = get_recorder()
+        if rec is None:
+            return
+        try:
+            rec.emit("verify", **stats, **context, **self.scorer.summary())
+        except Exception:
+            log.exception("verify event emission failed")
 
     # ---- rollups ----
 

@@ -19,6 +19,9 @@ from ddr_tpu_torch.device import resolve_device
 from ddr_tpu_torch.geodatazoo.loader import DataLoader
 from ddr_tpu_torch.io.readers import StreamflowReader
 from ddr_tpu_torch.nn.kan import Kan
+from ddr_tpu_torch.observability.events import get_recorder
+from ddr_tpu_torch.observability.spans import span
+from ddr_tpu_torch.observability.throughput import Throughput
 from ddr_tpu_torch.routing.model import dmc
 from ddr_tpu_torch.training import load_state
 from ddr_tpu_torch.validation.configs import Config, load_config
@@ -37,13 +40,6 @@ __all__ = [
     "split_config_argv",
     "timed",
 ]
-
-#: Logged once by each evaluation loop.
-EVAL_TELEMETRY_ABSENT = (
-    "not in this port yet, so off in this run: the per-batch trace spans and run-recorder "
-    "events of the evaluation loop (they write into the telemetry plane, ROADMAP A.10)"
-)
-
 
 def split_config_argv(argv: list[str] | None) -> tuple[str | None, list[str]]:
     """``[config.yaml] [a.b=c ...]`` -> ``(path, overrides)``."""
@@ -154,31 +150,36 @@ def evaluate_hourly(
     gauge predictions ``(G, T_hourly)``, the loop ``ddr test`` and the
     benchmark share. Each chunk maps the KAN and routes with
     ``carry_state=i > 0``, so every chunk after the first starts from the
-    previous one's final discharge (the scan's ``q_init``). Logs each chunk's
-    reach-timesteps per second and host milliseconds, synchronised on its
-    result, and the loop's rate at the end."""
-    log.info(EVAL_TELEMETRY_ABSENT)
+    previous one's final discharge (the scan's ``q_init``). Each chunk is an
+    ``eval-batch`` span and one ``eval`` event of the active run recorder;
+    its reach-timesteps per second and host milliseconds, synchronised on its
+    result, are logged, and the loop's rate at the end."""
     dev = resolve_device(cfg.device)
     routing_model = routing_model or dmc(cfg, device=dev)
     loader = DataLoader(dataset, batch_size=cfg.experiment.batch_size, shuffle=False)
     n_gauges = len(dataset.routing_data.observations.gage_ids)
     predictions = np.zeros((n_gauges, len(dataset.dates.hourly_time_range)), dtype=np.float32)
-    work = seconds = 0.0
+    throughput = Throughput(label="evaluate")
+    rec = get_recorder()
     for i, rd in enumerate(loader):
         q_prime = np.asarray(flow(routing_dataclass=rd), dtype=np.float32)
-        t0 = time.perf_counter()
-        with torch.no_grad():
+        with throughput.batch(rd.n_segments, q_prime.shape[0]), span("eval-batch"), torch.no_grad():
             raw = kan(torch.as_tensor(rd.normalized_spatial_attributes, device=dev))
             out = routing_model.forward(rd, q_prime, raw, carry_state=i > 0)
             chunk = out["runoff"].cpu().numpy()  # synchronises
-        dt = time.perf_counter() - t0
         predictions[:, rd.dates.hourly_indices] = chunk
-        work += rd.n_segments * q_prime.shape[0]
-        seconds += dt
-        log.info(f"evaluate batch {i}: {rd.n_segments * q_prime.shape[0] / max(dt, 1e-12):,.0f} "
-                 f"reach-timesteps/s ({dt * 1e3:.3f} ms, {q_prime.shape[0]} h)")
-    if seconds:
-        log.info(f"evaluate: {work / seconds:,.0f} reach-timesteps/s ({i + 1} batches)")
+        log.info(f"evaluate batch {i}: {throughput.last_rate:,.0f} reach-timesteps/s "
+                 f"({throughput.last_seconds * 1e3:.3f} ms, {q_prime.shape[0]} h)")
+        if rec is not None:
+            rec.emit(
+                "eval",
+                batch=i,
+                n_reaches=int(rd.n_segments),
+                n_timesteps=int(q_prime.shape[0]),
+                seconds=round(throughput.last_seconds, 6),
+                reach_timesteps_per_sec=round(throughput.last_rate, 1),
+            )
+    throughput.log_summary()
     return predictions
 
 

@@ -25,9 +25,13 @@ standard output after a short summary.
     python -m ddr_tpu_torch.cli loadtest --url http://127.0.0.1:8080 --mode closed --clients 16
     python -m ddr_tpu_torch.cli loadtest examples/synthetic/config.yaml --rps 20 --t0-span 240
 
+An in-process run records the service's decisions in
+``run_log.loadtest.jsonl`` (``DDR_METRICS_DIR``, else the report directory);
+so does a ``--url`` run when ``DDR_METRICS_DIR`` is set, with the client's
+side only.
+
 Departures from the JAX command: ``--fleet`` (a replica group behind the
 fleet router) exits naming ROADMAP A.9, where the replica group is ported;
-the run log (``run_log.loadtest.jsonl``) waits for the run recorder (A.10);
 and :func:`priority_for` seeds its draw with a string, because Python 3.12
 refuses the tuple seed of the JAX function.
 """
@@ -47,6 +51,8 @@ from concurrent.futures import ThreadPoolExecutor
 from concurrent.futures import TimeoutError as FutureTimeoutError
 from pathlib import Path
 from typing import Any, Callable
+
+from ddr_tpu_torch.observability.events import run_telemetry
 
 log = logging.getLogger(__name__)
 
@@ -68,12 +74,6 @@ __all__ = [
 
 #: Latency quantiles every report carries, for each lifecycle phase.
 QUANTILES = (0.50, 0.95, 0.99)
-
-#: Logged once by every run.
-LOADTEST_PARTS_ABSENT = (
-    "not in this port yet, so off in this run: the run log of the load test "
-    "(the run recorder, ROADMAP A.10)"
-)
 
 
 @dataclasses.dataclass
@@ -657,12 +657,12 @@ def main(argv: list[str] | None = None) -> int:
         print("ddr loadtest: --fleet drives a replica group, which is not ported yet (ROADMAP A.9)",
               file=sys.stderr)
         return 2
-    log.info(LOADTEST_PARTS_ABSENT)
     out_dir = Path(args.out or os.environ.get("DDR_METRICS_DIR") or ".")
     out_dir.mkdir(parents=True, exist_ok=True)
     label = args.label or time.strftime("%Y%m%d-%H%M%S")
 
     service = None
+    cfg = None
     try:
         mix = parse_priority_mix(args.priority_mix)
         if args.url:
@@ -675,18 +675,26 @@ def main(argv: list[str] | None = None) -> int:
 
             path, overrides = split_config_argv(args.config)
             if args.synthetic or path is None:
-                service, _ = build_synthetic_service(args.n, args.horizon, save_path=str(out_dir),
-                                                     overrides=overrides)
+                service, cfg = build_synthetic_service(args.n, args.horizon, save_path=str(out_dir),
+                                                       overrides=overrides)
             else:
                 from ddr_tpu_torch.scripts.serve import build_service
 
-                service = build_service(parse_cli([path, *overrides], mode="testing"), watch=False)
+                cfg = parse_cli([path, *overrides], mode="testing")
+                service = build_service(cfg, watch=False)
             driver = InProcessDriver(service, network=args.network, model=args.model,
                                      t0_span=args.t0_span, deadline_ms=args.deadline_ms,
                                      priority_mix=mix, ensemble=args.ensemble, seed=args.seed)
-        report = run_loadtest(driver, args, service)
+        with run_telemetry(cfg, "loadtest", mode=args.mode):
+            try:
+                report = run_loadtest(driver, args, service)
+            finally:
+                # closed inside the run log: close() merges the serve rollup into run_end
+                if service is not None:
+                    service.close(drain=False)
+                    service = None
     finally:
-        if service is not None:
+        if service is not None:  # construction failed before the run
             service.close(drain=False)
 
     path = out_dir / f"LOADTEST_{label}.json"

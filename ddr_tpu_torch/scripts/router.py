@@ -1,10 +1,11 @@
 """``ddr route`` on the port: forward-only routing over the gauges (or every
 segment), the port of ``ddr_tpu/scripts/router.py``. Writes the routed
 hourly discharge to ``chrout.zarr`` with the JAX package's array and
-attributes and prints a terminal summary.
+attributes and prints a terminal summary. Each chunk is a ``route-batch``
+span and one ``eval`` event of ``run_log.route.jsonl``.
 
 The JAX command's hydrograph plot (matplotlib, which the card machine lacks)
-and its run-recorder events (ROADMAP A.10) are skipped, and the log says so.
+is skipped, and the log says so.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ import torch
 from ddr_tpu_torch.device import resolve_device
 from ddr_tpu_torch.geodatazoo.loader import DataLoader
 from ddr_tpu_torch.io import zarrlite
+from ddr_tpu_torch.observability.events import get_recorder, run_telemetry
+from ddr_tpu_torch.observability.spans import span
 from ddr_tpu_torch.routing.model import dmc
 from ddr_tpu_torch.scripts.common import get_flow_fn, load_kan, parse_cli, timed
 from ddr_tpu_torch.scripts_utils import safe_mean, safe_percentile
@@ -32,7 +35,7 @@ __all__ = ["main", "print_routing_summary", "route_domain"]
 #: Logged once by every ``ddr route`` run.
 ROUTE_PARTS_ABSENT = (
     "not in this port yet, so off in this run: the routing hydrograph plot (it needs "
-    "matplotlib) and the per-batch run-recorder events (ROADMAP A.10)"
+    "matplotlib)"
 )
 
 
@@ -76,18 +79,31 @@ def route_domain(cfg: Config, dataset=None, params=None) -> np.ndarray:
         else [str(d) for d in np.asarray(rd0.divide_ids)[:n_outputs]]
     )
 
+    rec = get_recorder()
     t0 = time.perf_counter()
     discharge = np.zeros((n_outputs, len(dataset.dates.hourly_time_range)), dtype=np.float32)
     for i, rd in enumerate(loader):
-        q_prime = np.asarray(flow(routing_dataclass=rd), dtype=np.float32)
         t_b = time.perf_counter()
-        with torch.no_grad():
+        q_prime = np.asarray(flow(routing_dataclass=rd), dtype=np.float32)
+        t_r = time.perf_counter()
+        with span("route-batch"), torch.no_grad():
             raw = kan(torch.as_tensor(rd.normalized_spatial_attributes, device=dev))
             out = routing_model.forward(rd, q_prime, raw, carry_state=i > 0)
             discharge[:, rd.dates.hourly_indices] = out["runoff"].cpu().numpy()  # synchronises
-        dt = time.perf_counter() - t_b
-        log.info(f"route batch {i}: {rd.n_segments * q_prime.shape[0] / max(dt, 1e-12):,.0f} "
-                 f"reach-timesteps/s ({dt * 1e3:.3f} ms, {q_prime.shape[0]} h)")
+        t_e = time.perf_counter()
+        dr = max(t_e - t_r, 1e-12)
+        log.info(f"route batch {i}: {rd.n_segments * q_prime.shape[0] / dr:,.0f} "
+                 f"reach-timesteps/s ({dr * 1e3:.3f} ms, {q_prime.shape[0]} h)")
+        if rec is not None:  # the event's time includes the inflow read, as JAX's does
+            dt = max(t_e - t_b, 1e-6)
+            rec.emit(
+                "eval",
+                batch=i,
+                n_reaches=int(rd.n_segments),
+                n_timesteps=int(q_prime.shape[0]),
+                seconds=round(dt, 6),
+                reach_timesteps_per_sec=round(rd.n_segments * q_prime.shape[0] / dt, 1),
+            )
     runtime = time.perf_counter() - t0
 
     out_path = Path(cfg.params.save_path) / "chrout.zarr"
@@ -111,8 +127,9 @@ def route_domain(cfg: Config, dataset=None, params=None) -> np.ndarray:
 def main(argv: list[str] | None = None) -> int:
     """``[config.yaml] [a.b=c ...]``: validate the config in routing mode and route."""
     cfg = parse_cli(argv, mode="routing")
+    # the interrupt is caught outside run_telemetry, so the run log says "interrupted"
     try:
-        with timed("routing"):
+        with timed("routing"), run_telemetry(cfg, "route"):
             route_domain(cfg)
     except KeyboardInterrupt:
         log.info("Keyboard interrupt received")

@@ -15,7 +15,8 @@ Warmup runs every (network, model) pair before ``/readyz`` answers 200.
 
 ``DDR_SERVE_*`` variables set the serving knobs (:class:`ServeConfig`), among
 them ``DDR_SERVE_HOST``/``DDR_SERVE_PORT``. Ctrl-C stops the server, drains
-the queue and stops the watcher.
+the queue and stops the watcher. Every admission, batch and shed is an event
+of ``run_log.serve.jsonl`` (``DDR_METRICS_DIR``, else the save path).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from pathlib import Path
 import numpy as np
 
 from ddr_tpu_torch.device import resolve_device
+from ddr_tpu_torch.observability.events import run_telemetry
 from ddr_tpu_torch.observability.trace import trace_enabled
 from ddr_tpu_torch.scripts.common import get_flow_fn, kan_arch, load_kan, parse_cli
 from ddr_tpu_torch.serving.config import ServeConfig
@@ -39,9 +41,8 @@ __all__ = ["build_service", "main", "serve"]
 
 #: Logged once at the start of every server.
 SERVE_PARTS_ABSENT = (
-    "not in this port yet, so off in this server: the run telemetry of the serve run "
-    "(ROADMAP A.10), and the fleet tier, its replica identity and /metrics?federated=1 "
-    "(ROADMAP A.9)"
+    "not in this port yet, so off in this server: the fleet tier, its replica identity and "
+    "/metrics?federated=1 (ROADMAP A.9)"
 )
 
 
@@ -100,7 +101,8 @@ def main(argv: list[str] | None = None) -> int:
     has nothing of the kind to set."""
     cfg = parse_cli(argv, mode="testing")
     try:
-        return serve(cfg, ServeConfig.from_env())
+        with run_telemetry(cfg, "serve"):
+            return serve(cfg, ServeConfig.from_env())
     except KeyboardInterrupt:
         log.info("Keyboard interrupt received")
     return 0

@@ -3,8 +3,10 @@ carried discharge state, the port of ``ddr_tpu/scripts/test.py``. Writes
 the daily predictions and observations to ``model_test.zarr`` with the JAX
 package's arrays and attributes, and logs the metric battery.
 
-The JAX command's skill telemetry (ROADMAP A.10) and its evaluation plots
-(matplotlib, which the card machine lacks) are skipped, and the log says so.
+The run writes ``run_log.test.jsonl`` (its ``eval`` events and spans) under
+``DDR_METRICS_DIR`` or the save path. The JAX command's skill telemetry
+(ROADMAP A.10) and its evaluation plots (matplotlib, which the card machine
+lacks) are skipped, and the log says so.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import numpy as np
 
 from ddr_tpu_torch.device import resolve_device
 from ddr_tpu_torch.io import zarrlite
+from ddr_tpu_torch.observability.events import run_telemetry
 from ddr_tpu_torch.scripts.common import evaluate_hourly, get_flow_fn, load_kan, parse_cli, timed
 from ddr_tpu_torch.scripts_utils import compute_daily_runoff
 from ddr_tpu_torch.validation.configs import Config
@@ -90,8 +93,9 @@ def test(cfg: Config, dataset=None, params=None) -> Metrics:
 def main(argv: list[str] | None = None) -> int:
     """``[config.yaml] [a.b=c ...]``: validate the config in testing mode and evaluate."""
     cfg = parse_cli(argv, mode="testing")
+    # the interrupt is caught outside run_telemetry, so the run log says "interrupted"
     try:
-        with timed("testing"):
+        with timed("testing"), run_telemetry(cfg, "test"):
             test(cfg)
     except KeyboardInterrupt:
         log.info("Keyboard interrupt received")

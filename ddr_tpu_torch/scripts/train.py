@@ -14,7 +14,12 @@ and a checkpoint after every mini-batch through the background writer.
 
 Each step logs one line, ``epoch E mini-batch B: loss=L (R reach-timesteps/s,
 S ms, ENGINE)``, where S is the host time of the step up to its
-synchronised loss. The JAX loop's optional subsystems that the port does not
+synchronised loss. ``main`` records the run in ``run_log.train.jsonl``
+(``DDR_METRICS_DIR``, else the save path): one ``step`` event a step with
+its wall-clock split (:class:`~ddr_tpu_torch.observability.phases.PhaseTimer`:
+``data_load`` and ``host_prep`` on the prefetch thread, ``device_step``,
+``eval``, ``checkpoint``) and the loop's own wall ``loop_s``; the health
+watchdog runs when a run log does, as in the JAX loop. The JAX loop's optional subsystems that the port does not
 have yet raise ``NotImplementedError`` naming their ROADMAP item when their
 variable asks for them; those that only feed its telemetry plane are named
 in one log line at the start.
@@ -32,8 +37,13 @@ import torch
 
 from ddr_tpu_torch.device import resolve_device
 from ddr_tpu_torch.geodatazoo.loader import DataLoader, prefetch
+from ddr_tpu_torch.observability.events import get_recorder, run_telemetry
 from ddr_tpu_torch.observability.health import HealthConfig, HealthWatchdog
+from ddr_tpu_torch.observability.phases import PhaseTimer
 from ddr_tpu_torch.observability.recovery import RecoveryConfig
+from ddr_tpu_torch.observability.spans import span, trace
+from ddr_tpu_torch.observability.throughput import Throughput
+from ddr_tpu_torch.observability.trace import run_trace_seed, step_context
 from ddr_tpu_torch.routing.mc import Bounds
 from ddr_tpu_torch.routing.model import engine_label, prepare_batch, single_ring_wavefront
 from ddr_tpu_torch.scripts.common import (
@@ -42,6 +52,7 @@ from ddr_tpu_torch.scripts.common import (
     get_flow_fn,
     kan_arch,
     parse_cli,
+    timed,
 )
 from ddr_tpu_torch.scripts_utils import resolve_learning_rate
 from ddr_tpu_torch.training import (
@@ -157,8 +168,9 @@ def train(cfg: Config, dataset=None, max_batches: int | None = None):
         restore_optimizer(optimizer, blob["opt_state"])
 
     health_cfg = HealthConfig.from_env()
-    watchdog = HealthWatchdog(health_cfg) if health_cfg.enabled else None
-    health_on = watchdog is not None
+    rec = get_recorder()
+    health_on = health_cfg.enabled and rec is not None
+    watchdog = HealthWatchdog(health_cfg) if health_on else None
     step = make_batch_train_step(
         kan,
         Bounds.from_config(cfg.params.attribute_minimums),
@@ -178,8 +190,12 @@ def train(cfg: Config, dataset=None, max_batches: int | None = None):
 
     slope_min = cfg.params.attribute_minimums["slope"]
     ckpt_dir = Path(cfg.params.save_path) / "saved_models"
-    ckpt_writer = AsyncCheckpointWriter(prune_dir=ckpt_dir) if async_checkpoint_from_env() else None
     n_done = 0
+    throughput = Throughput(label="train")
+    phase_timer = PhaseTimer()
+    trace_seed = run_trace_seed(cfg)
+    ckpt_writer = (AsyncCheckpointWriter(phase_timer=phase_timer, prune_dir=ckpt_dir)
+                   if async_checkpoint_from_env() else None)
 
     def _healthy() -> bool | None:
         # the watchdog's verdict when the save is requested; None without one
@@ -200,45 +216,82 @@ def train(cfg: Config, dataset=None, max_batches: int | None = None):
 
             def _prepare(item):
                 # batch-local and independent of the training state: runs ahead
-                # in the prefetch pool, hiding table builds and uploads
+                # in the prefetch pool, hiding table builds and uploads; its
+                # phases ride the batch's own dict, never the main thread's
                 i, rd = item
-                q_prime = np.asarray(flow(routing_dataclass=rd), dtype=np.float32)
-                if rd.flow_scale is not None:
-                    q_prime = q_prime * np.asarray(rd.flow_scale, dtype=np.float32)[None, :]
-                obs_daily, obs_mask = daily_observation_targets(rd)
-                network, channels, gauges = prepare_batch(rd, slope_min, device=dev)
-                if single_ring_wavefront(network):
-                    q_prime = np.ascontiguousarray(q_prime[:, network.wf_perm.cpu().numpy()])
-                payload = (
-                    torch.as_tensor(q_prime, device=dev), network, channels, gauges,
-                    torch.as_tensor(rd.normalized_spatial_attributes, device=dev),
-                    torch.as_tensor(obs_daily, device=dev), torch.as_tensor(obs_mask, device=dev),
-                )
-                return i, rd, payload, obs_daily, obs_mask
+                phase_s: dict[str, float] = {}
+                ctx = step_context(trace_seed, f"{epoch}:{i}")
+                with phase_timer.phase("data_load", into=phase_s, ctx=ctx):
+                    q_prime = np.asarray(flow(routing_dataclass=rd), dtype=np.float32)
+                    if rd.flow_scale is not None:
+                        q_prime = q_prime * np.asarray(rd.flow_scale, dtype=np.float32)[None, :]
+                    obs_daily, obs_mask = daily_observation_targets(rd)
+                with phase_timer.phase("host_prep", into=phase_s, ctx=ctx):
+                    network, channels, gauges = prepare_batch(rd, slope_min, device=dev)
+                    if single_ring_wavefront(network):
+                        q_prime = np.ascontiguousarray(q_prime[:, network.wf_perm.cpu().numpy()])
+                    payload = (
+                        torch.as_tensor(q_prime, device=dev), network, channels, gauges,
+                        torch.as_tensor(rd.normalized_spatial_attributes, device=dev),
+                        torch.as_tensor(obs_daily, device=dev), torch.as_tensor(obs_mask, device=dev),
+                    )
+                return i, rd, payload, obs_daily, obs_mask, phase_s
 
             batches = prefetch(_batches(), _prepare, ahead=cfg.experiment.prefetch_ahead)
-            for i, rd, payload, obs_daily, obs_mask in batches:
+            # each iteration's whole wall lands on its step event as loop_s
+            loop_t0 = time.perf_counter()
+            for i, rd, payload, obs_daily, obs_mask, phase_s in batches:
+                step_ctx = step_context(trace_seed, f"{epoch}:{i}")
+                if ckpt_writer is not None:
+                    ckpt_writer.trace_ctx = step_ctx
                 q_prime, network, channels, gauges, attrs, obs_t, mask_t = payload
-                t0 = time.perf_counter()
-                out = step(network, channels, gauges, attrs, q_prime, obs_t, mask_t)
-                loss = float(out[0])  # synchronises: the time covers the whole step
-                seconds = time.perf_counter() - t0
+                n_timesteps = q_prime.shape[0]
+                with throughput.batch(rd.n_segments, n_timesteps), phase_timer.phase(
+                    "device_step", into=phase_s, ctx=step_ctx
+                ):
+                    with span("step-single", parent=step_ctx):
+                        out = step(network, channels, gauges, attrs, q_prime, obs_t, mask_t)
+                    loss = float(out[0])  # synchronises: the time covers the whole step
                 daily = out[1].cpu().numpy()  # (D-2, G)
                 if watchdog is not None:
                     watchdog.observe(out[2], epoch=epoch, batch=i)
-                rate = rd.n_segments * q_prime.shape[0] / max(seconds, 1e-12)
                 log.info(
-                    f"epoch {epoch} mini-batch {i}: loss={loss:.9g} ({rate:,.0f} "
-                    f"reach-timesteps/s, {seconds * 1e3:.3f} ms, {engine_label(network)})"
+                    f"epoch {epoch} mini-batch {i}: loss={loss:.9g} ({throughput.last_rate:,.0f} "
+                    f"reach-timesteps/s, {throughput.last_seconds * 1e3:.3f} ms, "
+                    f"{engine_label(network)})"
                 )
-                target = np.where(obs_mask, obs_daily, np.nan)
-                log_metrics(Metrics(pred=daily.T, target=target.T),
-                            header=f"epoch {epoch} mini-batch {i}")
-                saver = ckpt_writer.save if ckpt_writer is not None else save_state
-                saver(ckpt_dir, cfg.name, epoch, i, kan, optimizer, rng_state=loader.state(),
-                      arch=arch, healthy=_healthy())
-                if ckpt_writer is None:
-                    prune_checkpoints_from_env(ckpt_dir)
+                # the step event survives a raising metrics or checkpoint section:
+                # the step completed and updated the weights
+                try:
+                    with phase_timer.phase("eval", into=phase_s, ctx=step_ctx):
+                        target = np.where(obs_mask, obs_daily, np.nan)
+                        log_metrics(Metrics(pred=daily.T, target=target.T),
+                                    header=f"epoch {epoch} mini-batch {i}")
+                    with phase_timer.phase("checkpoint", into=phase_s, ctx=step_ctx):
+                        saver = ckpt_writer.save if ckpt_writer is not None else save_state
+                        saver(ckpt_dir, cfg.name, epoch, i, kan, optimizer, rng_state=loader.state(),
+                              arch=arch, healthy=_healthy())
+                        if ckpt_writer is None:
+                            prune_checkpoints_from_env(ckpt_dir)
+                finally:
+                    loop_now = time.perf_counter()
+                    loop_s = round(loop_now - loop_t0, 6)
+                    loop_t0 = loop_now
+                    if rec is not None:
+                        rec.emit(
+                            "step",
+                            epoch=epoch,
+                            batch=i,
+                            loss=loss,
+                            n_reaches=int(rd.n_segments),
+                            n_timesteps=int(n_timesteps),
+                            seconds=round(throughput.last_seconds, 6),
+                            reach_timesteps_per_sec=round(throughput.last_rate, 1),
+                            engine="single",
+                            phases=dict(phase_s),
+                            loop_s=loop_s,
+                            **(step_ctx.ids() if step_ctx is not None else {}),
+                        )
                 n_done += 1
                 if max_batches is not None and n_done >= max_batches:
                     return kan, optimizer
@@ -252,18 +305,24 @@ def train(cfg: Config, dataset=None, max_batches: int | None = None):
                 log.exception("async checkpoint writer failed at close")
         if watchdog is not None:
             log.info(f"health: {watchdog.status()}")
+        throughput.log_summary()
+        if rec is not None:
+            rec.merge_summary("throughput", {"reach_timesteps_per_sec": round(throughput.rate, 1),
+                                             "batches": throughput.batches})
+            rec.merge_summary("phases", phase_timer.summary())
+            if watchdog is not None:
+                rec.merge_summary("health", watchdog.status())
 
 
 def main(argv: list[str] | None = None) -> int:
     """``[config.yaml] [a.b=c ...]``: validate the config in training mode and train."""
     cfg = parse_cli(argv, mode="training")
-    start = time.perf_counter()
+    # the interrupt is caught outside run_telemetry, so the run log says "interrupted"
     try:
-        train(cfg)
+        with timed("training"), run_telemetry(cfg, "train"), trace():
+            train(cfg)
     except KeyboardInterrupt:
         log.info("Keyboard interrupt received")
-    finally:
-        log.info(f"training: {(time.perf_counter() - start) / 60:.3f} minutes elapsed")
     return 0
 
 

@@ -1,6 +1,8 @@
 """``ddr train-and-test`` on the port: training, then evaluation of the
 newest checkpoint over a held-out period; the port of
-``ddr_tpu/scripts/train_and_test.py``.
+``ddr_tpu/scripts/train_and_test.py``. One run log,
+``run_log.train-and-test.jsonl``, holds the train steps and then the test's
+``eval`` events.
 """
 
 from __future__ import annotations
@@ -9,6 +11,7 @@ import copy
 import logging
 from pathlib import Path
 
+from ddr_tpu_torch.observability.events import run_telemetry
 from ddr_tpu_torch.scripts.common import parse_cli, timed
 from ddr_tpu_torch.scripts.test import test as _test
 from ddr_tpu_torch.scripts.train import train as _train
@@ -47,8 +50,9 @@ def train_and_test(cfg: Config) -> Metrics:
 def main(argv: list[str] | None = None) -> int:
     """``[config.yaml] [a.b=c ...]``: validate the config in training mode, train, then test."""
     cfg = parse_cli(argv, mode="training")
+    # the interrupt is caught outside run_telemetry, so the run log says "interrupted"
     try:
-        with timed("train-and-test"):
+        with timed("train-and-test"), run_telemetry(cfg, "train-and-test"):
             train_and_test(cfg)
     except KeyboardInterrupt:
         log.info("Keyboard interrupt received")

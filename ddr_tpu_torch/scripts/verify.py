@@ -12,15 +12,17 @@ The port of ``ddr_tpu/scripts/verify.py``, over
   JAX command pins its compile cache there instead). ``a.b=c`` overrides
   apply to the synthetic config; it runs on the card unless ``device=cpu``.
 - ``--url`` — read a running service's ``/v1/stats`` verification slice
-  (the service needs a ledger, ``ForecastService.attach_verifier``).
+  (the service needs a ledger, ``ForecastService.attach_verifier``);
+- ``<logdir>`` — replay: fold the last ``verify`` event of every
+  ``run_log*.jsonl`` under the directory (:func:`replay_dir`).
 
 Each mode writes ``VERIFY_<label>.json`` and ``VERIFY_<label>.md``, prints
 the summary, and prints the JSON record as the last line of standard output.
-The JAX command's third mode, ``ddr verify <logdir>``, folds the ``verify``
-events of run logs; the port writes no run logs before ROADMAP A.10, and
-the mode exits 2 naming it.
+``--synthetic`` records its joins in ``run_log.verify.jsonl``
+(``DDR_METRICS_DIR``, else the report directory), which the replay mode reads.
 
     python -m ddr_tpu_torch.cli verify --synthetic --n 64 --members 8 device=cpu
+    python -m ddr_tpu_torch.cli verify <logdir>
 """
 
 from __future__ import annotations
@@ -29,16 +31,17 @@ import argparse
 import json
 import logging
 import os
-import sys
 import time
 from pathlib import Path
 from typing import Any
 
 import numpy as np
 
+from ddr_tpu_torch.observability.events import run_telemetry
+
 log = logging.getLogger(__name__)
 
-__all__ = ["main", "render_verify_summary", "run_live", "run_synthetic"]
+__all__ = ["main", "render_verify_summary", "replay_dir", "run_live", "run_synthetic"]
 
 #: Degraded-arm bias: members scaled by this factor. Far enough from truth
 #: that CRPS must rank it below the sharp arm on any reasonable basin.
@@ -155,6 +158,70 @@ def run_live(url: str) -> dict[str, Any] | None:
     }
 
 
+def replay_dir(logdir: Path) -> dict[str, Any] | None:
+    """Fold the last ``verify`` event of every run log under ``logdir`` into
+    one rollup. The events carry cumulative scorer summaries, so the fold is
+    one sample-weighted mean a score across files (exact for the means; the
+    rank histogram and the worst set are per-file shapes and are dropped).
+    None when no file holds a ``verify`` event."""
+    lasts: list[dict] = []
+    for path in sorted(logdir.glob("run_log*.jsonl")):
+        last = None
+        try:
+            with path.open() as fh:
+                for line in fh:
+                    line = line.strip()
+                    if not line:
+                        continue
+                    try:
+                        ev = json.loads(line)
+                    except json.JSONDecodeError:
+                        continue
+                    if ev.get("event") == "verify":
+                        last = ev
+        except OSError as e:
+            log.warning(f"skipping unreadable {path}: {e}")
+            continue
+        if last is not None:
+            lasts.append(last)
+    if not lasts:
+        return None
+
+    def _wmean(pairs: list[tuple[float, float]]) -> float | None:
+        num = sum(v * w for v, w in pairs)
+        den = sum(w for _, w in pairs)
+        return round(num / den, 6) if den else None
+
+    samples = sum(int(ev.get("samples", 0)) for ev in lasts)
+    crps = _wmean([(ev["crps"], ev.get("samples", 0)) for ev in lasts if ev.get("crps") is not None])
+    spread = _wmean([(ev["spread_skill"], ev.get("samples", 0)) for ev in lasts
+                     if ev.get("spread_skill") is not None])
+    briers = [(b, ev.get("samples", 0)) for ev in lasts for b in [_mean_brier(ev.get("thresholds"))]
+              if b is not None]
+    # the lead bins, weighted by each file's n a bin
+    by_lead: dict[str, dict[str, float]] = {}
+    for ev in lasts:
+        for label, entry in (ev.get("by_lead") or {}).items():
+            acc = by_lead.setdefault(label, {"n": 0, "crps_num": 0.0})
+            acc["n"] += entry.get("n", 0)
+            if entry.get("crps") is not None:
+                acc["crps_num"] += entry["crps"] * entry.get("n", 0)
+    return {
+        "kind": "verify",
+        "mode": "replay",
+        "target": str(logdir),
+        "files": len(lasts),
+        "matched_samples": samples,
+        "crps": crps,
+        "brier": _wmean(briers),
+        "spread_skill": spread,
+        "by_lead": {
+            label: {"n": int(acc["n"]), "crps": round(acc["crps_num"] / acc["n"], 6) if acc["n"] else None}
+            for label, acc in by_lead.items()
+        },
+    }
+
+
 def render_verify_summary(report: dict[str, Any]) -> str:
     """Markdown summary for terminals and ``VERIFY_<label>.md``."""
     lines = [
@@ -194,8 +261,8 @@ def main(argv: list[str] | None = None) -> int:
         "read; writes a VERIFY_*.json record.",
     )
     parser.add_argument("args", nargs="*",
-                        help="a.b=c overrides of the synthetic config (e.g. device=cpu); a "
-                        "run-log directory (the JAX command's replay mode) is not ported yet")
+                        help="a run-log directory (replay mode: fold its verify events), and "
+                        "a.b=c overrides of the synthetic config (e.g. device=cpu)")
     parser.add_argument("--url", default=None, help="live mode: read this service's /v1/stats "
                         "verification slice")
     parser.add_argument("--synthetic", action="store_true",
@@ -217,13 +284,13 @@ def main(argv: list[str] | None = None) -> int:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(levelname)s %(message)s")
     overrides = [a for a in args.args if "=" in a]
     logdirs = [a for a in args.args if "=" not in a]
-    if logdirs and not (args.synthetic or args.url):
-        print("ddr verify: <logdir> folds the verify events of run logs, which the port does not "
-              "write yet (ROADMAP A.10)", file=sys.stderr)
-        return 2
-    if not args.synthetic and not args.url:
+    if len(logdirs) > 1:
         parser.print_usage()
-        log.error("pick a mode: --synthetic or --url")
+        log.error(f"one run-log directory at most, got {logdirs}")
+        return 2
+    if not args.synthetic and not args.url and not logdirs:
+        parser.print_usage()
+        log.error("pick a mode: --synthetic, --url, or a run-log directory")
         return 2
 
     out_dir = Path(args.out or os.environ.get("DDR_METRICS_DIR") or ".")
@@ -235,13 +302,19 @@ def main(argv: list[str] | None = None) -> int:
     if args.synthetic:
         from ddr_tpu_torch.scripts.loadtest import build_synthetic_service, device_label
 
-        service, _ = build_synthetic_service(args.n, args.horizon, save_path=str(out_dir),
-                                             overrides=overrides)
+        service, cfg = build_synthetic_service(args.n, args.horizon, save_path=str(out_dir),
+                                               overrides=overrides)
         try:
             device = device_label(service)
-            report = run_synthetic(service, args)
+            with run_telemetry(cfg, "verify", mode="synthetic"):
+                try:
+                    report = run_synthetic(service, args)
+                finally:
+                    service.close(drain=False)
+                    service = None
         finally:
-            service.close(drain=False)
+            if service is not None:
+                service.close(drain=False)
         if not report["ordering_ok"]:
             log.error("CRPS ordering FAILED: sharp %s vs degraded %s", report.get("crps"),
                       report.get("crps_degraded"))
@@ -253,11 +326,16 @@ def main(argv: list[str] | None = None) -> int:
         if not report["matched_samples"]:
             log.error("no forecast-observation pairs matched")
             rc = 1
-    else:
+    elif args.url:
         report = run_live(args.url)
         if report is None:
             log.error(f"{args.url} exposes no verification slice (is a ledger attached via "
                       "attach_verifier?)")
+            return 1
+    else:
+        report = replay_dir(Path(logdirs[0]))
+        if report is None:
+            log.error(f"no verify events found under {logdirs[0]}")
             return 1
 
     report["label"] = label

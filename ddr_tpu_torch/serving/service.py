@@ -20,9 +20,11 @@ each batch takes one snapshot of its model, and a checkpoint watcher
 batches. Every request carries a ``request_id`` (a caller's, sanitised by
 :func:`make_request_id`, else minted) and, with tracing on (``DDR_TRACE``),
 a ``trace_id``, and is admitted in a priority class (``interactive``,
-``batch``, ``bulk``). Every admission, batch and shed decision updates the
-live metrics registry (``GET /metrics``) through
-:func:`~ddr_tpu_torch.observability.prometheus.event_tee`, and every terminal
+``batch``, ``bulk``). Every admission, batch and shed decision is an event
+of the active run recorder (:mod:`~ddr_tpu_torch.observability.events`),
+whose tee updates the live metrics registry (``GET /metrics``); with no run
+log the decision goes to
+:func:`~ddr_tpu_torch.observability.prometheus.event_tee` directly. Every terminal
 decision is one good or bad observation of the
 :class:`~ddr_tpu_torch.observability.slo.SloTracker` (``DDR_SLO_*``), which
 the service mirrors onto the ``ddr_slo_*`` gauges and whose fast-burn alert
@@ -44,8 +46,8 @@ watchdog thresholds them after the batch's copy to the host. Serving routes
 in fp32: the JAX service has no dtype axis.
 
 Not in this slice: the replica fleet (ROADMAP A.9), the performance
-sentinel, the skill tracker, the run recorder's events, program cards and
-compile accounting (A.10), mesh mode (A.13) and fault injection (A.6).
+sentinel, the skill tracker, program cards and compile accounting (A.10),
+mesh mode (A.13) and fault injection (A.6).
 ``stats()`` carries their keys as None.
 """
 
@@ -70,9 +72,17 @@ from ddr_tpu_torch.observability.health import (
     compute_health,
     compute_output_worst,
 )
+from ddr_tpu_torch.observability.events import get_recorder
 from ddr_tpu_torch.observability.prometheus import declare_serve_metrics, event_tee
+from ddr_tpu_torch.observability.spans import span
 from ddr_tpu_torch.observability.slo import SloConfig, SloTracker
-from ddr_tpu_torch.observability.trace import adopt_trace_id, new_span_id, trace_enabled
+from ddr_tpu_torch.observability.trace import (
+    SpanContext,
+    adopt_trace_id,
+    new_span_id,
+    new_trace_id,
+    trace_enabled,
+)
 from ddr_tpu_torch.routing.chunked import ChunkedNetwork
 from ddr_tpu_torch.routing.mc import Bounds, ChannelState, GaugeIndex, route
 from ddr_tpu_torch.routing.model import denormalize_spatial_parameters, engine_label, prepare_batch
@@ -350,9 +360,10 @@ class ForecastService:
         self._warmup_error = None  # a retry presents as warming
         try:
             for net, name in pairs:
-                t0 = time.perf_counter()
-                zeros = np.zeros((self.serve_cfg.max_batch, net.horizon, net.n_segments), np.float32)
-                self._run_batch(net, self.registry.get(name), zeros, warmup=True)
+                with span(f"serve-warmup/{net.name}/{name}"):
+                    t0 = time.perf_counter()
+                    zeros = np.zeros((self.serve_cfg.max_batch, net.horizon, net.n_segments), np.float32)
+                    self._run_batch(net, self.registry.get(name), zeros, warmup=True)
                 log.info(f"warmed ({net.name}, {name}) in {time.perf_counter() - t0:.2f}s")
         except BaseException as e:
             self._warmup_error = f"{type(e).__name__}: {e}"
@@ -527,16 +538,22 @@ class ForecastService:
         qp = np.zeros((mb, net.horizon, net.n_segments), dtype=np.float32)
         for i, r in enumerate(reqs):
             qp[i] = r.payload["q_prime"]
-        t0 = time.perf_counter()
-        runoff, device_ms = self._run_batch(net, entry, qp, n_live=len(reqs))
-        exec_s = round(time.perf_counter() - t0, 6)
+        with span(f"serve-batch/{network_name}", emit=False):
+            t0 = time.perf_counter()
+            runoff, device_ms = self._run_batch(net, entry, qp, n_live=len(reqs))
+            exec_s = round(time.perf_counter() - t0, 6)
         now = time.monotonic()
         engine = self._engine_label(net)
         # the metrics are written before any future resolves: a client that
         # scrapes right after its answer finds its own request counted
+        # the batch span: a trace of its own, linked to its member requests' spans
+        batch_ctx = SpanContext(new_trace_id(), new_span_id()) if trace_enabled() else None
+        members = [ids for ids in (_trace_fields(r) for r in reqs) if ids]
         self._emit("serve_batch", network=network_name, model=model_name, engine=engine,
                    size=len(reqs), occupancy=round(len(reqs) / mb, 4), seconds=exec_s,
-                   version=entry.version, queue_depth=reqs[0].meta.get("queue_depth"))
+                   version=entry.version, queue_depth=reqs[0].meta.get("queue_depth"),
+                   **(batch_ctx.ids() if batch_ctx is not None else {}),
+                   **({"members": members} if batch_ctx is not None and members else {}))
         outs = []
         for i, r in enumerate(reqs):
             sel = r.payload["gauges"]
@@ -667,8 +684,13 @@ class ForecastService:
             return None
 
     def _emit(self, event: str, **payload) -> None:
-        """One decision into the live metrics registry. The run recorder that
-        would also log it waits for ROADMAP A.10."""
+        """One decision into the active run log, whose tee updates the live
+        metrics registry; with no run log, into the registry directly (never
+        both, so a decision counts once)."""
+        rec = get_recorder()
+        if rec is not None:
+            rec.emit(event, **payload)
+            return
         try:  # a metrics bug must never fail the batch worker's requests
             event_tee({"event": event, **payload}, self.metrics)
         except Exception:
@@ -740,3 +762,6 @@ class ForecastService:
         serves what is queued first)."""
         self.registry.close()
         self._batcher.close(drain=drain)
+        rec = get_recorder()
+        if rec is not None:
+            rec.merge_summary("serve", self.stats())

@@ -614,17 +614,23 @@ class AsyncCheckpointWriter:
     - A failed write is raised on the next :meth:`save` or :meth:`drain`.
     - :meth:`drain` blocks until every enqueued snapshot is on disk;
       :meth:`close` drains and stops the thread.
+    - With a ``phase_timer`` each write is its ``checkpoint_io`` phase, a
+      child span of the step context the loop sets on :attr:`trace_ctx`
+      before the save.
     """
 
-    def __init__(self, prune_dir: str | Path | None = None) -> None:
+    def __init__(self, phase_timer: Any = None, prune_dir: str | Path | None = None) -> None:
         self._queue: queue.Queue = queue.Queue(maxsize=1)
         self._idle = threading.Event()
         self._idle.set()
         self._error: BaseException | None = None
         self._lock = threading.Lock()
         self._pending = 0  # queued + in flight; the idle event mirrors _pending == 0
+        self._phase_timer = phase_timer
         self._prune_dir = prune_dir
         self._closed = False
+        # the current step's SpanContext, carried with the snapshot to the writer thread
+        self.trace_ctx: Any = None
         self._thread = threading.Thread(target=self._run, name="ddr-ckpt-writer", daemon=True)
         self._thread.start()
 
@@ -645,8 +651,13 @@ class AsyncCheckpointWriter:
             if item is None:
                 self._queue.task_done()
                 return
+            ctx = item.pop("_ctx", None)
             try:
-                save_state(**item)
+                if self._phase_timer is not None:
+                    with self._phase_timer.phase("checkpoint_io", ctx=ctx):
+                        save_state(**item)
+                else:
+                    save_state(**item)
                 if self._prune_dir is not None:
                     prune_checkpoints_from_env(self._prune_dir)
             except BaseException as e:  # noqa: BLE001 - raised on the next save/drain
@@ -691,6 +702,8 @@ class AsyncCheckpointWriter:
             "arch": arch,
             "healthy": healthy,
         }
+        if self.trace_ctx is not None:
+            item["_ctx"] = self.trace_ctx
         self._pending_add()
         while True:
             try:

@@ -22,18 +22,15 @@ class GeoDataset(str, Enum):
     def get_dataset_class(self, cfg, device=None):
         """The dataset ``cfg`` names; the synthetic twin routes its
         observations on ``device`` (default ``cfg.device``), the store-backed
-        datasets hand out host arrays only. ``lynker_hydrofabric`` is not
-        ported yet and raises."""
+        datasets hand out host arrays only."""
         if self is GeoDataset.merit:
             from ddr_tpu_torch.geodatazoo.merit import Merit
 
             return Merit(cfg, device=device)
         if self is GeoDataset.lynker_hydrofabric:
-            raise NotImplementedError(
-                "geodataset 'lynker_hydrofabric' (the Lynker hydrofabric dataset and its engine "
-                "builders) is not ported yet (ROADMAP A.8, its lynker_hydrofabric item); use "
-                "geodataset=merit or geodataset=synthetic"
-            )
+            from ddr_tpu_torch.geodatazoo.lynker import LynkerHydrofabric
+
+            return LynkerHydrofabric(cfg, device=device)
         from ddr_tpu_torch.geodatazoo.synthetic import Synthetic
 
         return Synthetic(cfg, device=device)

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from ddr_tpu import training as jax_training
+from ddr_tpu.benchmarks.configs import validate_benchmark_config as jax_validate_benchmark_config
 from ddr_tpu.benchmarks.irf import irf_kernels as jax_irf_kernels
 from ddr_tpu.benchmarks.irf import route_lti as jax_route_lti
 from ddr_tpu.io import zarrlite as jax_zarrlite
@@ -126,13 +127,51 @@ def test_lti_config_validates_like_jax():
             LTIRouteConfig.from_dict(bad)
 
 
-def test_summed_q_prime_store_is_refused_by_name():
+def _twin_benchmarks(tmp_path, extra=()):
+    """The port's and JAX's ``benchmark()`` on the 32-reach twin from JAX's
+    initial KAN weights (each package's own checkpoint), with ``extra``
+    flat-config keys: ``(ours, ref)`` result dicts."""
+    ov = ["synthetic_segments=32", "device=cpu", "experiment.end_time=1981/10/22",
+          "experiment.batch_size=6", "mode=testing"]
+    jcfg = jax_load_config(CONFIG, ov, save_config=False)
+    _, params = jax_common.build_kan(jcfg)
+    jax_ckpt = jax_training.save_state(tmp_path / "jax_ckpt", "x", 1, 0, params, None,
+                                       arch=jax_common.kan_arch(jcfg))
+    cfg = load_config(CONFIG, ov, save_config=False)
+    ckpt = save_state(tmp_path / "ckpt", "x", 1, 0, kan_state_from_flax(params), None, arch=kan_arch(cfg))
+    raw = {**cfg.model_dump(), "experiment": {**cfg.model_dump()["experiment"], "checkpoint": str(ckpt)},
+           "params": {**cfg.model_dump()["params"], "save_path": str(tmp_path / "port")}, **dict(extra)}
+    ours = benchmark.benchmark(validate_benchmark_config(raw))
+    jraw = {**jcfg.model_dump(), "experiment": {**jcfg.model_dump()["experiment"], "checkpoint": str(jax_ckpt)},
+            "params": {**jcfg.model_dump()["params"], "save_path": str(tmp_path / "jax")}, **dict(extra)}
+    ref = jax_benchmark.benchmark(jax_validate_benchmark_config(jraw))
+    return ours, ref
+
+
+def test_summed_q_prime_store_is_refused_by_name(tmp_path, caplog):
+    """A ΣQ' path that does not open: the config keeps it, the benchmark
+    warns and leaves ``summed_q_prime`` out of its results, as JAX's does."""
     raw = {"name": "x", "geodataset": "synthetic", "mode": "testing", "kan": {"input_var_names": ["a"]},
            "summed_q_prime": "sqp.zarr"}
-    with pytest.raises(NotImplementedError, match="A.8"):
-        validate_benchmark_config(raw)
+    cfg = validate_benchmark_config(raw)
+    assert str(cfg.summed_q_prime) == str(jax_validate_benchmark_config(raw).summed_q_prime) == "sqp.zarr"
     cfg = validate_benchmark_config({**raw, "summed_q_prime": None, "diffroute": {"irf_fn": "pure_lag"}})
     assert cfg.lti.irf_fn == "pure_lag" and cfg.ddr.name == "x"
+    missing = str(tmp_path / "no_such_store.zarr")
+    with caplog.at_level("WARNING"):
+        ours, ref = _twin_benchmarks(tmp_path, {"summed_q_prime": missing})
+    warned = [r for r in caplog.records if r.getMessage() == f"Failed to open summed Q' store at {missing}"]
+    assert {r.name for r in warned} == {benchmark.__name__, jax_benchmark.__name__}
+    assert sorted(ours) == sorted(ref) == ["lti", "mc"]
+
+
+def test_benchmark_returns_jax_battery_keys(tmp_path):
+    """Without a ΣQ' store the twin's results hold the same batteries as
+    JAX's: ``mc`` and ``lti``, no ΣQ' computed in line."""
+    ours, ref = _twin_benchmarks(tmp_path)
+    assert sorted(ours) == sorted(ref) == ["lti", "mc"]
+    for name in ref:
+        close(ours[name].nse, ref[name].nse, name)
 
 
 def test_benchmark_writes_jax_results_store(tmp_path):
@@ -162,26 +201,25 @@ def test_benchmark_writes_jax_results_store(tmp_path):
 
 
 def test_benchmark_baseline_and_mass_balance(tmp_path):
-    """The twin's ΣQ' baseline: the inflow summed over every reach upstream
-    of each gauge's inflow segments, against a plain accumulation in
-    numpy; the LTI route conserves it."""
+    """The twin's ΣQ' baseline, the inflow summed over every reach upstream
+    of each gauge's inflow segments, accumulated here in numpy; the LTI
+    route conserves it."""
     ov = ["synthetic_segments=32", "device=cpu", "experiment.end_time=1981/11/20", "mode=testing",
           f"params.save_path={tmp_path}"]
     cfg = load_config(CONFIG, ov, save_config=False)
     bench = validate_benchmark_config({**cfg.model_dump(), "lti": {"irf_fn": "linear_storage"}})
 
     ds = Synthetic(cfg)
-    sqp = benchmark.summed_q_prime_hourly(cfg, ds, ds.streamflow)
+    lti = benchmark.run_lti_benchmark(bench, ds, ds.streamflow)
     rd = ds.routing_data
     rows, cols = np.asarray(rd.adjacency_rows), np.asarray(rd.adjacency_cols)
     # a reach's total is its own inflow plus its upstream reaches' totals
-    acc = ds.basin.q_prime[: sqp.shape[1]].astype(np.float64)  # the window's (D - 1) * 24 hours
+    acc = ds.basin.q_prime[: lti.shape[1]].astype(np.float64)  # the window's (D - 1) * 24 hours
     for i in _topological(rows, cols, rd.n_segments):
         acc[:, i] += acc[:, cols[rows == i]].sum(1)
-    want = np.stack([acc[:, np.asarray(ix)].sum(1) for ix in rd.outflow_idx])
-    close(sqp, want, "ΣQ'")
+    sqp = np.stack([acc[:, np.asarray(ix)].sum(1) for ix in rd.outflow_idx])
+    assert sqp.shape == lti.shape and np.isfinite(sqp).all() and (sqp > 0).all()
     # the LTI route conserves volume: what it lacks is still in transit at the window's end
-    lti = benchmark.run_lti_benchmark(bench, ds, ds.streamflow)
     err = benchmark.mass_balance(lti, sqp, 0)
     print(f"LTI against ΣQ': relative volume error {err}")
     assert err.max() < 0.05

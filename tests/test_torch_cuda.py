@@ -674,3 +674,105 @@ def test_merit_example_commands_launch_once_a_step_and_once_a_chunk(card, tmp_pa
     finally:
         for logger, handler in zip(loggers, (train_log, eval_log)):
             logger.removeHandler(handler)
+
+
+def _losses_and_launches(cli_argv):
+    """``ddr train`` through the CLI: its step losses and the kernels' launches."""
+    import logging
+
+    from ddr_tpu_torch import cli
+    from chip_smoke import TrainLog
+
+    log = TrainLog()
+    logger = logging.getLogger("ddr_tpu_torch.scripts.train")
+    logger.addHandler(log)
+    logger.setLevel(logging.INFO)
+    wave_scan_tm.launches = reverse_scan_tm.launches = 0
+    try:
+        assert cli.main(cli_argv) == 0
+    finally:
+        logger.removeHandler(log)
+    return [s[2] for s in log.steps], (wave_scan_tm.launches, reverse_scan_tm.launches)
+
+
+@pytest.mark.cuda
+def test_lynker_train_on_the_card_matches_the_cpu(card, tmp_path):
+    """``ddr train`` on a 12-flowpath Lynker hydrofabric (per-reach Muskingum
+    x from ``MusX``): the card's losses against the CPU's from one initial
+    checkpoint, one launch of each kernel a step."""
+    from pathlib import Path
+
+    from ddr_tpu_torch.scripts.common import build_kan, kan_arch
+    from ddr_tpu_torch.training import save_state
+    from ddr_tpu_torch.validation.configs import load_config
+    from chip_smoke import MERIT_EXAMPLE, build_lynker_stores, lynker_forcing, lynker_overrides, write_hydrofabric
+
+    down = np.asarray([2, 2, 4, 4, 8, 7, 7, 8, 10, 10, -1, 9])
+    rng = np.random.default_rng(3)
+    fab = write_hydrofabric(tmp_path, down, rng.uniform(800.0, 4000.0, 12), rng.uniform(1e-3, 0.02, 12),
+                            {"01300004": 4, "01300010": 10}, seed=5)
+    data = tmp_path / "data"
+    build_lynker_stores(tmp_path / "hydrofabric.gpkg", data, tmp_path / "gages.csv")
+    lynker_forcing(data, fab["ids"], seed=6)
+    config = str(Path(__file__).resolve().parents[1] / MERIT_EXAMPLE / "config.yaml")
+    cfg = load_config(config, lynker_overrides(data, tmp_path / "gages.csv", tmp_path / "init"), save_config=False)
+    init = save_state(tmp_path / "init", cfg.name, 1, 0, build_kan(cfg, device="cpu").state_dict(), None,
+                      arch=kan_arch(cfg))
+    runs = {}
+    for device in ("cpu", "cuda"):
+        runs[device] = _losses_and_launches(["train", config, *lynker_overrides(data, tmp_path / "gages.csv",
+                                                                                tmp_path / device),
+                                             f"device={device}", f"experiment.checkpoint={init}"])
+    (cpu, _), (card_losses, launches) = runs["cpu"], runs["cuda"]
+    assert len(card_losses) == len(cpu) == 2 and launches == (2, 2)
+    np.testing.assert_allclose(card_losses, cpu, rtol=1e-4, atol=0)
+
+
+@pytest.mark.cuda
+def test_eval_q_prime_on_the_card_matches_the_cpu(card, tmp_path):
+    """``ddr summed-q-prime`` on the MERIT example: ``torch.nansum`` on the
+    card against the CPU within 1e-6 relative."""
+    import shutil
+    from pathlib import Path
+
+    from ddr_tpu_torch.scripts.prepare_merit_example import prepare
+    from ddr_tpu_torch.scripts.summed_q_prime import eval_q_prime
+    from ddr_tpu_torch.validation.configs import load_config
+    from chip_smoke import merit_overrides
+
+    example = tmp_path / "merit_basin"
+    shutil.copytree(Path(__file__).resolve().parents[1] / "examples" / "merit_basin", example,
+                    ignore=shutil.ignore_patterns("data", "output"))
+    prepare(example)
+    preds = {}
+    for device in ("cpu", "cuda"):
+        cfg = load_config(example / "config.yaml", [*merit_overrides(example / "data", example / "gages.csv",
+                                                                     tmp_path / device),
+                                                    f"device={device}", "mode=testing"], save_config=False)
+        preds[device] = np.asarray(eval_q_prime(cfg).pred)
+    assert preds["cuda"].shape == preds["cpu"].shape and np.isfinite(preds["cuda"]).all()
+    np.testing.assert_allclose(preds["cuda"], preds["cpu"], rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+def test_run_log_on_the_card_carries_device_peak_bytes(card, tmp_path):
+    """A run log written while routing on the card: its heartbeat carries the
+    card's memory, whose peak is ``device_peak_bytes``."""
+    import json
+
+    from ddr_tpu_torch.observability.events import device_peak_bytes, emit_heartbeat, run_telemetry
+
+    basin = make_basin(n_segments=512, n_gauges=2, n_days=2, depth=16, seed=4)
+    net, ch, gauges = prepare_batch(basin.routing_data, 1e-4, device=card)
+    params = {k: torch.as_tensor(v, dtype=torch.float32, device=card) for k, v in basin.true_params.items()}
+    with run_telemetry(None, "route", base_dir=tmp_path, device="cuda"):
+        out = mc.route(net, ch, params, torch.as_tensor(basin.q_prime, device=card), gauges=gauges, device=card)
+        assert torch.isfinite(out.runoff).all()
+        emit_heartbeat(step=1)
+        peak = device_peak_bytes()
+    events = [json.loads(line) for line in (tmp_path / "run_log.route.jsonl").read_text().splitlines()]
+    beat, = [e for e in events if e["event"] == "heartbeat"]
+    entry = beat["devices"][0]
+    assert entry["platform"] == "gpu" and peak is not None and peak > 0
+    assert entry["peak_bytes_in_use"] <= peak and entry["bytes_limit"] > entry["peak_bytes_in_use"] > 0
+    assert device_peak_bytes("cpu") is None

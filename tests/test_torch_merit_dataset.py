@@ -21,7 +21,9 @@ import pytest
 from ddr_tpu.geodatazoo.merit import Merit as JaxMerit
 from ddr_tpu.validation.configs import load_config as jax_load_config
 from ddr_tpu_torch.geodatazoo.loader import DataLoader
+from ddr_tpu_torch.geodatazoo.lynker import LynkerHydrofabric
 from ddr_tpu_torch.geodatazoo.merit import Merit
+from ddr_tpu_torch.io import zarrlite
 from ddr_tpu_torch.scripts.prepare_merit_example import prepare
 from ddr_tpu_torch.validation.configs import load_config
 from ddr_tpu_torch.validation.enums import GeoDataset
@@ -136,11 +138,24 @@ def test_inference_modes_equal_jax(example, mode):
         assert_same_routing_data(ours.collate_fn(days), ref.collate_fn(days))
 
 
-def test_factory_returns_merit_and_refuses_lynker(example):
+def test_factory_returns_merit_and_refuses_lynker(example, tmp_path):
+    """The factory builds the dataset each name asks for: ``Merit`` on the
+    example's stores, and ``LynkerHydrofabric`` once the conus store carries
+    the Lynker flowpath arrays (top width, side slope, Muskingum x)."""
     cfg = load_config(example / "config.yaml", [*data_overrides(example, "port"), "device=cpu"], save_config=False)
     assert isinstance(GeoDataset.merit.get_dataset_class(cfg), Merit)
-    with pytest.raises(NotImplementedError, match="A.8.*lynker_hydrofabric"):
-        GeoDataset.lynker_hydrofabric.get_dataset_class(cfg)
+    conus = tmp_path / "conus.zarr"
+    shutil.copytree(example / "data" / "merit_conus_adjacency.zarr", conus)
+    group = zarrlite.open_group(conus)
+    n = len(group["order"].read())
+    for name, value in (("top_width", 5.0), ("side_slope", 1.5), ("muskingum_x", 0.25)):
+        group.create_array(name, np.full(n, value, dtype=np.float32))
+    cfg = load_config(example / "config.yaml", [*data_overrides(example, "port"), "device=cpu",
+                                                f"data_sources.conus_adjacency={conus}",
+                                                "experiment.max_area_diff_sqkm=null"], save_config=False)
+    lynker = GeoDataset.lynker_hydrofabric.get_dataset_class(cfg)
+    assert isinstance(lynker, LynkerHydrofabric) and not isinstance(lynker, Merit)
+    assert (lynker.flowpath_arrays["x"] == 0.25).all()
 
 
 def test_training_without_gauges_raises(example):

@@ -398,7 +398,7 @@ def test_cli_defaults_to_the_card(tmp_path, monkeypatch):
         cli.main(["train", CONFIG, "device=tpu", f"params.save_path={tmp_path}"])
 
 
-@pytest.mark.parametrize("command,item", [("summed-q-prime", "A.8"), ("fleet", "A.9"), ("tune", "A.13")])
+@pytest.mark.parametrize("command,item", [("chaos", "A.6"), ("fleet", "A.9"), ("tune", "A.13")])
 def test_cli_names_the_item_of_an_unported_command(capsys, command, item):
     assert cli.main([command, CONFIG]) == 2
     assert item in capsys.readouterr().err
@@ -438,16 +438,18 @@ def test_cli_dispatches_loadtest(tmp_path, capsys):
 
 
 def test_cli_dispatches_verify(tmp_path, capsys):
-    """``verify --synthetic`` runs the self-test on the CPU when asked; the
-    run-log replay mode names its ROADMAP item."""
+    """``verify --synthetic`` runs the self-test on the CPU when asked and
+    records its joins in its run log, which ``verify <logdir>`` replays."""
     code = cli.main(["verify", "--synthetic", "--n", "32", "--horizon", "8", "--members", "4",
                      "--requests", "3", "--out", str(tmp_path), "--label", "cli", "device=cpu"])
     assert code == 0
     report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert report["ordering_ok"] and report["matched_samples"] > 0 and report["device"] == "cpu"
     assert (tmp_path / "VERIFY_cli.md").read_text().startswith("## ddr verify")
-    assert cli.main(["verify", str(tmp_path)]) == 2
-    assert "A.10" in capsys.readouterr().err
+    assert (tmp_path / "run_log.verify.jsonl").exists()
+    assert cli.main(["verify", str(tmp_path), "--out", str(tmp_path / "replay")]) == 0
+    replay = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert replay["mode"] == "replay" and replay["files"] == 1 and replay["matched_samples"] > 0
     assert "verify" in cli._COMMANDS and "verify" not in cli._NOT_PORTED
 
 

@@ -254,6 +254,12 @@ def test_verify_synthetic_and_live_run_on_the_cpu(tmp_path, capsys):
         server.shutdown()
         server.server_close()
         svc.close()
-    assert tverify.main([str(tmp_path)]) == 2
-    assert "A.10" in capsys.readouterr().err
+    # replay: the synthetic run's joins are verify events of its run log
+    capsys.readouterr()
+    assert tverify.main([str(tmp_path), "--out", str(tmp_path), "--label", "replay"]) == 0
+    replay = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert replay["mode"] == "replay" and replay["files"] == 1 and replay["crps"] is not None
+    assert replay == {**tverify.replay_dir(tmp_path), "label": "replay", "device": None}
+    (tmp_path / "empty").mkdir()
+    assert tverify.main([str(tmp_path / "empty")]) == 1
     assert tverify.main([]) == 2

@@ -10,6 +10,7 @@
     python3 chip_smoke.py --ddr-loadtest  # only the build and phases 18 and 21 (loadtest, verify)
     python3 chip_smoke.py --ddr-merit   # only the build and phases 18 and 22 (the MERIT path, ΣQ')
     python3 chip_smoke.py --ddr-lynker  # only the build and phases 18 and 23 (the Lynker path)
+    python3 chip_smoke.py --ddr-fleet   # only the build and phases 18 and 24 (the replica tier)
 
 From the root of a checkout, with one CUDA card visible. Phases, each fatal
 on failure (non-zero exit, no result line):
@@ -214,6 +215,27 @@ on failure (non-zero exit, no result line):
            8-day chunks over 92 days, each step's and chunk's host ms, and both kernels on
            that network, per-reach ``x`` from ``MusX``, against their plain
            versions.
+24. ddr fleet  the replica tier at the regional width (phase 20's config
+           and phase 18's checkpoint, batch 8, 72 h): a subprocess
+           ``ReplicaGroup`` of 2 ``ddr serve`` workers (each one's seconds to
+           ``/readyz`` 200, its ``/v1/stats`` fleet slice, a CUDA device and
+           the memory it reserved there in its boot log, the card's used
+           memory risen by at least their sum); 32 forecasts through the
+           router from 8 threads (every answer bit for bit the in-process service's from the same
+           config, one held to the plain scan; dispatches, each replica's
+           batches from ``/metrics``, latency through the router and direct);
+           an E = 8 ensemble through ``HttpReplica`` against the same request
+           direct; SIGKILL of replica 1 under load (seconds to ejection,
+           rerouted requests, ``unroutable_errors`` 0, the federated scrape
+           of replica 0 showing r1 down), ``restart_replica`` (seconds to
+           readmission, dispatched again); ``python -m ddr_tpu_torch.cli
+           fleet up`` with ``fleet status --url`` and SIGINT (exit 0, no worker
+           left); ``ddr loadtest --synthetic --fleet 2`` at 80/s for 10 s
+           (the group its main builds, driven as its main drives it, and the
+           router's dispatch split) beside one service on the same basin; the
+           canary controller on the card over the twin's truth on its mid-record window, margin 0.01
+           (the same weights promoted; weights whose output bias drives the
+           parameters to an end of their ranges, rolled back).
 Phases 18, 19, 21, 22 and 23 run with ``DDR_METRICS_DIR`` set to a
 directory per run, and print each run log's split: a ``ddr train`` run's
 step phases (``summarize_phases``), the steps' loop wall and the share of
@@ -319,6 +341,22 @@ SQP_RTOL = 1e-6
 # the regional ddr benchmark with its ΣQ' store and the regional Lynker ddr
 # test cover the config's first 92 days (12 chunks of up to 8 days), not its 182
 REGIONAL_SHORT_WINDOW = ("experiment.end_time=1981/12/31",)
+# The replica tier (phase 24): a group of 2 `ddr serve` workers on the card,
+# 32 forecasts through the router from 8 threads, the prober every 250 ms;
+# the canary on the twin's mid-record 72 h window (over the first days its
+# gauges sit flat on their hotstart flow, where NSE is undefined), every
+# request on that window so both arms are scored on the same hours, decided
+# after 2 observations an arm, at weight 0.5 and an NSE margin of 0.01: there
+# the whole parameter space scores within 0.05 of the truth at the twin's
+# gauges (the stable arm 0.9981, a saturated KAN 0.9497-0.9682 on the H100),
+# so the default margin of 0.05 would pass any candidate. Its regressed
+# candidate is the first of these shifts of the KAN's output bias (which
+# drive the learned parameters to an end of their ranges) whose median NSE
+# falls twice the margin below the stable arm's; random weight noise moves
+# the NSE less, in either direction
+DDR_FLEET_REPLICAS, DDR_FLEET_THREADS, DDR_FLEET_REQUESTS, DDR_FLEET_PROBE_S = 2, 8, 32, 0.25
+DDR_CANARY_MIN_OBS, DDR_CANARY_WEIGHT, DDR_CANARY_MARGIN = 2, 0.5, 0.01
+DDR_CANARY_BIAS_SHIFTS, DDR_CANARY_MAX_REQUESTS = (-50.0, 50.0, -5.0, 5.0), 40
 
 
 def fail(msg: str) -> None:
@@ -3551,6 +3589,433 @@ def ddr_lynker(smi, dev) -> dict:
     return launches
 
 
+def fleet_workers(routers: set[str]) -> list[int]:
+    """Pids of the ``ddr_tpu_torch.cli serve`` workers launched by one of
+    ``routers`` (each worker's ``DDR_FLEET_ROUTER``, ``local:<pid of the
+    process that launched it>``): this phase's own, never another run's."""
+    wanted = {f"DDR_FLEET_ROUTER={r}".encode() for r in routers}
+    pids = []
+    for proc in Path("/proc").iterdir():
+        if not proc.name.isdigit():
+            continue
+        try:
+            argv = (proc / "cmdline").read_bytes().split(b"\0")
+            env = (proc / "environ").read_bytes().split(b"\0")
+        except OSError:
+            continue
+        if b"ddr_tpu_torch.cli" in argv and b"serve" in argv and wanted.intersection(env):
+            pids.append(int(proc.name))
+    return pids
+
+
+def card_memory_used_mib() -> int:
+    """``nvidia-smi --query-gpu=memory.used``: the card's memory in use, MiB."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout
+    return int(out.strip().splitlines()[0])
+
+
+def ddr_fleet(smi, dev) -> int:
+    """Phase 24: the replica tier at the regional width (see the module
+    docstring), from phase 18's newest checkpoint. Returns the phase's
+    main-path ``wave_scan`` launches in this process (``ddr loadtest
+    --fleet``'s and the canary's; not the reference service's nor the
+    one-service load test's, which are there to compare); the workers'
+    batches are read from their ``/metrics`` and printed apart."""
+    import contextlib
+    import io
+    import os
+    import signal
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from ddr_tpu_torch.fleet.canary import CanaryController
+    from ddr_tpu_torch.fleet.config import FleetConfig
+    from ddr_tpu_torch.fleet.group import ReplicaGroup
+    from ddr_tpu_torch.observability.registry import MetricsRegistry, set_registry
+    from ddr_tpu_torch.routing.mc import route
+    from ddr_tpu_torch.routing.model import denormalize_spatial_parameters
+    from ddr_tpu_torch.routing.wave_kernel import wave_scan_tm
+    from ddr_tpu_torch.scripts import fleet, loadtest
+    from ddr_tpu_torch.scripts.common import build_kan, kan_arch, parse_cli
+    from ddr_tpu_torch.scripts.serve import build_service
+    from ddr_tpu_torch.serving.client import HttpForecastClient
+    from ddr_tpu_torch.serving.config import PRIORITIES, ServeConfig
+    from ddr_tpu_torch.training import latest_checkpoint, load_state
+
+    here = Path(__file__).resolve().parent / "build"
+    root = here / "ddr_fleet"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    regional = latest_checkpoint(here / "ddr_train" / "regional" / "saved_models")
+    if regional is None:
+        fail("ddr fleet: phase 18 left no checkpoint")
+    width = [DDR_TRAIN_CONFIG, f"synthetic_segments={N_SEGMENTS}", f"synthetic_depth={DEPTH}",
+             f"experiment.checkpoint={regional}"]
+    serve_env = {"DDR_SERVE_MAX_BATCH": str(MAX_BATCH), "DDR_SERVE_HORIZON_HOURS": str(HORIZON),
+                 "DDR_SERVE_DEADLINE_MS": "600000"}
+    main_launches = 0
+    group = None
+    cli_proc = None
+    svc = None
+    routers = {f"local:{os.getpid()}"}  # whoever launched a worker of this phase
+    try:
+        # ---- 1. boot a subprocess group of 2 `ddr serve` workers ----
+        group = ReplicaGroup(
+            FleetConfig.from_env(replicas=DDR_FLEET_REPLICAS, mode="subprocess", group="p24",
+                                 probe_s=DDR_FLEET_PROBE_S),
+            serve_args=[*width, f"params.save_path={root / 'group'}"], workdir=root / "group",
+            boot_timeout=600.0, client_timeout=600.0, extra_env=serve_env)
+        ready_s: dict[int, float] = {}
+        booting = threading.Event()
+
+        def watch_ready(t_start):  # each worker's seconds from launch to /readyz 200
+            while booting.is_set() and len(ready_s) < DDR_FLEET_REPLICAS:
+                for i, port in list(group._ports.items()):
+                    if i in ready_s:
+                        continue
+                    try:
+                        with urllib.request.urlopen(f"http://127.0.0.1:{port}/readyz", timeout=5) as r:
+                            if r.status == 200:
+                                ready_s[i] = time.perf_counter() - t_start
+                    except OSError:
+                        pass
+                time.sleep(0.05)
+
+        used_before = card_memory_used_mib()
+        booting.set()
+        t0 = time.perf_counter()
+        watcher = threading.Thread(target=watch_ready, args=(t0,), daemon=True)
+        watcher.start()
+        group.boot()
+        boot_s = time.perf_counter() - t0
+        booting.clear()
+        watcher.join(10)
+        # nvidia-smi on the card's machine shows every process as pid 1 of
+        # another namespace, so a worker's own share of the card is read from
+        # its boot log (the card it serves on, what it reserved there), and
+        # the card's used memory must have risen by at least their sum
+        used_after = card_memory_used_mib()
+        print(f"ddr fleet boot: {DDR_FLEET_REPLICAS} subprocess workers ready in {boot_s:.2f} s; seconds from "
+              f"launch to /readyz 200 by replica {dict(sorted(ready_s.items()))}; worker pids {group.pids()}; card "
+              f"memory used {used_before} MiB before the boot, {used_after} MiB after, on {smi}")
+        router = group.router
+        urls = [r.url for r in group.replicas]
+        reserved_gb = 0.0
+        for i, replica in enumerate(group.replicas):
+            stats = replica.stats()
+            log_text = (root / "group" / f"replica_{i}_boot1.out").read_text()
+            seen = re.search(r"serving on (cuda\S* \([^)]*\)), (\S+) GB of device memory reserved", log_text)
+            print(f"ddr fleet replica {i} ({urls[i]}): /v1/stats fleet {stats['fleet']}; boot log: serving on "
+                  f"{seen[1] if seen else None}, {seen[2] if seen else None} GB reserved")
+            want = {"group": "p24", "replica": i, "router": f"local:{os.getpid()}"}
+            if stats["fleet"] != want or seen is None or float(seen[2]) <= 0:
+                fail(f"ddr fleet: replica {i} fleet {stats['fleet']} (want {want}), boot log device {seen}")
+            reserved_gb += float(seen[2])
+        if (used_after - used_before) * 2**20 < reserved_gb * 1e9:
+            fail(f"ddr fleet: the card's used memory rose {used_after - used_before} MiB over the boot, less than "
+                 f"the {reserved_gb:.3f} GB its workers report reserved")
+
+        # ---- 2. traffic: 32 forecasts through the router from 8 threads, then the same direct ----
+        set_registry(MetricsRegistry(const_labels={"host": 0}))
+        cfg = parse_cli([*width, f"params.save_path={root / 'reference'}"], mode="testing")
+        svc = build_service(cfg, ServeConfig(max_batch=MAX_BATCH, horizon_hours=HORIZON, deadline_s=600.0),
+                            watch=False)
+        entry = svc.networks()["default"]
+        n_windows = len(entry.forcing) - HORIZON + 1
+        starts = np.linspace(0, n_windows - 1, DDR_FLEET_REQUESTS).astype(int)
+        requests = [{"t0": int(t), "gauges": [[0, 2], [1, 3], None][i % 3], "priority": PRIORITIES[i % 3],
+                     "request_id": f"p24-{i}"} for i, t in enumerate(starts)]
+
+        def fan_out(send):
+            results = {}
+            go = threading.Barrier(DDR_FLEET_THREADS)
+
+            def worker(k):
+                go.wait()
+                for i in range(k, len(requests), DDR_FLEET_THREADS):
+                    t_req = time.perf_counter()
+                    results[i] = (send(requests[i]), time.perf_counter() - t_req)
+
+            threads = [threading.Thread(target=worker, args=(k,)) for k in range(DDR_FLEET_THREADS)]
+            t_all = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(900)
+            if len(results) != len(requests):
+                fail(f"ddr fleet: {len(results)} of {len(requests)} requests answered")
+            return [results[i] for i in range(len(requests))], time.perf_counter() - t_all
+
+        routed, routed_s = fan_out(lambda r: group.forecast(network="default", **r))
+        direct_client = HttpForecastClient(urls[0], timeout=600)
+        direct, direct_s = fan_out(lambda r: direct_client.forecast("default", **r))
+        status = router.status()
+        worst = 0.0
+        for i, ((a, _), (d, _)) in enumerate(zip(routed, direct)):
+            ref = svc.forecast(network="default", timeout=600, t0=requests[i]["t0"], gauges=requests[i]["gauges"])
+            for label, got in (("routed", a), ("direct", d)):
+                if got["request_id"] != requests[i]["request_id"] or not np.array_equal(got["runoff"], ref["runoff"]):
+                    fail(f"ddr fleet: {label} request {i} differs from the in-process service by "
+                         f"{float(np.abs(got['runoff'] - ref['runoff']).max())!r}")
+                worst = max(worst, float(np.abs(got["runoff"].astype(np.float64) - ref["runoff"]).max()))
+        p = cfg.params
+        mid = len(starts) // 2
+        w, mid_gauges = int(starts[mid]), requests[mid]["gauges"]
+        with torch.no_grad():
+            kan = svc.registry.get("default").kan
+            phys_params = denormalize_spatial_parameters(kan(entry.attrs), p.parameter_ranges,
+                                                         p.log_space_parameters, p.defaults, entry.n_segments)
+            q = torch.as_tensor(entry.forcing[w : w + HORIZON], device=dev)
+            q = q * entry.flow_scale if entry.flow_scale is not None else q
+            expect = route(entry.network, entry.channels, phys_params, q, gauges=entry.gauge_index,
+                           bounds=svc.bounds, kernel="reference", device=dev).runoff
+        expect = expect if mid_gauges is None else expect[:, mid_gauges]
+        compare(expect.cpu(), torch.as_tensor(routed[mid][0]["runoff"]),
+                f"ddr fleet routed t0={w} against the plain scan (wave_scan_tm_reference)")
+        dispatched = {r["name"]: r["dispatched"] for r in status["replicas"]}
+        batches = {}
+        for i, url in enumerate(urls):
+            m = scrape(url)
+            batches[f"p24-r{i}"] = metric_sum(m, "ddr_batches_total")
+        print(f"ddr fleet traffic: {len(requests)} requests from {DDR_FLEET_THREADS} threads through the router "
+              f"in {routed_s:.2f} s, dispatched {dispatched}; each replica's batches from /metrics (its "
+              f"wave_scan launches past the observation route and warmup) {batches}; every answer equal bit for "
+              f"bit to the in-process service (largest difference {worst!r}), one held to the plain scan, on {smi}")
+        print(f"ddr fleet latency: through the router {percentiles([s for _, s in routed])} ({routed_s:.2f} s for "
+              f"all); the same requests direct to replica 0 {percentiles([s for _, s in direct])} ({direct_s:.2f} s)")
+        if min(dispatched.values()) < 1 or status["unroutable_errors"]:
+            fail(f"ddr fleet: dispatched {dispatched}, unroutable {status['unroutable_errors']}")
+
+        # ---- 3. one E = 8 ensemble through HttpReplica, and the same request direct ----
+        ens_kw = {"t0": int(starts[3]), "members": DDR_ENSEMBLE_MEMBERS[0], "percentiles": [10, 50, 90], "seed": 3}
+        ens = group.ensemble(network="default", request_id="p24-ens", **ens_kw)
+        ens_direct = HttpForecastClient(urls[1], timeout=600).forecast(
+            "default", t0=ens_kw["t0"], request_id="p24-ens",
+            ensemble={"members": ens_kw["members"], "percentiles": ens_kw["percentiles"], "seed": ens_kw["seed"]})
+        if ens["members"] != 8 or ens["runoff"].shape != (3, HORIZON, entry.n_outputs) or not (
+                np.array_equal(ens["runoff"], ens_direct["runoff"]) and np.array_equal(ens["mean"], ens_direct["mean"])):
+            fail(f"ddr fleet: the routed ensemble {ens['runoff'].shape} differs from the same request direct")
+        print(f"ddr fleet ensemble: E = 8 through HttpReplica equal bit for bit to the same request sent direct to "
+              f"replica 1 (bands {ens['runoff'].shape}, execute_s {ens['execute_s']})")
+
+        # ---- 4. SIGKILL replica 1 under load; ejection, reroute, federation, readmission ----
+        before = {r["name"]: r["dispatched"] for r in router.status()["replicas"]}
+        stop = threading.Event()
+        answered, errors = [], []
+
+        def load(k):
+            i = k
+            while not stop.is_set():
+                r = requests[i % len(requests)]
+                try:
+                    group.forecast(network="default", t0=r["t0"], gauges=r["gauges"])
+                    answered.append(i)
+                except Exception as e:  # counted: the phase fails on any
+                    errors.append(repr(e))
+                i += DDR_FLEET_THREADS
+
+        threads = [threading.Thread(target=load, args=(k,)) for k in range(DDR_FLEET_THREADS)]
+        for th in threads:
+            th.start()
+        time.sleep(1.0)
+        t_kill = time.perf_counter()
+        group.kill_replica(1)
+        while not router.status()["replicas"][1]["ejected"]:
+            if time.perf_counter() - t_kill > 60:
+                fail("ddr fleet: replica 1 not ejected within 60 s of its SIGKILL")
+            time.sleep(0.005)
+        eject_s = time.perf_counter() - t_kill
+        time.sleep(1.0)
+        stop.set()
+        for th in threads:
+            th.join(600)
+        status = router.status()
+        after = {r["name"]: r["dispatched"] for r in status["replicas"]}
+        attempts = sum(after.values()) - sum(before.values())
+        rerouted = attempts - len(answered) - len(errors)
+        fed = urllib.request.urlopen(urls[0] + "/metrics?federated=1", timeout=60).read().decode()
+        up = {label: int(v) for label, v in re.findall(r'^ddr_federate_up\{replica="([^"]+)"\} (\d)', fed, re.M)}
+        print(f"ddr fleet kill: replica 1 SIGKILLed under {DDR_FLEET_THREADS} sending threads, ejected "
+              f"{eject_s:.3f} s later; {len(answered)} requests answered during the drill, {rerouted} rerouted, "
+              f"{len(errors)} errors, unroutable_errors {status['unroutable_errors']}; federated scrape of replica "
+              f"0: ddr_federate_up {up}")
+        if errors or status["unroutable_errors"] or up != {"p24-r0": 1, "p24-r1": 0, "self": 1}:
+            fail(f"ddr fleet kill: errors {errors[:3]}, unroutable {status['unroutable_errors']}, up {up}")
+        t_restart = time.perf_counter()
+        group.restart_replica(1)
+        while "p24-r1" not in router.healthy():
+            if time.perf_counter() - t_restart > 600:
+                fail("ddr fleet: replica 1 not readmitted within 600 s of its restart")
+            time.sleep(0.05)
+        readmit_s = time.perf_counter() - t_restart
+        r1_before = router.status()["replicas"][1]["dispatched"]
+        fan_out(lambda r: group.forecast(network="default", **r))
+        r1_after = router.status()["replicas"][1]["dispatched"]
+        print(f"ddr fleet restart: replica 1 readmitted {readmit_s:.2f} s after restart_replica; dispatched "
+              f"{r1_after - r1_before} of the next {len(requests)} requests")
+        if r1_after <= r1_before:
+            fail("ddr fleet: the readmitted replica was not dispatched again")
+        batches = {f"p24-r{i}": metric_sum(scrape(url), "ddr_batches_total") for i, url in enumerate(urls)}
+        print(f"ddr fleet: each replica's batches at the end (replica 1 counts since its restart): {batches}")
+        group.close()
+        group = None
+
+        # ---- 5. `ddr fleet up` through the CLI, `fleet status`, SIGINT ----
+        env = {**os.environ, **serve_env, "DDR_FLEET_PROBE_MS": str(int(DDR_FLEET_PROBE_S * 1e3))}
+        up_log = root / "cli" / "fleet_up.log"
+        up_log.parent.mkdir(parents=True)
+        t0 = time.perf_counter()
+        with up_log.open("w") as fh:
+            cli_proc = subprocess.Popen(
+                [sys.executable, "-m", "ddr_tpu_torch.cli", "fleet", "up", *width,
+                 f"params.save_path={root / 'cli' / 'run'}", "--replicas", str(DDR_FLEET_REPLICAS), "--group",
+                 "p24cli", "--out", str(root / "cli")], stdout=fh, stderr=subprocess.STDOUT, env=env,
+                cwd=Path(__file__).resolve().parent)
+        routers.add(f"local:{cli_proc.pid}")
+        while "federation: DDR_FEDERATE_REPLICAS=" not in up_log.read_text():
+            if cli_proc.poll() is not None or time.perf_counter() - t0 > 600:
+                fail(f"ddr fleet up: no replica table (rc {cli_proc.poll()}): {up_log.read_text()[-2000:]}")
+            time.sleep(0.1)
+        table = [line for line in up_log.read_text().splitlines() if "p24cli-r" in line and " up " in line]
+        cli_urls = [line.split()[-1] for line in table]
+        print(f"ddr fleet up: the replica table {time.perf_counter() - t0:.2f} s after launch:")
+        print("\n".join(table))
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            code = fleet.main(["status", "--url", cli_urls[-1]])
+        print(f"ddr fleet status --url {cli_urls[-1]}: exit {code}: {out.getvalue().strip()}")
+        if code != 0 or "group 'p24cli' replica 1" not in out.getvalue() or len(cli_urls) != DDR_FLEET_REPLICAS:
+            fail(f"ddr fleet status: exit {code}, {out.getvalue()!r}, table {table}")
+        cli_proc.send_signal(signal.SIGINT)
+        code = cli_proc.wait(timeout=120)
+        cli_proc = None
+        left = fleet_workers(routers)
+        print(f"ddr fleet up: SIGINT -> exit {code}, serve workers left {left}")
+        if code != 0 or left:
+            fail(f"ddr fleet up: exit {code}, workers left {left}: {up_log.read_text()[-2000:]}")
+
+        # ---- 6. ddr loadtest --fleet 2 in-process, beside one service on the same basin ----
+        # the one service through `ddr loadtest`'s main; the group through the
+        # calls its main makes for --fleet, so that its router can be read
+        argv = ["--synthetic", "--n", str(N_SEGMENTS), "--horizon", str(HORIZON), "--rps",
+                str(DDR_LOADTEST_INPROCESS_RATE), "--duration", str(DDR_LOADTEST_SECONDS), "--out",
+                str(root / "loadtest")]
+        reports = {}
+        set_registry(MetricsRegistry(const_labels={"host": 0}))
+        wave_scan_tm.launches = 0
+        reports["single"] = run_command(loadtest.main, [*argv, "--label", "single"], "ddr loadtest --synthetic")
+        print(loadtest_line(f"--synthetic (one service) {DDR_LOADTEST_INPROCESS_RATE:g}/s", reports["single"],
+                            wave_scan_tm.launches, smi))
+        set_registry(MetricsRegistry(const_labels={"host": 0}))
+        args = loadtest.build_parser().parse_args([*argv, "--fleet", str(DDR_FLEET_REPLICAS)])
+        lt_group = loadtest.fleet_group(args, [], root / "loadtest")
+        try:
+            lt_group.boot()
+            wave_scan_tm.launches = 0
+            reports["fleet"] = loadtest.run_loadtest(
+                loadtest.FleetDriver(lt_group, t0_span=args.t0_span, seed=args.seed), args,
+                lt_group.replicas[0].service)
+            n_launch = wave_scan_tm.launches
+            split = {r["name"]: r["dispatched"] for r in lt_group.router.status()["replicas"]}
+        finally:
+            lt_group.close()
+        main_launches += n_launch
+        fleet_report = reports["fleet"]
+        print(loadtest_line(f"--synthetic --fleet {DDR_FLEET_REPLICAS} {DDR_LOADTEST_INPROCESS_RATE:g}/s",
+                            fleet_report, n_launch, smi))
+        print(f"ddr loadtest --fleet {DDR_FLEET_REPLICAS}: achieved {fleet_report['throughput_rps']}/s against one "
+              f"service's {reports['single']['throughput_rps']}/s at {DDR_LOADTEST_INPROCESS_RATE:g}/s offered; "
+              f"p50/p95/p99 {fleet_report['p50_ms']}/{fleet_report['p95_ms']}/{fleet_report['p99_ms']} ms against "
+              f"{reports['single']['p50_ms']}/{reports['single']['p95_ms']}/{reports['single']['p99_ms']}; sheds "
+              f"{fleet_report['shed']} and {reports['single']['shed']}; per-replica dispatches {split}")
+        if (fleet_report["errors"] or fleet_report["ok"] < 1 or fleet_report["target"] != f"fleet:{DDR_FLEET_REPLICAS}"
+                or fleet_report["device"] != torch.cuda.get_device_name(dev) or len(split) != DDR_FLEET_REPLICAS
+                or min(split.values()) < 1 or main_launches < 1):
+            fail(f"ddr loadtest --fleet: {fleet_report['errors']} errors, {fleet_report['ok']} ok on "
+                 f"{fleet_report['device']}, split {split}, {main_launches} wave_scan launches")
+
+        # ---- 7. the canary controller on the card: a same-weights and a perturbed candidate ----
+        set_registry(MetricsRegistry(const_labels={"host": 0}))
+        arch = kan_arch(cfg)
+        params = load_state(regional, expected_arch=arch)["params"]
+        twin = cfg.geodataset.get_dataset_class(cfg, device=dev).basin  # the served twin, its truth included
+        true_params = {k: torch.as_tensor(v, dtype=torch.float32, device=dev) for k, v in twin.true_params.items()}
+        t_win = n_windows // 2
+        with torch.no_grad():
+            q = torch.as_tensor(entry.forcing[t_win : t_win + HORIZON], device=dev)
+            q = q * entry.flow_scale if entry.flow_scale is not None else q
+            truth = route(entry.network, entry.channels, true_params, q, gauges=entry.gauge_index,
+                          bounds=svc.bounds, device=dev).runoff.cpu().numpy().astype(np.float64)
+
+        def median_nse(model):  # what the skill tracker computes over this window
+            pred = svc.forecast(network="default", model=model, t0=t_win, timeout=600)["runoff"].astype(np.float64)
+            sst = ((truth - truth.mean(0)) ** 2).sum(0)
+            nse = 1 - ((pred - truth) ** 2).sum(0)[sst > 0] / sst[sst > 0]
+            if not nse.size:
+                fail(f"ddr fleet canary: every gauge is flat over the window at t0 {t_win}")
+            return float(np.median(nse))  # over the gauges with a defined NSE, as the tracker
+
+        def register(name, shift):
+            kan = build_kan(cfg)
+            kan.load_state_dict({k: torch.as_tensor(np.asarray(v) + (shift if k == "output.bias" else 0.0))
+                                 for k, v in params.items()})
+            svc.register_model(name, kan, arch=arch)
+
+        register("candidate", 0.0)
+        stable_nse = median_nse("default")
+        fleet_cfg = FleetConfig.from_env(canary_weight=DDR_CANARY_WEIGHT, canary_min_obs=DDR_CANARY_MIN_OBS,
+                                         canary_margin=DDR_CANARY_MARGIN)
+        margin = fleet_cfg.canary_margin
+        chosen = None
+        for shift in DDR_CANARY_BIAS_SHIFTS:  # the first far enough below the stable arm
+            register(f"bias{shift:+g}", shift)
+            worse_nse = median_nse(f"bias{shift:+g}")
+            print(f"ddr fleet canary: output bias {shift:+g}: median NSE {worse_nse:.4f} against the stable arm's "
+                  f"{stable_nse:.4f} over the twin's truth at t0 {t_win} (margin {margin:g})")
+            if worse_nse < stable_nse - 2 * margin:
+                chosen = f"bias{shift:+g}"
+                break
+        if chosen is None:
+            fail("ddr fleet canary: no output-bias shift fell below the stable arm by twice the margin")
+        for candidate, want in (("candidate", "promoted"), (chosen, "rolled-back")):
+            ctl = CanaryController(svc, candidate=candidate, fleet_cfg=fleet_cfg)
+            before = wave_scan_tm.launches
+            i = 0
+            while ctl.state not in ("promoted", "rolled-back") and i < DDR_CANARY_MAX_REQUESTS:
+                ctl.handle(network="default", t0=t_win, observations=truth, request_id=f"p24-canary-{candidate}-{i}",
+                           timeout=600)
+                i += 1
+            main_launches += wave_scan_tm.launches - before
+            st = ctl.status()
+            print(f"ddr fleet canary {candidate!r}: {i} requests -> {ctl.state}; transitions "
+                  f"{[(t['state_from'], t['state_to'], t['reason'], t['candidate_nse'], t['stable_nse']) for t in st['transitions']]}; "
+                  f"arms {json.dumps({a: {k: e[k] for k in ('observations', 'samples', 'nse_median')} for a, e in st['arms'].items()})}")
+            if ctl.state != want:
+                fail(f"ddr fleet canary {candidate!r}: ended {ctl.state}, want {want}")
+        check_watchdog(svc, svc.stats()["queue"]["batches"], "ddr fleet reference service")
+    finally:
+        if group is not None:
+            group.close()
+        if cli_proc is not None and cli_proc.poll() is None:
+            cli_proc.send_signal(signal.SIGINT)
+            try:
+                cli_proc.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                cli_proc.kill()
+                cli_proc.wait()
+        for pid in fleet_workers(routers):  # none of this phase's workers outlives it, whatever failed
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, signal.SIGKILL)
+        if svc is not None:
+            svc.close()
+        set_registry(None)
+    return main_launches
+
+
 def nvidia_smi() -> str:
     """The card's name and power limit, as ``nvidia-smi`` reports them."""
     return subprocess.run(
@@ -3577,13 +4042,15 @@ def main() -> int:
     only_ddr_loadtest = sys.argv[1:] == ["--ddr-loadtest"]
     only_ddr_merit = sys.argv[1:] == ["--ddr-merit"]
     only_ddr_lynker = sys.argv[1:] == ["--ddr-lynker"]
+    only_ddr_fleet = sys.argv[1:] == ["--ddr-fleet"]
+    only = (only_ddr_train or only_ddr_cli or only_ddr_serve or only_ddr_loadtest or only_ddr_merit
+            or only_ddr_lynker or only_ddr_fleet)
     old_log = None
     if len(sys.argv) == 3 and sys.argv[1] == "--old-kernels":
         old_log = sys.argv[2]
-    elif sys.argv[1:] and not (only_ddr_train or only_ddr_cli or only_ddr_serve or only_ddr_loadtest
-                               or only_ddr_merit or only_ddr_lynker):
+    elif sys.argv[1:] and not only:
         print("usage: chip_smoke.py [--time-fp32 | --ddr-train | --ddr-cli | --ddr-serve | --ddr-loadtest | "
-              "--ddr-merit | --ddr-lynker | --old-kernels LOG]", file=sys.stderr)
+              "--ddr-merit | --ddr-lynker | --ddr-fleet | --old-kernels LOG]", file=sys.stderr)
         return 2
     import numpy as np
 
@@ -3610,7 +4077,7 @@ def main() -> int:
     seconds = _build.build(_build.KERNELS, verbose=True)
     print(f"build: {json.dumps({k: round(v, 2) for k, v in seconds.items()})} "
           f"({time.perf_counter() - t0:.2f}s wall) into {_build.build_dir()}")
-    if only_ddr_train or only_ddr_cli or only_ddr_serve or only_ddr_loadtest or only_ddr_merit or only_ddr_lynker:
+    if only:
         t0 = time.perf_counter()
         ddr_train(smi, dev)
         print(f"ddr train phase: {time.perf_counter() - t0:.1f}s")
@@ -3634,6 +4101,10 @@ def main() -> int:
             t0 = time.perf_counter()
             ddr_lynker(smi, dev)
             print(f"ddr lynker phase: {time.perf_counter() - t0:.1f}s")
+        if only_ddr_fleet:
+            t0 = time.perf_counter()
+            ddr_fleet(smi, dev)
+            print(f"ddr fleet phase: {time.perf_counter() - t0:.1f}s")
         print(smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
@@ -3986,6 +4457,11 @@ def main() -> int:
     reverse_err = max(reverse_err, ddr_lynker_launches["err"]["reverse_scan"])
     print(f"ddr lynker phase: {time.perf_counter() - t0:.1f}s")
 
+    # ---- 24. the replica tier: ddr fleet, the router, federation, the canary ----
+    t0 = time.perf_counter()
+    ddr_fleet_launches = ddr_fleet(smi, dev)
+    print(f"ddr fleet phase: {time.perf_counter() - t0:.1f}s")
+
     def band_entry(name, source, replaces, launches, err, t):
         bytes_ms, flops_ms = t["bound"]
         return {
@@ -4004,13 +4480,14 @@ def main() -> int:
         "replaces": "ddr_tpu/routing/pallas_kernel.py:193",
         "launches": (launches + train_launches["wave_scan"] + ddr_train_launches["wave_scan"]
                      + ddr_eval_launches["wave_scan"] + ddr_serve_launches + ddr_loadtest_launches
-                     + ddr_merit_launches["wave_scan"] + ddr_lynker_launches["wave_scan"]),
+                     + ddr_merit_launches["wave_scan"] + ddr_lynker_launches["wave_scan"] + ddr_fleet_launches),
         "ddr_train_launches": ddr_train_launches["wave_scan"],
         "ddr_eval_launches": ddr_eval_launches["wave_scan"],
         "ddr_serve_launches": ddr_serve_launches,
         "ddr_loadtest_launches": ddr_loadtest_launches,
         "ddr_merit_launches": ddr_merit_launches["wave_scan"],
         "ddr_lynker_launches": ddr_lynker_launches["wave_scan"],
+        "ddr_fleet_launches": ddr_fleet_launches,
         "ddr_eval_q_init_launches": ddr_eval_launches["q_init"],
         "max_abs_err": max_abs,
         "ms": kernel_ms,

@@ -1,11 +1,11 @@
 """The port's command-line dispatcher: ``python -m ddr_tpu_torch.cli
-{train,test,route,train-and-test,benchmark,summed-q-prime,serve,loadtest,verify}
+{train,test,route,train-and-test,benchmark,summed-q-prime,serve,fleet,loadtest,verify}
 [config.yaml] [a.b=c ...]``.
 
 The subcommands are the JAX package's ``ddr`` CLI's. ``train``, ``test``,
 ``route``, ``train-and-test``, ``benchmark``, ``summed-q-prime``, ``serve``,
-``loadtest`` and ``verify`` are ported; each runs on the card unless the config or an
-override says ``device=cpu``. Every other subcommand exits with a message
+``fleet``, ``loadtest`` and ``verify`` are ported; each runs on the card unless the
+config or an override says ``device=cpu``. Every other subcommand exits with a message
 naming the ROADMAP item that ports it.
 """
 
@@ -24,12 +24,12 @@ _COMMANDS = {
     "benchmark": "ddr_tpu_torch.benchmarks.benchmark",
     "summed-q-prime": "ddr_tpu_torch.scripts.summed_q_prime",
     "serve": "ddr_tpu_torch.scripts.serve",
+    "fleet": "ddr_tpu_torch.scripts.fleet",
     "loadtest": "ddr_tpu_torch.scripts.loadtest",
     "verify": "ddr_tpu_torch.scripts.verify",
 }
 #: Subcommands of the JAX package's CLI that are not ported yet, by ROADMAP item.
 _NOT_PORTED = {
-    "fleet": "A.9",
     "chaos": "A.6",
     "metrics": "A.10",
     "obs": "A.10",

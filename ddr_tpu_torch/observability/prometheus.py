@@ -14,7 +14,8 @@ The port's copy of the serving half of ``ddr_tpu/observability/prometheus.py``:
   (``ddr_slo_attainment``, ``ddr_slo_burn_rate{window}``) from its tracker;
 - :func:`event_tee` — one decision record (``{"event": ..., **payload}``) ->
   instrument updates, for the events the port emits: ``serve_request``,
-  ``serve_batch``, ``serve_shed``, ``slo`` and ``health``.
+  ``serve_batch``, ``serve_shed``, ``slo``, ``health`` and the sentinel's
+  ``anomaly``.
 
 The active run recorder (:mod:`~ddr_tpu_torch.observability.events`) tees
 every event it writes through :func:`event_tee`. The standalone exporter
@@ -155,8 +156,8 @@ def _get(payload: dict, key: str, default: float = 0.0) -> float:
 
 def event_tee(record: dict, registry: MetricsRegistry | None = None) -> None:
     """Update the registry from one decision record. Every event bumps
-    ``ddr_events_total``; the serve and health events update their
-    instruments; any other event updates nothing else."""
+    ``ddr_events_total``; the serve, health and ``anomaly`` events update
+    their instruments; any other event updates nothing else."""
     r = registry or get_registry()
     event = str(record.get("event", "?"))
     r.counter("ddr_events_total", "Telemetry events by type", labels=("event",)).inc(event=event)
@@ -200,3 +201,14 @@ def event_tee(record: dict, registry: MetricsRegistry | None = None) -> None:
     elif event == "health":
         for reason in record.get("reasons") or ["?"]:
             r.get("ddr_health_violations_total").inc(reason=str(reason))
+    elif event == "anomaly":
+        # the sentinel's episode transitions: the counter counts episodes
+        # (firing edges), the gauge which signals are firing now
+        signal = str(record.get("signal", "?"))
+        state = str(record.get("state", "?"))
+        if state == "firing":
+            r.counter("ddr_anomalies_total", "Performance-anomaly episodes by signal",
+                      labels=("signal",)).inc(signal=signal)
+        r.gauge("ddr_anomaly_active",
+                "Whether a performance anomaly is currently firing per signal (1 firing, 0 resolved)",
+                labels=("signal",)).set(1.0 if state == "firing" else 0.0, signal=signal)

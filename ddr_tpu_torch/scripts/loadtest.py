@@ -15,25 +15,28 @@ under pressure and why, and whether the SLO held. Two generators:
 
 Targets: a running server (``--url http://host:port``), an in-process
 service built from a run config (``ddr loadtest config.yaml [a.b=c ...]``),
-or ``--synthetic``, an in-process service over a synthetic basin (``a.b=c``
-overrides such as ``device=cpu`` apply to its config). In-process services
-run on the card unless ``device=cpu``. The report is one flat JSON record,
+``--synthetic``, an in-process service over a synthetic basin (``a.b=c``
+overrides such as ``device=cpu`` apply to its config), or ``--fleet N``, an
+in-process group of N such synthetic services behind the fleet router
+(:class:`FleetDriver`). In-process services run on the card unless
+``device=cpu``. The report is one flat JSON record,
 written to ``LOADTEST_<label>.json`` and printed as the last line of
 standard output after a short summary.
 
     python -m ddr_tpu_torch.cli loadtest --synthetic --rps 50 --duration 10 device=cpu
     python -m ddr_tpu_torch.cli loadtest --url http://127.0.0.1:8080 --mode closed --clients 16
     python -m ddr_tpu_torch.cli loadtest examples/synthetic/config.yaml --rps 20 --t0-span 240
+    python -m ddr_tpu_torch.cli loadtest --synthetic --fleet 2 --rps 80 --duration 10 device=cpu
 
 An in-process run records the service's decisions in
 ``run_log.loadtest.jsonl`` (``DDR_METRICS_DIR``, else the report directory);
 so does a ``--url`` run when ``DDR_METRICS_DIR`` is set, with the client's
 side only.
 
-Departures from the JAX command: ``--fleet`` (a replica group behind the
-fleet router) exits naming ROADMAP A.9, where the replica group is ported;
-and :func:`priority_for` seeds its draw with a string, because Python 3.12
-refuses the tuple seed of the JAX function.
+Departures from the JAX command: :func:`priority_for` seeds its draw with a
+string, because Python 3.12 refuses the tuple seed of the JAX function; and
+the report's ``device`` names the card (or ``cpu``) of the in-process
+service, or of the group's first replica, where JAX's names the platform.
 """
 
 from __future__ import annotations
@@ -44,7 +47,6 @@ import json
 import logging
 import os
 import random
-import sys
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -57,6 +59,7 @@ from ddr_tpu_torch.observability.events import run_telemetry
 log = logging.getLogger(__name__)
 
 __all__ = [
+    "FleetDriver",
     "HttpDriver",
     "InProcessDriver",
     "Outcome",
@@ -199,6 +202,88 @@ class InProcessDriver:
 
     def stats(self) -> dict:
         return self.service.stats()
+
+
+class FleetDriver:
+    """Drive an in-process :class:`~ddr_tpu_torch.fleet.group.ReplicaGroup`
+    through its router (``--fleet N``): the same generators and report as
+    the single-service path, so a group's record and one service's compare
+    directly."""
+
+    def __init__(
+        self,
+        group: Any,
+        network: str = "default",
+        model: str = "default",
+        t0_span: int | None = None,
+        deadline_ms: float | None = None,
+        priority_mix: list[tuple[str, float]] | None = None,
+        ensemble: int = 0,
+        seed: int = 0,
+    ) -> None:
+        self.group = group
+        self.network = network
+        self.model = model
+        self.deadline_ms = deadline_ms
+        self.priority_mix = priority_mix
+        self.ensemble = int(ensemble)
+        self.seed = int(seed)
+        svc = group.replicas[0].service
+        net = svc.networks()[network]
+        if t0_span is None:
+            t0_span = 1 if net.forcing is None else max(1, len(net.forcing) - net.horizon + 1)
+        self.t0_span = max(1, int(t0_span))
+        deadline_s = svc.serve_cfg.deadline_s if deadline_ms is None else deadline_ms / 1e3
+        self._wait_s = deadline_s + 5.0
+
+    def fire(self, i: int) -> Outcome:
+        from ddr_tpu_torch.fleet.router import NoHealthyReplicaError
+        from ddr_tpu_torch.serving.batcher import QueueFullError, RequestShedError
+
+        prio = priority_for(i, self.priority_mix, self.seed)
+        start = time.monotonic()
+        try:
+            if self.ensemble > 0:
+                out = self.group.ensemble(
+                    network=self.network, model=self.model, t0=i % self.t0_span,
+                    members=self.ensemble, request_id=f"lt-{i}",
+                )
+            else:
+                out = self.group.forecast(
+                    network=self.network, model=self.model, t0=i % self.t0_span,
+                    deadline_s=None if self.deadline_ms is None else self.deadline_ms / 1e3,
+                    request_id=f"lt-{i}", timeout=self._wait_s, priority=prio,
+                )
+        except QueueFullError:
+            return Outcome("rejected", time.monotonic() - start, priority=prio)
+        except RequestShedError as e:
+            return Outcome(f"shed:{e.reason}", time.monotonic() - start, priority=prio)
+        except NoHealthyReplicaError:
+            return Outcome("error:unroutable", time.monotonic() - start, priority=prio)
+        except FutureTimeoutError:
+            return Outcome("error:timeout", time.monotonic() - start, priority=prio)
+        except Exception as e:  # noqa: BLE001 - an error is a data point here
+            return Outcome(f"error:{type(e).__name__}", time.monotonic() - start, priority=prio)
+        return Outcome("ok", time.monotonic() - start, out.get("queue_s"), out.get("execute_s"),
+                       priority=prio)
+
+    def stats(self) -> dict:
+        """The group's rollup in the single service's shape: queue counters
+        summed over the replicas (N half-full replicas are half-full
+        capacity, so the report's occupancy keeps its meaning), the config
+        of the first replica that answers."""
+        merged: dict[str, Any] = {"queue": {}, "replicas": len(self.group.replicas)}
+        for r in self.group.replicas:
+            try:
+                stats = r.stats()
+            except Exception:  # a dead replica must not void the measured run
+                continue
+            if not merged.get("config"):
+                merged["config"] = stats.get("config") or {}
+            for k, v in (stats.get("queue") or {}).items():
+                if isinstance(v, (int, float)):
+                    merged["queue"][k] = merged["queue"].get(k, 0) + v
+        return merged
 
 
 class HttpDriver:
@@ -585,12 +670,14 @@ def run_loadtest(driver, args_ns, service: Any = None) -> dict[str, Any]:
     else:
         outcomes, wall, offered = run_closed_loop(driver.fire, args_ns.clients, args_ns.duration)
     stats_after = driver.stats()
+    fleet_n = int(getattr(args_ns, "fleet", 0) or 0)
     return build_report(
         outcomes, wall, offered,
         stats_before=stats_before, stats_after=stats_after,
         mode=args_ns.mode,
-        target=args_ns.url or ("synthetic" if args_ns.synthetic else "config"),
-        fleet=None,
+        target=args_ns.url or (f"fleet:{fleet_n}" if fleet_n > 1
+                               else "synthetic" if args_ns.synthetic else "config"),
+        fleet=fleet_n if fleet_n > 1 else None,
         device=device_label(service),
         rps_target=args_ns.rps if args_ns.mode == "open" else None,
         clients=args_ns.clients if args_ns.mode == "closed" else None,
@@ -604,7 +691,7 @@ def run_loadtest(driver, args_ns, service: Any = None) -> dict[str, Any]:
     )
 
 
-def main(argv: list[str] | None = None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="ddr loadtest",
         description="Open/closed-loop load generation against a forecast service (HTTP or "
@@ -642,30 +729,62 @@ def main(argv: list[str] | None = None) -> int:
                         help="send E-member ensemble requests instead of single forecasts "
                         "(default 0 = off)")
     parser.add_argument("--fleet", type=int, default=0,
-                        help="an N-replica group behind the fleet router (not ported yet)")
+                        help="drive an in-process N-replica group through the fleet router instead of "
+                        "one service (synthetic target only; a.b=c overrides reach every replica; "
+                        "default 0 = off)")
     parser.add_argument("--seed", type=int, default=0, help="arrival-process RNG seed (default 0)")
     parser.add_argument("--label", default=None,
                         help="report name suffix (LOADTEST_<label>.json; default: a timestamp)")
     parser.add_argument("--out", default=None, help="report directory (default: DDR_METRICS_DIR or .)")
+    return parser
+
+
+def fleet_group(args, overrides: list[str], out_dir: Path) -> Any:
+    """``--fleet N``'s group, not yet booted: N in-process synthetic
+    services, the ``a.b=c`` overrides reaching every replica."""
+    from ddr_tpu_torch.fleet.config import FleetConfig
+    from ddr_tpu_torch.fleet.group import ReplicaGroup
+
+    return ReplicaGroup(FleetConfig.from_env(replicas=args.fleet, mode="inprocess"),
+                        builder=lambda i: build_synthetic_service(
+                            args.n, args.horizon, save_path=str(out_dir), overrides=overrides)[0],
+                        workdir=out_dir)
+
+
+def main(argv: list[str] | None = None) -> int:
+    parser = build_parser()
     try:
         args = parser.parse_args(argv)
     except SystemExit as e:  # argparse exits for --help (0) and usage errors (2)
         return int(e.code or 0)
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(levelname)s %(message)s")
-    if args.fleet > 1:
-        print("ddr loadtest: --fleet drives a replica group, which is not ported yet (ROADMAP A.9)",
-              file=sys.stderr)
-        return 2
     out_dir = Path(args.out or os.environ.get("DDR_METRICS_DIR") or ".")
     out_dir.mkdir(parents=True, exist_ok=True)
     label = args.label or time.strftime("%Y%m%d-%H%M%S")
 
     service = None
+    group = None
     cfg = None
     try:
         mix = parse_priority_mix(args.priority_mix)
-        if args.url:
+        if args.fleet > 1:
+            if args.url:
+                log.error("--fleet boots its own in-process group; drop --url")
+                return 2
+            from ddr_tpu_torch.scripts.common import split_config_argv
+
+            path, overrides = split_config_argv(args.config)
+            if path is not None:
+                log.error("--fleet builds synthetic replicas; pass a.b=c overrides, not a config file")
+                return 2
+            group = fleet_group(args, overrides, out_dir)
+            group.boot()  # a failed boot is closed below, with the replicas it built
+            cfg = group.replicas[0].service.cfg
+            driver = FleetDriver(group, network=args.network, model=args.model,
+                                 t0_span=args.t0_span, deadline_ms=args.deadline_ms,
+                                 priority_mix=mix, ensemble=args.ensemble, seed=args.seed)
+        elif args.url:
             driver = HttpDriver(args.url, network=args.network, model=args.model,
                                 t0_span=24 if args.t0_span is None else args.t0_span,
                                 deadline_ms=args.deadline_ms, priority_mix=mix,
@@ -687,15 +806,22 @@ def main(argv: list[str] | None = None) -> int:
                                      priority_mix=mix, ensemble=args.ensemble, seed=args.seed)
         with run_telemetry(cfg, "loadtest", mode=args.mode):
             try:
-                report = run_loadtest(driver, args, service)
+                report = run_loadtest(driver, args, service if group is None else group.replicas[0].service)
             finally:
                 # closed inside the run log: close() merges the serve rollup into run_end
                 if service is not None:
                     service.close(drain=False)
                     service = None
+                if group is not None:
+                    split = {r["name"]: r["dispatched"] for r in group.router.status()["replicas"]}
+                    log.info(f"fleet router dispatches: {json.dumps(split)}")
+                    group.close()
+                    group = None
     finally:
         if service is not None:  # construction failed before the run
             service.close(drain=False)
+        if group is not None:
+            group.close()
 
     path = out_dir / f"LOADTEST_{label}.json"
     path.write_text(json.dumps(report, indent=2) + "\n")

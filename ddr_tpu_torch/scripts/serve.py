@@ -25,8 +25,11 @@ import logging
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from ddr_tpu_torch.device import resolve_device
+from ddr_tpu_torch.fleet.config import fleet_identity
+from ddr_tpu_torch.observability.federate import replicas_from_env
 from ddr_tpu_torch.observability.events import run_telemetry
 from ddr_tpu_torch.observability.trace import trace_enabled
 from ddr_tpu_torch.scripts.common import get_flow_fn, kan_arch, load_kan, parse_cli
@@ -38,13 +41,6 @@ from ddr_tpu_torch.validation.configs import Config
 log = logging.getLogger(__name__)
 
 __all__ = ["build_service", "main", "serve"]
-
-#: Logged once at the start of every server.
-SERVE_PARTS_ABSENT = (
-    "not in this port yet, so off in this server: the fleet tier, its replica identity and "
-    "/metrics?federated=1 (ROADMAP A.9)"
-)
-
 
 def build_service(
     cfg: Config, serve_cfg: ServeConfig | None = None, warmup: bool = True, watch: bool = True,
@@ -77,13 +73,28 @@ def build_service(
 
 
 def serve(cfg: Config, serve_cfg: ServeConfig | None = None) -> int:
-    """Build the service and answer HTTP on this thread until interrupted."""
-    log.info(SERVE_PARTS_ABSENT)
+    """Build the service and answer HTTP on this thread until interrupted.
+    The boot log states what this replica answers for: trace propagation,
+    the targets ``/metrics?federated=1`` scrapes, and its fleet identity."""
     service = build_service(cfg, serve_cfg)
+    dev = service.device
+    if dev.type == "cuda":  # the card and what this process holds on it, for a replica's boot log
+        log.info(f"serving on {dev} ({torch.cuda.get_device_name(dev)}), "
+                 f"{torch.cuda.memory_reserved(dev) / 1e9:.3f} GB of device memory reserved after warmup")
+    else:
+        log.info(f"serving on {dev}")
     if trace_enabled():
         log.info("trace propagation on: X-DDR-Trace-Id adopted/minted per request")
     else:
         log.info("trace propagation OFF (DDR_TRACE=0): responses carry no trace ids")
+    replicas = replicas_from_env()
+    if replicas:
+        log.info(f"/metrics?federated=1 federates {len(replicas)} replica(s): "
+                 + ", ".join(label for label, _ in replicas))
+    identity = fleet_identity()
+    if identity is not None:
+        log.info(f"fleet identity: group {identity['group']!r} replica {identity.get('replica', '?')} "
+                 f"(router {identity.get('router', 'unknown')}) — /v1/stats carries this under \"fleet\"")
     try:
         serve_http(service, block=True)
     except KeyboardInterrupt:

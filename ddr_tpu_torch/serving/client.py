@@ -6,9 +6,10 @@ The port's copy of ``ddr_tpu/serving/client.py``'s HTTP half:
 asks for ensembles with an ``ensemble`` body; it writes a ``q_prime`` payload
 in 9 significant digits a value (:func:`q_prime_json`), which carries every
 float32 exactly in half the bytes of JAX's client. JAX's in-process
-``ForecastClient`` and its retry loop (``retries``, ``Retry-After``) come
-with a caller that uses them: the fleet router (ROADMAP A.9) or the metrics
-CLI (A.10).
+``ForecastClient`` and its retry loop (``retries``, ``Retry-After``) are not
+ported: the fleet router, the one caller the port has for a failing replica,
+is the retry layer itself and sends each request once
+(:class:`~ddr_tpu_torch.fleet.router.HttpReplica`).
 """
 
 from __future__ import annotations

@@ -10,6 +10,9 @@ JAX package's:
   ``warming`` before it, 503 ``warmup-failed`` when it raised (terminal), 503
   ``unhealthy`` while the numerical-health watchdog reports degraded;
 - ``GET /metrics`` — the service's metrics registry in Prometheus text;
+  ``GET /metrics?federated=1`` scrapes the replicas this one knows
+  (``DDR_FEDERATE_REPLICAS``) and folds its own registry in as
+  ``replica="self"`` (:func:`~ddr_tpu_torch.observability.federate.federate_text`);
 - ``GET /v1/models``, ``/v1/networks``, ``/v1/stats``;
 - ``POST /v1/forecast`` — body ``{"network": str, "model"?: str,
   "q_prime"?: [[...]], "t0"?: int, "gauges"?: [int], "deadline_ms"?: num,
@@ -33,9 +36,8 @@ JAX package's:
 Error mapping: validation -> 400, unknown name -> 404, queue-full rejection ->
 429 (with ``Retry-After``), shed or deadline -> 503, not warm -> 503.
 
-Refused by name (501) until their pieces are ported: ``GET
-/metrics?federated=1`` (the fleet tier, ROADMAP A.9) and ``POST
-/v1/profile`` (the profiler, A.10).
+Refused by name (501) until the profiler is ported: ``POST /v1/profile``
+(ROADMAP A.10).
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ from urllib.parse import parse_qs, urlsplit
 
 import numpy as np
 
+from ddr_tpu_torch.observability.federate import federate_text, replicas_from_env
 from ddr_tpu_torch.observability.prometheus import CONTENT_TYPE, render_text
 from ddr_tpu_torch.observability.trace import adopt_trace_id, trace_enabled
 from ddr_tpu_torch.serving.batcher import QueueFullError, RequestShedError
@@ -65,7 +68,6 @@ MAX_BODY_BYTES = 64 * 1024 * 1024
 
 #: What each refused request needs, by ROADMAP item.
 NOT_PORTED = {
-    "federated": "federated /metrics is not ported yet (ROADMAP A.9)",
     "profile": "POST /v1/profile is not ported yet (ROADMAP A.10: torch.profiler capture)",
 }
 
@@ -120,9 +122,11 @@ class _Handler(BaseHTTPRequestHandler):
             self._send(*self._readyz(svc))
         elif url.path == "/metrics":
             if parse_qs(url.query).get("federated", ["0"])[0] not in ("", "0", "false"):
-                self._send(501, {"error": NOT_PORTED["federated"]})
+                # the fleet view: any replica answers for the group it knows
+                text = federate_text(replicas_from_env(), local=("self", svc.metrics))
             else:
-                self._send_bytes(200, render_text(svc.metrics).encode("utf-8"), CONTENT_TYPE)
+                text = render_text(svc.metrics)
+            self._send_bytes(200, text.encode("utf-8"), CONTENT_TYPE)
         elif url.path == "/v1/stats":
             self._send(200, svc.stats())
         elif url.path == "/v1/models":

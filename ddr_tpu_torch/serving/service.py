@@ -45,9 +45,10 @@ flow scaling, plus the worst output columns when ``top_k > 0``, and the
 watchdog thresholds them after the batch's copy to the host. Serving routes
 in fp32: the JAX service has no dtype axis.
 
-Not in this slice: the replica fleet (ROADMAP A.9), the performance
-sentinel, the skill tracker, program cards and compile accounting (A.10),
-mesh mode (A.13) and fault injection (A.6).
+``stats()["fleet"]`` names the replica's place in a group
+(:func:`~ddr_tpu_torch.fleet.config.fleet_identity`). Not in this slice: the
+service's performance sentinel and skill tracker, program cards and compile
+accounting (ROADMAP A.10), mesh mode (A.13) and fault injection (A.6).
 ``stats()`` carries their keys as None.
 """
 
@@ -730,15 +731,18 @@ class ForecastService:
         return self.watchdog.degraded
 
     def stats(self) -> dict:
-        """The ``/v1/stats`` payload, with the JAX service's keys. ``slo`` is
+        """The ``/v1/stats`` payload, with the JAX service's keys. ``fleet``
+        is the replica's identity in its group (None outside one), ``slo``
         the tracker's status, ``verification`` the attached ledger's (None
-        without one); ``fleet``, ``compiles``, ``sentinel`` and ``skill`` are
-        None: their features are not ported yet (ROADMAP A.9, A.10)."""
+        without one); ``compiles``, ``sentinel`` and ``skill`` are None: their
+        features are not ported yet (ROADMAP A.10)."""
+        from ddr_tpu_torch.fleet.config import fleet_identity
+
         self._slo_sweep()  # an idle replica resolves a stale alert by polling
         return {
             "ready": self._ready,
             "warmup_error": self._warmup_error,
-            "fleet": None,
+            "fleet": fleet_identity(),
             "config": {
                 "max_batch": self.serve_cfg.max_batch,
                 "queue_cap": self.serve_cfg.queue_cap,

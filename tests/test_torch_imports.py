@@ -70,7 +70,11 @@ def test_port_imports_no_jax_and_nothing_of_ddr_tpu():
             "ddr_tpu_torch.engine.merit", "ddr_tpu_torch.engine.merit_cli",
             "ddr_tpu_torch.scripts.prepare_merit_example", "ddr_tpu_torch.io.stores",
             "ddr_tpu_torch.io.statistics", "ddr_tpu_torch.io.builders",
-            "ddr_tpu_torch.geodatazoo.base", "ddr_tpu_torch.geodatazoo.merit"} <= names
+            "ddr_tpu_torch.geodatazoo.base", "ddr_tpu_torch.geodatazoo.merit",
+            # the replica tier: router, group, canary, federation, sentinel, skill
+            "ddr_tpu_torch.fleet.router", "ddr_tpu_torch.fleet.group", "ddr_tpu_torch.fleet.canary",
+            "ddr_tpu_torch.observability.federate", "ddr_tpu_torch.observability.sentinel",
+            "ddr_tpu_torch.observability.skill", "ddr_tpu_torch.scripts.fleet"} <= names
     assert bad == "[]", f"the port imported {bad}"
 
 

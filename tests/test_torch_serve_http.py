@@ -20,8 +20,13 @@ synthetic basin (``make_basin(96, depth=10, seed=23)``, as
   the same status codes, answer keys and ``reason``, ensemble bands within
   the runoff bound, and equal join counts.
 
-The two refusals (``/metrics?federated=1``, ``POST /v1/profile``) answer 501
-and name their ROADMAP item.
+- ``/v1/stats`` ``fleet`` equal to JAX's, without and with the
+  ``DDR_FLEET_*`` identity variables; ``GET /metrics?federated=1`` answering
+  200 on both, each with its package's ``federate_text`` over the same
+  targets and its own registry.
+
+The refusal (``POST /v1/profile``, with and without its query) answers 501
+and names its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -235,8 +240,9 @@ def test_get_endpoints_equal_jax(pair):
     assert jc == pc == 200 and set(jb) <= set(pb), set(jb) - set(pb)
     assert pb["config"] == jb["config"] and pb["networks"] == jb["networks"]
     assert set(jb["queue"]) <= set(pb["queue"]) and set(jb["health"]) <= set(pb["health"])
-    for key in ("compiles", "sentinel", "skill", "fleet"):
+    for key in ("compiles", "sentinel", "skill"):
         assert pb[key] is None
+    assert pb["fleet"] == jb["fleet"]
     # no ledger attached on either side
     assert pb["verification"] is None and jb["verification"] is None
     # the SLO slice: JAX's keys, and JAX's values when both trackers read at one instant
@@ -255,14 +261,48 @@ def test_get_endpoints_equal_jax(pair):
     assert jc == pc == 404 and jb == pb
 
 
-@pytest.mark.parametrize("request_kind,item", [("federated", "A.9"), ("profile", "A.10")])
+@pytest.mark.parametrize("request_kind,item", [("profile-default", "A.10"), ("profile", "A.10")])
 def test_unported_requests_answer_501_naming_their_item(pair, request_kind, item):
     url = pair.urls[1]
-    if request_kind == "federated":
-        code, _, body = _request(url, "GET", "/metrics?federated=1")
+    if request_kind == "profile-default":
+        code, _, body = _request(url, "POST", "/v1/profile", {})
     else:
         code, _, body = _request(url, "POST", "/v1/profile?seconds=1", {})
     assert code == 501 and item in body["error"]
+
+
+IDENTITY = {"DDR_FLEET_GROUP": "east", "DDR_FLEET_REPLICA": "1", "DDR_FLEET_ROUTER": "local:42"}
+
+
+def test_stats_fleet_identity_equals_jax(pair, monkeypatch):
+    for k, v in IDENTITY.items():
+        monkeypatch.setenv(k, v)
+    (jc, _, jb), (pc, _, pb) = pair.both("GET", "/v1/stats")
+    assert jc == pc == 200 and pb["fleet"] == jb["fleet"] == {"group": "east", "replica": 1, "router": "local:42"}
+    monkeypatch.setenv("DDR_FLEET_REPLICA", "r-one")
+    monkeypatch.delenv("DDR_FLEET_ROUTER")
+    (_, _, jb), (_, _, pb) = pair.both("GET", "/v1/stats")
+    assert pb["fleet"] == jb["fleet"] == {"group": "east", "replica": "r-one"}
+
+
+def test_federated_metrics_answer_as_jax(pair, monkeypatch):
+    """Each server federates the other and a dead target: 200 with the
+    exposition type, and the text its own package's ``federate_text`` gives
+    for the same targets and its registry."""
+    from ddr_tpu.observability import federate as jfed
+    from ddr_tpu_torch.observability import federate as tfed
+
+    monkeypatch.setenv("DDR_FEDERATE_REPLICAS", f"jax={pair.urls[0]},port={pair.urls[1]},dead=127.0.0.1:9")
+    texts = [_request(url, "GET", "/metrics?federated=1") for url in pair.urls]
+    for code, headers, _ in texts:
+        assert code == 200 and headers["Content-Type"] == CONTENT_TYPE
+    targets = tfed.replicas_from_env()
+    assert targets == jfed.replicas_from_env()
+    assert texts[0][2] == jfed.federate_text(targets, local=("self", pair.jax.metrics))
+    assert texts[1][2] == tfed.federate_text(targets, local=("self", pair.port.metrics))
+    for _, _, text in texts:
+        for label, up in (("jax", 1), ("port", 1), ("dead", 0), ("self", 1)):
+            assert f'ddr_federate_up{{replica="{label}"}} {up}' in text
 
 
 ENSEMBLES = {

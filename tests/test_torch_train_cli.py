@@ -398,7 +398,7 @@ def test_cli_defaults_to_the_card(tmp_path, monkeypatch):
         cli.main(["train", CONFIG, "device=tpu", f"params.save_path={tmp_path}"])
 
 
-@pytest.mark.parametrize("command,item", [("chaos", "A.6"), ("fleet", "A.9"), ("tune", "A.13")])
+@pytest.mark.parametrize("command,item", [("chaos", "A.6"), ("metrics", "A.10"), ("tune", "A.13")])
 def test_cli_names_the_item_of_an_unported_command(capsys, command, item):
     assert cli.main([command, CONFIG]) == 2
     assert item in capsys.readouterr().err
@@ -425,15 +425,19 @@ def test_cli_dispatches_serve(tmp_path, monkeypatch):
 def test_cli_dispatches_loadtest(tmp_path, capsys):
     """``loadtest --synthetic`` runs an in-process service on the CPU when
     asked (``device=cpu`` applies to the synthetic config), writes its
-    report and prints it last; ``--fleet`` names its ROADMAP item."""
+    report and prints it last; ``--fleet 2`` drives two such services
+    through the fleet router."""
     code = cli.main(["loadtest", "--synthetic", "--n", "32", "--horizon", "6", "--rps", "40",
                      "--duration", "0.5", "--out", str(tmp_path), "--label", "cli", "device=cpu"])
     assert code == 0
     report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert report == json.loads((tmp_path / "LOADTEST_cli.json").read_text())
     assert report["device"] == "cpu" and report["ok"] == report["requests"] > 0
-    assert cli.main(["loadtest", "--synthetic", "--fleet", "2", "device=cpu"]) == 2
-    assert "A.9" in capsys.readouterr().err
+    assert cli.main(["loadtest", "--synthetic", "--fleet", "2", "--n", "32", "--horizon", "6", "--rps", "40",
+                     "--duration", "0.3", "--out", str(tmp_path), "--label", "fleet", "device=cpu"]) == 0
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert (report["target"], report["fleet"], report["device"]) == ("fleet:2", 2, "cpu")
+    assert report["ok"] == report["requests"] > 0
     assert "loadtest" in cli._COMMANDS and "loadtest" not in cli._NOT_PORTED
 
 

@@ -11,6 +11,7 @@
     python3 chip_smoke.py --ddr-merit   # only the build and phases 18 and 22 (the MERIT path, ΣQ')
     python3 chip_smoke.py --ddr-lynker  # only the build and phases 18 and 23 (the Lynker path)
     python3 chip_smoke.py --ddr-fleet   # only the build and phases 18 and 24 (the replica tier)
+    python3 chip_smoke.py --ddr-obs     # only the build and phases 18 and 25 (metrics, obs, profile)
 
 From the root of a checkout, with one CUDA card visible. Phases, each fatal
 on failure (non-zero exit, no result line):
@@ -236,6 +237,27 @@ on failure (non-zero exit, no result line):
            canary controller on the card over the twin's truth on its mid-record window, margin 0.01
            (the same weights promoted; weights whose output bias drives the
            parameters to an end of their ranges, rolled back).
+25. ddr obs  the observability plane: phase 18's regional ``ddr train`` in a
+           subprocess with ``DDR_METRICS_DIR``, ``DDR_PROM_PORT=0`` and
+           ``DDR_HEARTBEAT_EVERY=1``, its exporter (port from ``run_start``)
+           scraped while it runs (``ddr_steps_total`` >= 1,
+           ``ddr_heartbeats_total``), its log holding a heartbeat, a
+           ``skill`` event per step and a ``drift`` per epoch, run_end the
+           ``drift``, ``skill``, ``pipeline`` and ``sentinel`` rollups, its
+           launches counted in the subprocess; a ``ddr serve`` of phase 20's
+           config under a run log: ``POST /v1/profile?seconds=2`` answering
+           202 while 8 requests are answered (a second POST 409,
+           ``seconds=0`` 400), the capture naming ``wave_scan`` launches,
+           ``/v1/stats``' sentinel slice, ``ddr obs federate --once`` with
+           ``replica`` labels; ``ddr metrics summarize``, ``tail -n 5`` and
+           ``trace --out`` on both logs (the summary's step count the log's,
+           a trace slice per step), ``ddr obs bottleneck`` on the train log;
+           ``ddr profile --synthetic --n 65536 --t-hours 72 --depth 512
+           --reps 5 --trace`` (each program's ms per iteration,
+           reach-timesteps/s and peak GB, one ``wave_scan`` launch a call of
+           each program and one ``reverse_scan`` a call of the VJP and the
+           step, both kernels named in the traces), and its forward route
+           against the plain scan bit for bit.
 Phases 18, 19, 21, 22 and 23 run with ``DDR_METRICS_DIR`` set to a
 directory per run, and print each run log's split: a ``ddr train`` run's
 step phases (``summarize_phases``), the steps' loop wall and the share of
@@ -4016,12 +4038,342 @@ def ddr_fleet(smi, dev) -> int:
     return main_launches
 
 
+# `ddr metrics`, `ddr obs`, `ddr profile` and POST /v1/profile (phase 25): the
+# instrumented `ddr train` is phase 18's regional run in a subprocess, whose
+# exporter is scraped while it lives; `ddr profile` at the regional shape
+# over 72 h, 5 timed iterations a program; a 2 s capture of a `ddr serve`
+# (phase 20's config) while 8 requests are answered.
+DDR_OBS_REQUESTS, DDR_OBS_CAPTURE_S, DDR_OBS_REPS = 8, 2, 5
+KERNEL_NAMES = {"wave_scan": "wave_scan_tm_kernel", "reverse_scan": "reverse_scan_tm_kernel"}
+
+
+def trace_names(path: Path) -> set:
+    """The event names of one Chrome trace file."""
+    return {str(e.get("name")) for e in json.loads(path.read_text()).get("traceEvents", [])}
+
+
+def trace_breakdown(path: Path, reps: int) -> str:
+    """Where one profiled program's iterations spend the card's time, from
+    its Chrome trace: kernel-busy ms an iteration, the ``ddr::`` ranges on
+    the card's timeline and the five costliest kernels, each in ms an
+    iteration."""
+    from collections import Counter
+
+    kernels, ranges = Counter(), Counter()
+    for e in json.loads(path.read_text()).get("traceEvents", []):
+        if e.get("cat") == "kernel":
+            kernels[str(e.get("name"))] += float(e.get("dur", 0.0))
+        elif e.get("cat") == "gpu_user_annotation" and str(e.get("name")).startswith("ddr::"):
+            ranges[str(e.get("name"))] += float(e.get("dur", 0.0))
+    busy = sum(kernels.values()) / 1e3 / reps
+    top = ", ".join(f"{n[:48]} {d / 1e3 / reps:.3f}" for n, d in kernels.most_common(5))
+    rng = ", ".join(f"{n} {d / 1e3 / reps:.3f}" for n, d in sorted(ranges.items()))
+    return f"kernel-busy {busy:.3f} ms/iter; ddr:: ranges [{rng}]; top kernels [{top}]"
+
+
+def cli_stdout(main, argv) -> tuple[int, str]:
+    """``main(argv)``'s exit code and what it printed."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = main(argv)
+    return code, buf.getvalue()
+
+
+def ddr_obs(smi, dev) -> dict:
+    """Phase 25: the observability plane on the card (see the module
+    docstring): the instrumented ``ddr train`` in a subprocess with its
+    exporter scraped while it runs, ``ddr metrics`` and ``ddr obs`` on its
+    log and a server's, ``ddr profile`` at the regional shape, ``POST
+    /v1/profile`` on a serving ``ddr serve``, ``ddr obs federate --once``.
+    Returns the phase's launch counts of each kernel."""
+    import os
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from ddr_tpu_torch import cli
+    from ddr_tpu_torch.observability import metrics_cli, obs_cli
+    from ddr_tpu_torch.observability.events import run_telemetry
+    from ddr_tpu_torch.observability.registry import MetricsRegistry, set_registry
+    from ddr_tpu_torch.routing.mc import Bounds, route
+    from ddr_tpu_torch.routing.model import denormalize_spatial_parameters, prepare_batch
+    from ddr_tpu_torch.routing.reverse_kernel import reverse_scan_tm
+    from ddr_tpu_torch.routing.wave_kernel import wave_scan_tm
+    from ddr_tpu_torch.scripts import profile as profile_script
+    from ddr_tpu_torch.scripts.common import build_kan, parse_cli
+    from ddr_tpu_torch.scripts.serve import build_service
+    from ddr_tpu_torch.serving.client import HttpForecastClient
+    from ddr_tpu_torch.serving.config import ServeConfig
+    from ddr_tpu_torch.serving.http_api import serve_http
+    from ddr_tpu_torch.training import latest_checkpoint
+
+    here = Path(__file__).resolve().parent
+    root = here / "build" / "ddr_obs"
+    shutil.rmtree(root, ignore_errors=True)
+    regional = latest_checkpoint(here / "build" / "ddr_train" / "regional" / "saved_models")
+    if regional is None:
+        fail("ddr obs: phase 18 left no checkpoint")
+    full_size = (f"synthetic_segments={N_SEGMENTS}", f"synthetic_depth={DEPTH}")
+    launches = {"wave_scan": 0, "reverse_scan": 0}
+
+    # ---- 1. the instrumented ddr train in a subprocess, its exporter scraped live ----
+    train_logs = root / "train_logs"
+    env = dict(os.environ, DDR_METRICS_DIR=str(train_logs), DDR_PROM_PORT="0", DDR_HEARTBEAT_EVERY="1",
+               PYTHONPATH=str(here) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    counting = ("import json, sys; from ddr_tpu_torch import cli; "
+                "from ddr_tpu_torch.routing.wave_kernel import wave_scan_tm; "
+                "from ddr_tpu_torch.routing.reverse_kernel import reverse_scan_tm; "
+                "code = cli.main(sys.argv[1:]); "
+                "print('LAUNCHES ' + json.dumps({'wave_scan': wave_scan_tm.launches, "
+                "'reverse_scan': reverse_scan_tm.launches})); sys.exit(code)")
+    argv = [sys.executable, "-c", counting, "train", DDR_TRAIN_CONFIG, *full_size,
+            f"params.save_path={root / 'train'}"]
+    log_path = train_logs / "run_log.train.jsonl"
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=here, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    out_lines: list[str] = []
+    reader = threading.Thread(target=lambda: out_lines.extend(proc.stdout), daemon=True)
+    reader.start()
+    port, live = None, None
+    try:
+        while proc.poll() is None:
+            if port is None and log_path.exists():
+                for line in log_path.read_text().splitlines():
+                    if '"run_start"' in line:
+                        port = json.loads(line).get("prom_port")
+            if port is not None:
+                try:
+                    m = scrape(f"http://127.0.0.1:{port}")
+                except OSError:
+                    m = None
+                if m and metric_sum(m, "ddr_steps_total") >= 1 and metric_sum(m, "ddr_heartbeats_total") >= 1:
+                    live = m
+                    break
+            time.sleep(0.02)
+        code = proc.wait(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    reader.join(timeout=60)
+    wall = time.perf_counter() - t0
+    if code != 0:
+        fail(f"ddr obs: ddr train exited {code}:\n" + "".join(out_lines[-40:]))
+    if live is None:
+        fail(f"ddr obs: the train run's exporter (prom_port {port}) showed no step and heartbeat while it ran")
+    counted = [json.loads(line.split(" ", 1)[1]) for line in out_lines if line.startswith("LAUNCHES ")]
+    if not counted:
+        fail("ddr obs: the train subprocess printed no launch counts")
+    train_launches = counted[-1]
+    events = [json.loads(line) for line in log_path.read_text().splitlines() if line.strip()]
+    kinds = [e["event"] for e in events]
+    steps, beats = kinds.count("step"), kinds.count("heartbeat")
+    skills, drifts = kinds.count("skill"), kinds.count("drift")
+    end = events[-1]
+    epochs = len({e["epoch"] for e in events if e["event"] == "step"})
+    print(f"ddr obs train: wall {wall:.2f} s (subprocess), exporter on port {port} scraped live: "
+          f"ddr_steps_total {metric_sum(live, 'ddr_steps_total'):g}, ddr_heartbeats_total "
+          f"{metric_sum(live, 'ddr_heartbeats_total'):g}, ddr_prefetch_depth "
+          f"{metric_sum(live, 'ddr_prefetch_depth'):g}; log: {steps} steps, "
+          f"{beats} heartbeats, {skills} skill, {drifts} drift over {epochs} epochs; launches {train_launches}, "
+          f"on {smi}")
+    if (steps != DDR_TRAIN_STEPS or beats != steps or skills != steps or drifts != epochs
+            or train_launches != {"wave_scan": steps + 1, "reverse_scan": steps}):
+        fail(f"ddr obs train: {steps} steps, {beats} heartbeats, {skills} skill, {drifts} drift, "
+             f"launches {train_launches}")
+    missing = {"drift", "skill", "pipeline", "sentinel"} - set(end.get("summary", {}))
+    if end["event"] != "run_end" or end["status"] != "ok" or missing:
+        fail(f"ddr obs train: run_end {end['event']} {end.get('status')}, rollups missing {missing}")
+    print(f"ddr obs train run_end: pipeline verdict {end['summary']['pipeline'].get('verdict')}, skill "
+          f"median NSE {end['summary']['skill'].get('nse', {}).get('median')}, drift "
+          f"observations {end['summary']['drift']['observations']}, sentinel episodes "
+          f"{end['summary']['sentinel']['episodes']}")
+    for k in launches:
+        launches[k] += train_launches[k]
+
+    # ---- 2. a ddr serve: POST /v1/profile while 8 requests are answered; federation ----
+    serve_logs = root / "serve_logs"
+    os.environ["DDR_METRICS_DIR"] = str(serve_logs)
+    set_registry(MetricsRegistry(const_labels={"host": 0}))
+    cfg = parse_cli([DDR_TRAIN_CONFIG, *full_size, f"params.save_path={root / 'serve'}",
+                     f"experiment.checkpoint={regional}"], mode="testing")
+    serve_cfg = ServeConfig.from_env(max_batch=MAX_BATCH, horizon_hours=HORIZON, deadline_s=600.0)
+    wave_scan_tm.launches = 0
+    try:
+        with run_telemetry(cfg, "serve"):
+            svc = build_service(cfg, serve_cfg, watch=False)
+            server = serve_http(svc, port=0)
+            client = HttpForecastClient(server.url, timeout=900)
+            try:
+                def post(path):
+                    req = urllib.request.Request(server.url + path, data=b"{}", method="POST",
+                                                 headers={"Content-Type": "application/json"})
+                    try:
+                        with urllib.request.urlopen(req, timeout=60) as resp:
+                            return resp.status, json.loads(resp.read())
+                    except urllib.error.HTTPError as e:
+                        return e.code, json.loads(e.read())
+
+                n_windows = len(svc.networks()["default"].forcing) - HORIZON + 1
+                starts = np.linspace(0, n_windows - 1, DDR_OBS_REQUESTS).astype(int)
+                capture_launches = wave_scan_tm.launches
+                first = post(f"/v1/profile?seconds={DDR_OBS_CAPTURE_S}")
+                t_cap = time.perf_counter()
+                second = post(f"/v1/profile?seconds={DDR_OBS_CAPTURE_S}")
+                zero = post("/v1/profile?seconds=0")
+                answers = [None] * DDR_OBS_REQUESTS
+
+                def ask(i):
+                    answers[i] = client.forecast("default", t0=int(starts[i]))
+
+                threads = [threading.Thread(target=ask, args=(i,)) for i in range(DDR_OBS_REQUESTS)]
+                for th in threads:
+                    th.start()
+                for th in threads:
+                    th.join()
+                in_capture = time.perf_counter() - t_cap
+                capture_launches = wave_scan_tm.launches - capture_launches
+                print(f"ddr obs POST /v1/profile?seconds={DDR_OBS_CAPTURE_S}: {first[0]} {first[1]}; a second "
+                      f"during the capture {second[0]} ({second[1].get('error')}); seconds=0 {zero[0]}; "
+                      f"{DDR_OBS_REQUESTS} requests answered {in_capture:.2f} s into the capture with "
+                      f"{capture_launches} wave_scan launches, on {smi}")
+                if first[0] != 202 or second[0] != 409 or zero[0] != 400 or None in answers:
+                    fail(f"ddr obs profile: answers {first[0]}, {second[0]}, {zero[0]}, "
+                         f"{sum(a is not None for a in answers)} forecasts")
+                if in_capture >= DDR_OBS_CAPTURE_S:
+                    fail(f"ddr obs profile: the requests took {in_capture:.2f} s, past the "
+                         f"{DDR_OBS_CAPTURE_S} s capture")
+                trace_dir = Path(first[1]["trace_dir"])
+                deadline = time.monotonic() + 120
+                traces = []
+                while not traces and time.monotonic() < deadline:
+                    time.sleep(0.25)
+                    traces = sorted(trace_dir.glob("capture_*.json"))
+                if not traces:
+                    fail(f"ddr obs profile: no capture written under {trace_dir}")
+                names = trace_names(traces[-1])
+                kernels_seen = sorted(k for k, v in KERNEL_NAMES.items() if any(v in n for n in names))
+                ranges = sorted(n for n in names if n.startswith("ddr::"))
+                n_wave = sum(1 for e in json.loads(traces[-1].read_text())["traceEvents"]
+                             if KERNEL_NAMES["wave_scan"] in str(e.get("name")) and e.get("cat") == "kernel")
+                print(f"ddr obs capture {traces[-1].name}: {traces[-1].stat().st_size / 1e6:.2f} MB, "
+                      f"{n_wave} {KERNEL_NAMES['wave_scan']} launches (kernel slices), ddr:: ranges "
+                      f"{ranges or 'none (torch.profiler records CPU ranges on its own thread only)'}")
+                if "wave_scan" not in kernels_seen or n_wave < 1:
+                    fail(f"ddr obs profile: the capture names no {KERNEL_NAMES['wave_scan']} launch")
+                stats = client._get("/v1/stats")[1]
+                if stats.get("sentinel") is None:
+                    fail("ddr obs: /v1/stats has no sentinel slice")
+                print(f"ddr obs /v1/stats sentinel: scope {stats['sentinel']['scope']}, signals "
+                      f"{sorted(stats['sentinel']['signals'])}, episodes {stats['sentinel']['episodes']}")
+                code, fed = cli_stdout(obs_cli.main, ["federate", "--once", "--replicas", f"r0={server.url}"])
+                if code != 0 or 'replica="r0"' not in fed or "ddr_requests_total" not in fed:
+                    fail(f"ddr obs federate --once: exit {code}, {len(fed)} bytes without replica labels")
+                print(f"ddr obs federate --once: {len(fed.splitlines())} lines, "
+                      f"{fed.count('replica=' + chr(34) + 'r0' + chr(34))} series of replica r0")
+            finally:
+                server.shutdown()
+                server.server_close()
+                svc.close()
+    finally:
+        os.environ.pop("DDR_METRICS_DIR", None)
+    launches["wave_scan"] += wave_scan_tm.launches
+
+    # ---- 3. ddr metrics and ddr obs bottleneck on both logs ----
+    for label, path, cmd in (("train", log_path, "train"), ("serve", serve_logs / "run_log.serve.jsonl", "serve")):
+        evs = [json.loads(line) for line in path.read_text().splitlines() if line.strip()]
+        n_steps = sum(e["event"] == "step" for e in evs)
+        code, text = cli_stdout(cli.main, ["metrics", "summarize", str(path)])
+        m = re.search(r"^steps\s*:\s*(\d+)", text, re.M)
+        if code != 0 or (n_steps and (m is None or int(m[1]) != n_steps)):
+            fail(f"ddr metrics summarize {label}: exit {code}, steps {m and m[1]} against {n_steps}")
+        code_t, tail = cli_stdout(cli.main, ["metrics", "tail", str(path), "-n", "5"])
+        out = root / f"{label}.trace.json"
+        code_p, _ = cli_stdout(cli.main, ["metrics", "trace", str(path), "--out", str(out)])
+        slices = [e for e in json.loads(out.read_text())["traceEvents"] if e.get("ph") == "X"]
+        step_slices = [e for e in slices if str(e.get("name")).startswith("step")]
+        if code_t != 0 or len(tail.strip().splitlines()) != 5 or code_p != 0 or len(step_slices) < n_steps:
+            fail(f"ddr metrics {label}: tail exit {code_t} ({len(tail.splitlines())} lines), trace exit "
+                 f"{code_p} ({len(step_slices)} step slices for {n_steps} steps)")
+        print(f"ddr metrics {label}: summarize {len(text.splitlines())} lines ({n_steps} steps), tail -n 5 "
+              f"ok, trace {len(slices)} slices ({len(step_slices)} steps)")
+    code, verdict = cli_stdout(cli.main, ["obs", "bottleneck", str(log_path)])
+    if code != 0 or "verdict" not in verdict:
+        fail(f"ddr obs bottleneck: exit {code}: {verdict}")
+    print("ddr obs bottleneck (train): " + " | ".join(line.strip() for line in verdict.splitlines() if line.strip()))
+
+    # ---- 4. ddr profile at the regional shape, then its forward route against the plain scan ----
+    prof_dir = root / "profile"
+    wave_scan_tm.launches = reverse_scan_tm.launches = 0
+    t0 = time.perf_counter()
+    code, md = cli_stdout(cli.main, ["profile", "--synthetic", "--n", str(N_SEGMENTS), "--t-hours", str(HORIZON),
+                                     "--depth", str(DEPTH), "--reps", str(DDR_OBS_REPS), "--trace",
+                                     "--out", str(prof_dir)])
+    prof_s = time.perf_counter() - t0
+    prof_launches = {"wave_scan": wave_scan_tm.launches, "reverse_scan": reverse_scan_tm.launches}
+    if code != 0:
+        fail(f"ddr profile: exit {code}")
+    report = json.loads((prof_dir / "profile_report.json").read_text())
+    runs = 1 + DDR_OBS_REPS  # the warm call and the timed iterations
+    want = {"wave_scan": 3 * runs + 1, "reverse_scan": 2 * runs}  # +1: the twin's observation route
+    print(f"ddr profile: {prof_s:.2f} s, kernel {report['kernel']}, device {report['device']}, n {report['n']}, "
+          f"T {report['t_hours']} h, depth {report['depth']}, launches {prof_launches} (want {want}), on {smi}")
+    if report["kernel"] != "cuda" or prof_launches != want:
+        fail(f"ddr profile: kernel {report['kernel']}, launches {prof_launches}, want {want}")
+    for name in profile_script.PROGRAMS:
+        rec = report["programs"][name]
+        peak = rec["card"]["peak_bytes"]
+        print(f"ddr profile {name}: {rec['seconds_per_iter'] * 1e3:.3f} ms/iter, "
+              f"{rec['reach_timesteps_per_sec']:,.0f} reach-timesteps/s, first call "
+              f"{rec['card']['compile_seconds']:.3f} s, peak {peak / 1e9:.3f} GB, on {smi}")
+        print(f"ddr profile {name} trace: "
+              f"{trace_breakdown(prof_dir / 'profile_trace' / name / 'trace.json', DDR_OBS_REPS)}, on {smi}")
+        names = trace_names(prof_dir / "profile_trace" / name / "trace.json")
+        need = ["wave_scan"] + (["reverse_scan"] if name != "forward-route" else [])
+        absent = [k for k in need if not any(KERNEL_NAMES[k] in n for n in names)]
+        if absent or not np.isfinite(rec["seconds_per_iter"]) or peak is None:
+            fail(f"ddr profile {name}: trace lacks {absent}, report {rec}")
+    launches["wave_scan"] += prof_launches["wave_scan"]
+    launches["reverse_scan"] += prof_launches["reverse_scan"]
+    cfg_p, rd, q, *_ = profile_script._synthetic_problem(N_SEGMENTS, HORIZON, DEPTH, "cuda")
+    p = cfg_p.params
+    net, ch, gauges = prepare_batch(rd, p.attribute_minimums["slope"], device=dev)
+    with torch.no_grad():
+        attrs = torch.as_tensor(rd.normalized_spatial_attributes, device=dev)
+        spatial = denormalize_spatial_parameters(build_kan(cfg_p, device=dev)(attrs), p.parameter_ranges,
+                                                 p.log_space_parameters, p.defaults, net.n)
+        q_t = torch.as_tensor(q, device=dev)
+        b = Bounds.from_config(p.attribute_minimums)
+        # per reach: the scan's output, kernel against plain version; at the
+        # gauges an index_add_ of several reaches, whose CUDA atomics may sum
+        # in any order, so held to RTOL
+        got = route(net, ch, spatial, q_t, bounds=b, device=dev).runoff
+        ref = route(net, ch, spatial, q_t, bounds=b, kernel="reference", device=dev).runoff
+        g_got = route(net, ch, spatial, q_t, gauges=gauges, bounds=b, device=dev).runoff
+        g_ref = route(net, ch, spatial, q_t, gauges=gauges, bounds=b, kernel="reference", device=dev).runoff
+    diff = float((got.double() - ref.double()).abs().max())
+    print(f"ddr profile forward route against the plain scan: max abs diff {diff!r} over {tuple(got.shape)} "
+          f"reach-hours (bit for bit {diff == 0.0})")
+    if diff != 0.0:
+        fail(f"ddr profile: the forward route differs from the plain scan by {diff}")
+    compare(g_ref.cpu(), g_got.cpu(), "ddr profile forward route at the gauges against the plain scan")
+    return launches
+
+
 def nvidia_smi() -> str:
     """The card's name and power limit, as ``nvidia-smi`` reports them."""
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
+
+
+T_START = time.perf_counter()
 
 
 def main() -> int:
@@ -4043,14 +4395,15 @@ def main() -> int:
     only_ddr_merit = sys.argv[1:] == ["--ddr-merit"]
     only_ddr_lynker = sys.argv[1:] == ["--ddr-lynker"]
     only_ddr_fleet = sys.argv[1:] == ["--ddr-fleet"]
+    only_ddr_obs = sys.argv[1:] == ["--ddr-obs"]
     only = (only_ddr_train or only_ddr_cli or only_ddr_serve or only_ddr_loadtest or only_ddr_merit
-            or only_ddr_lynker or only_ddr_fleet)
+            or only_ddr_lynker or only_ddr_fleet or only_ddr_obs)
     old_log = None
     if len(sys.argv) == 3 and sys.argv[1] == "--old-kernels":
         old_log = sys.argv[2]
     elif sys.argv[1:] and not only:
         print("usage: chip_smoke.py [--time-fp32 | --ddr-train | --ddr-cli | --ddr-serve | --ddr-loadtest | "
-              "--ddr-merit | --ddr-lynker | --ddr-fleet | --old-kernels LOG]", file=sys.stderr)
+              "--ddr-merit | --ddr-lynker | --ddr-fleet | --ddr-obs | --old-kernels LOG]", file=sys.stderr)
         return 2
     import numpy as np
 
@@ -4105,6 +4458,11 @@ def main() -> int:
             t0 = time.perf_counter()
             ddr_fleet(smi, dev)
             print(f"ddr fleet phase: {time.perf_counter() - t0:.1f}s")
+        if only_ddr_obs:
+            t0 = time.perf_counter()
+            ddr_obs(smi, dev)
+            print(f"ddr obs phase: {time.perf_counter() - t0:.1f}s on {smi}")
+        print(f"whole script: {time.perf_counter() - T_START:.1f}s on {smi}")
         print(smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
@@ -4462,6 +4820,12 @@ def main() -> int:
     ddr_fleet_launches = ddr_fleet(smi, dev)
     print(f"ddr fleet phase: {time.perf_counter() - t0:.1f}s")
 
+    # ---- 25. the observability plane: heartbeats, the exporter, ddr metrics, obs, profile ----
+    t0 = time.perf_counter()
+    ddr_obs_launches = ddr_obs(smi, dev)
+    print(f"ddr obs phase: {time.perf_counter() - t0:.1f}s on {smi}")
+    print(f"whole script: {time.perf_counter() - T_START:.1f}s on {smi}")
+
     def band_entry(name, source, replaces, launches, err, t):
         bytes_ms, flops_ms = t["bound"]
         return {
@@ -4480,7 +4844,8 @@ def main() -> int:
         "replaces": "ddr_tpu/routing/pallas_kernel.py:193",
         "launches": (launches + train_launches["wave_scan"] + ddr_train_launches["wave_scan"]
                      + ddr_eval_launches["wave_scan"] + ddr_serve_launches + ddr_loadtest_launches
-                     + ddr_merit_launches["wave_scan"] + ddr_lynker_launches["wave_scan"] + ddr_fleet_launches),
+                     + ddr_merit_launches["wave_scan"] + ddr_lynker_launches["wave_scan"] + ddr_fleet_launches
+                     + ddr_obs_launches["wave_scan"]),
         "ddr_train_launches": ddr_train_launches["wave_scan"],
         "ddr_eval_launches": ddr_eval_launches["wave_scan"],
         "ddr_serve_launches": ddr_serve_launches,
@@ -4488,6 +4853,7 @@ def main() -> int:
         "ddr_merit_launches": ddr_merit_launches["wave_scan"],
         "ddr_lynker_launches": ddr_lynker_launches["wave_scan"],
         "ddr_fleet_launches": ddr_fleet_launches,
+        "ddr_obs_launches": ddr_obs_launches["wave_scan"],
         "ddr_eval_q_init_launches": ddr_eval_launches["q_init"],
         "max_abs_err": max_abs,
         "ms": kernel_ms,
@@ -4502,10 +4868,12 @@ def main() -> int:
         "source": "ddr_tpu_torch/csrc/reverse_scan.cu",
         "replaces": "ddr_tpu/routing/pallas_kernel.py:348",
         "launches": (train_launches["reverse_scan"] + ddr_train_launches["reverse_scan"]
-                     + ddr_merit_launches["reverse_scan"] + ddr_lynker_launches["reverse_scan"]),
+                     + ddr_merit_launches["reverse_scan"] + ddr_lynker_launches["reverse_scan"]
+                     + ddr_obs_launches["reverse_scan"]),
         "ddr_train_launches": ddr_train_launches["reverse_scan"],
         "ddr_merit_launches": ddr_merit_launches["reverse_scan"],
         "ddr_lynker_launches": ddr_lynker_launches["reverse_scan"],
+        "ddr_obs_launches": ddr_obs_launches["reverse_scan"],
         "max_abs_err": reverse_err,
         "ms": reverse_ms,
         "plain_ms": reverse_plain_ms,

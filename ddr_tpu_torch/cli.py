@@ -1,12 +1,13 @@
 """The port's command-line dispatcher: ``python -m ddr_tpu_torch.cli
-{train,test,route,train-and-test,benchmark,summed-q-prime,serve,fleet,loadtest,verify}
-[config.yaml] [a.b=c ...]``.
+{train,test,route,train-and-test,benchmark,summed-q-prime,serve,fleet,loadtest,verify,
+metrics,obs,profile} [config.yaml] [a.b=c ...]``.
 
 The subcommands are the JAX package's ``ddr`` CLI's. ``train``, ``test``,
 ``route``, ``train-and-test``, ``benchmark``, ``summed-q-prime``, ``serve``,
-``fleet``, ``loadtest`` and ``verify`` are ported; each runs on the card unless the
-config or an override says ``device=cpu``. Every other subcommand exits with a message
-naming the ROADMAP item that ports it.
+``fleet``, ``loadtest``, ``verify`` and ``profile`` are ported; each runs on the
+card unless the config or an override says ``device=cpu``. ``metrics`` and ``obs``
+read run logs and scrape ``/metrics`` endpoints (standard library only). Every
+other subcommand exits with a message naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -27,13 +28,13 @@ _COMMANDS = {
     "fleet": "ddr_tpu_torch.scripts.fleet",
     "loadtest": "ddr_tpu_torch.scripts.loadtest",
     "verify": "ddr_tpu_torch.scripts.verify",
+    "metrics": "ddr_tpu_torch.observability.metrics_cli",
+    "obs": "ddr_tpu_torch.observability.obs_cli",
+    "profile": "ddr_tpu_torch.scripts.profile",
 }
 #: Subcommands of the JAX package's CLI that are not ported yet, by ROADMAP item.
 _NOT_PORTED = {
     "chaos": "A.6",
-    "metrics": "A.10",
-    "obs": "A.10",
-    "profile": "A.10",
     "geometry-predictor": "A.11",
     "tune": "A.13",
     "sweep": "A.12",

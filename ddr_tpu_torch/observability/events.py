@@ -18,10 +18,12 @@ command (``get_recorder``), writes ``run_start`` and, on every exit path,
 
 The port is one process until ROADMAP A.13, so :func:`host_layout` is
 ``(0, 1)``. Device memory comes from ``torch.cuda`` on the card; on the CPU
-the entries name the platform only. The standalone Prometheus exporter
-(``DDR_PROM_PORT``) is ROADMAP A.10's second part; an active recorder tees
-every event into the live metrics registry
-(:func:`~ddr_tpu_torch.observability.prometheus.event_tee`).
+the entries name the platform only. An active recorder tees every event into
+the live metrics registry
+(:func:`~ddr_tpu_torch.observability.prometheus.event_tee`), and
+``DDR_PROM_PORT`` makes :func:`run_telemetry` serve that registry on a
+standalone ``/metrics`` exporter, whose bound port rides ``run_start`` as
+``prom_port``.
 """
 
 from __future__ import annotations
@@ -384,7 +386,16 @@ def run_telemetry(
     ``cfg.params.save_path``; with none, the body runs with a None recorder.
     ``run_end.status`` is ``ok``, ``interrupted`` (KeyboardInterrupt) or
     ``error:<Type>``, and the recorder is always deactivated and closed.
+
+    ``DDR_PROM_PORT`` starts the standalone ``/metrics`` exporter, with or
+    without a run log; its bound port (``0`` binds an ephemeral one) rides
+    ``run_start`` as ``prom_port``, so a harness finds it in the log.
     """
+    from ddr_tpu_torch.observability.prometheus import maybe_start_exporter_from_env
+
+    exporter = maybe_start_exporter_from_env()
+    if exporter is not None:
+        log.info(f"prometheus exporter serving /metrics at {exporter.url}")
     base = base_dir or metrics_dir_from_env()
     if base is None and cfg is not None:
         base = getattr(getattr(cfg, "params", None), "save_path", None)
@@ -395,6 +406,8 @@ def run_telemetry(
     activate(rec)
     info = _cfg_summary(cfg)
     info.update(run_info)
+    if exporter is not None:
+        info.setdefault("prom_port", int(exporter.server_address[1]))
     rec.emit("run_start", cmd=cmd, schema_version=SCHEMA_VERSION, n_hosts=rec.n_hosts, **info)
     status = "ok"
     try:

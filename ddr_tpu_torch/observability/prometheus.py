@@ -1,6 +1,7 @@
-"""Prometheus text exposition and the event -> metric mapping of the serve path.
+"""Prometheus text exposition, the event -> metric mapping, and the
+standalone ``/metrics`` exporter.
 
-The port's copy of the serving half of ``ddr_tpu/observability/prometheus.py``:
+The port's copy of ``ddr_tpu/observability/prometheus.py``:
 
 - :func:`render_text` — a :class:`MetricsRegistry` in Prometheus text
   exposition format 0.0.4 (``# HELP`` / ``# TYPE`` / one line a series;
@@ -8,28 +9,50 @@ The port's copy of the serving half of ``ddr_tpu/observability/prometheus.py``:
   byte for byte the JAX package's text for the same registry operations;
 - :func:`declare_serve_metrics` — the service's and the watchdog's instrument
   set, declared up front so ``GET /metrics`` shows every name from the first
-  scrape. It declares the instruments the port feeds, JAX's set less the
-  compile counter (``ddr_compiles_total``), which comes with the
-  observability plane (ROADMAP A.10). The service sets the SLO gauges
-  (``ddr_slo_attainment``, ``ddr_slo_burn_rate{window}``) from its tracker;
+  scrape: JAX's set less the compile counter (``ddr_compiles_total``), since
+  the port has no XLA compile cache and emits no ``compile`` events. The
+  service sets the SLO gauges (``ddr_slo_attainment``,
+  ``ddr_slo_burn_rate{window}``) from its tracker;
 - :func:`event_tee` — one decision record (``{"event": ..., **payload}``) ->
-  instrument updates, for the events the port emits: ``serve_request``,
-  ``serve_batch``, ``serve_shed``, ``slo``, ``health`` and the sentinel's
-  ``anomaly``.
+  instrument updates, for the events the port emits: the train loop's
+  ``step``, ``eval`` and ``heartbeat`` (with ``ddr_prefetch_depth``), and
+  ``serve_request``, ``serve_batch``, ``serve_shed``, ``slo``, ``health``
+  and the sentinel's ``anomaly``;
+- :func:`start_exporter` / :func:`maybe_start_exporter_from_env` — ``GET
+  /metrics`` on a daemon thread for commands without an HTTP front of their
+  own (``DDR_PROM_PORT``; ``0`` binds an ephemeral port, which
+  :func:`~ddr_tpu_torch.observability.events.run_telemetry` stamps as
+  ``prom_port`` on ``run_start``).
 
 The active run recorder (:mod:`~ddr_tpu_torch.observability.events`) tees
-every event it writes through :func:`event_tee`. The standalone exporter
-(``DDR_PROM_PORT``) and the training events' cases wait for ROADMAP A.10's
-second part; ``ddr serve`` answers the same text on its own ``/metrics``.
+every event it writes through :func:`event_tee`; ``ddr serve`` answers the
+same text on its own ``/metrics``.
 """
 
 from __future__ import annotations
 
+import logging
 import math
+import os
+import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Any
 
 from ddr_tpu_torch.observability.registry import Histogram, MetricsRegistry, get_registry
 
-__all__ = ["CONTENT_TYPE", "OCCUPANCY_BUCKETS", "declare_serve_metrics", "event_tee", "render_text"]
+log = logging.getLogger(__name__)
+
+__all__ = [
+    "CONTENT_TYPE",
+    "OCCUPANCY_BUCKETS",
+    "MetricsHTTPServer",
+    "declare_serve_metrics",
+    "event_tee",
+    "maybe_start_exporter_from_env",
+    "render_text",
+    "start_exporter",
+    "stop_exporter",
+]
 
 #: The exposition-format content type scrapers expect.
 CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
@@ -156,8 +179,11 @@ def _get(payload: dict, key: str, default: float = 0.0) -> float:
 
 def event_tee(record: dict, registry: MetricsRegistry | None = None) -> None:
     """Update the registry from one decision record. Every event bumps
-    ``ddr_events_total``; the serve, health and ``anomaly`` events update
-    their instruments; any other event updates nothing else."""
+    ``ddr_events_total``; the ``step``, ``eval``, ``heartbeat``, serve,
+    health and ``anomaly`` events update their instruments; any other event
+    updates nothing else (``skill`` and ``drift`` trackers set their own
+    instruments when they observe, so mapping their events would count
+    twice)."""
     r = registry or get_registry()
     event = str(record.get("event", "?"))
     r.counter("ddr_events_total", "Telemetry events by type", labels=("event",)).inc(event=event)
@@ -165,7 +191,38 @@ def event_tee(record: dict, registry: MetricsRegistry | None = None) -> None:
         r.get("ddr_requests_total") is None  # declare once, not per event
     ):
         declare_serve_metrics(r)
-    if event == "serve_request":
+    if event == "step":
+        engine = str(record.get("engine", "?"))
+        r.counter("ddr_steps_total", "Training steps", labels=("engine",)).inc(engine=engine)
+        if record.get("seconds") is not None:
+            r.histogram("ddr_step_seconds", "Synchronized training-step duration",
+                        labels=("engine",)).observe(_get(record, "seconds"), engine=engine)
+        if record.get("loss") is not None:
+            r.gauge("ddr_loss", "Loss of the most recent training step").set(_get(record, "loss", math.nan))
+        phases = record.get("phases")
+        if isinstance(phases, dict):
+            # the step's wall-clock split (observability.phases), live
+            hist = r.histogram(
+                "ddr_phase_seconds",
+                "Per-step wall time by loop phase (data_load/host_prep/device_step/eval/checkpoint)",
+                labels=("phase",),
+            )
+            for phase, seconds in phases.items():
+                try:
+                    hist.observe(float(seconds), phase=str(phase))
+                except (TypeError, ValueError):
+                    continue
+    elif event == "eval":
+        r.counter("ddr_evals_total", "Inference batches").inc()
+    elif event == "heartbeat":
+        r.counter("ddr_heartbeats_total", "Liveness heartbeats").inc()
+        if record.get("prefetch_depth") is not None:
+            # the prefetch pool's prepared batches at the beat: 0 sustained
+            # means the loop waits on its data
+            r.gauge("ddr_prefetch_depth",
+                    "Prepared batches waiting in the training prefetch pool at the last heartbeat",
+                    ).set(_get(record, "prefetch_depth"))
+    elif event == "serve_request":
         status = str(record.get("status", "?"))
         network = str(record.get("network", "?"))
         model = str(record.get("model", "?"))
@@ -212,3 +269,96 @@ def event_tee(record: dict, registry: MetricsRegistry | None = None) -> None:
         r.gauge("ddr_anomaly_active",
                 "Whether a performance anomaly is currently firing per signal (1 firing, 0 resolved)",
                 labels=("signal",)).set(1.0 if state == "firing" else 0.0, signal=signal)
+
+
+# ---------------------------------------------------------------------------
+# The standalone exporter (DDR_PROM_PORT): GET /metrics on a daemon thread.
+# ---------------------------------------------------------------------------
+
+
+class _MetricsHandler(BaseHTTPRequestHandler):
+    server: "MetricsHTTPServer"
+
+    def log_message(self, format: str, *args: Any) -> None:  # noqa: A002
+        log.debug("prom %s", format % args)
+
+    def do_GET(self) -> None:  # noqa: N802 - http.server API
+        if self.path.split("?", 1)[0] not in ("/metrics", "/"):
+            self.send_response(404)
+            self.end_headers()
+            return
+        body = render_text(self.server.registry).encode("utf-8")
+        self.send_response(200)
+        self.send_header("Content-Type", CONTENT_TYPE)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        try:
+            self.wfile.write(body)
+        except (BrokenPipeError, ConnectionResetError):
+            pass
+
+
+class MetricsHTTPServer(ThreadingHTTPServer):
+    """``GET /metrics`` (and ``/``) over one registry."""
+
+    daemon_threads = True
+
+    def __init__(self, registry: MetricsRegistry, host: str, port: int) -> None:
+        self.registry = registry
+        super().__init__((host, port), _MetricsHandler)
+
+    @property
+    def url(self) -> str:
+        host, port = self.server_address[:2]
+        return f"http://{host}:{port}/metrics"
+
+
+_EXPORTER: MetricsHTTPServer | None = None
+_EXPORTER_LOCK = threading.Lock()
+
+
+def start_exporter(port: int, host: str = "0.0.0.0",
+                   registry: MetricsRegistry | None = None) -> MetricsHTTPServer:
+    """Serve ``GET /metrics`` on a daemon thread and return the server (its
+    ``url`` has the bound port; ``port=0`` binds an ephemeral one). One
+    exporter a process: a second call returns the running one."""
+    global _EXPORTER
+    with _EXPORTER_LOCK:
+        if _EXPORTER is not None:
+            return _EXPORTER
+        server = MetricsHTTPServer(registry or get_registry(), host, port)
+        threading.Thread(target=server.serve_forever, name="ddr-prom-exporter", daemon=True).start()
+        _EXPORTER = server
+    log.info(f"prometheus exporter listening on {server.url}")
+    return server
+
+
+def maybe_start_exporter_from_env() -> MetricsHTTPServer | None:
+    """Start the exporter when ``DDR_PROM_PORT`` holds a port (``0``: an
+    ephemeral one, read back from the server). A malformed value or a port
+    that cannot be bound logs a warning and returns None: a metrics knob
+    never takes a run down."""
+    raw = os.environ.get("DDR_PROM_PORT")
+    if not raw:
+        return None
+    try:
+        port = int(raw)
+    except ValueError:
+        log.warning(f"ignoring malformed DDR_PROM_PORT={raw!r} (want an integer)")
+        return None
+    try:
+        return start_exporter(port)
+    except OSError as e:
+        log.warning(f"could not bind prometheus exporter on port {port}: {e}")
+        return None
+
+
+def stop_exporter() -> None:
+    """Shut the process's exporter down (tests, and a caller that owns the
+    process's lifetime)."""
+    global _EXPORTER
+    with _EXPORTER_LOCK:
+        server, _EXPORTER = _EXPORTER, None
+    if server is not None:
+        server.shutdown()
+        server.server_close()

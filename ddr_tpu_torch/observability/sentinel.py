@@ -22,11 +22,14 @@ arithmetic over scalars the caller already holds; standard library only):
   host-bound, device-bound or checkpoint-bound and the rollup names the
   stage that owns the run's wall and the knob that moves it.
 
-In this slice the fleet router builds a fleet-scoped :class:`Sentinel` over
-its replicas' probed queue depths (:mod:`ddr_tpu_torch.fleet.router`). The
-service's own sweep, ``stats()["sentinel"]`` and the train loop's feed come
-with the rest of the observability plane (ROADMAP A.10). Knobs are the
-``DDR_SENTINEL_*`` family (:class:`SentinelConfig`).
+The train loop feeds a ``train``-scoped :class:`Sentinel` once a step
+(:meth:`Sentinel.observe_step`) and once a heartbeat, and puts its
+``pipeline`` verdict and ``sentinel`` status on ``run_end``; the service
+sweeps a ``serve``-scoped one (``stats()["sentinel"]``); the fleet router
+builds a fleet-scoped one over its replicas' probed queue depths
+(:mod:`ddr_tpu_torch.fleet.router`); ``ddr obs bottleneck`` replays a run
+log through :func:`attribute_steps`. Knobs are the ``DDR_SENTINEL_*``
+family (:class:`SentinelConfig`).
 """
 
 from __future__ import annotations

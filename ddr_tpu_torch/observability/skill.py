@@ -17,10 +17,12 @@ sigma_p/sigma_o``, ``beta = mean(p)/mean(o)``; percent-bias = ``100 (sum p -
 sum o)/sum o``. Gauges with fewer than ``min_samples`` pairs, constant
 observations or zero observed mass report NaN.
 
-In this slice each arm of the canary controller
-(:mod:`ddr_tpu_torch.fleet.canary`) holds a private tracker. The service's
-``skill`` slice of ``/v1/stats`` and the train loop's feed come with the
-rest of the observability plane (ROADMAP A.10).
+``ddr train`` feeds a tracker once a batch and ``ddr test`` once with its
+evaluation battery (each a ``skill`` event and a ``skill`` rollup on
+``run_end``); each arm of the canary controller
+(:mod:`ddr_tpu_torch.fleet.canary`) holds a private tracker, and a tracker
+attached to the service (``ForecastService.attach_skill_tracker``) is its
+``skill`` slice of ``/v1/stats``.
 """
 
 from __future__ import annotations

@@ -16,8 +16,8 @@ shortest catches incidents early.
   (``check_alert``), which the service turns into one ``slo`` event per
   change of state.
 
-JAX's offline ``attainment_from_events`` comes with its caller,
-``ddr metrics summarize`` (ROADMAP A.10).
+- :func:`attainment_from_events` — the same rollup offline, over a run
+  log's ``serve_request`` events (``ddr metrics summarize``'s SLO section).
 
 The service sets the ``ddr_slo_attainment`` and ``ddr_slo_burn_rate{window}``
 gauges (:mod:`~ddr_tpu_torch.observability.prometheus`) from the tracker.
@@ -29,11 +29,12 @@ import dataclasses
 import os
 import threading
 import time
-from typing import Any
+from typing import Any, Iterable
 
 __all__ = [
     "SloConfig",
     "SloTracker",
+    "attainment_from_events",
     "parse_window_label",
     "window_label",
 ]
@@ -296,3 +297,53 @@ class SloTracker:
             "windows": windows,
             "alerting": self.alerting,
         }
+
+
+def attainment_from_events(
+    events: Iterable[dict],
+    windows: Iterable[float] = (60.0, 300.0, 3600.0),
+    target: float | None = None,
+) -> dict[str, Any] | None:
+    """Offline SLO rollup over logged ``serve_request`` events (the archive
+    half of the live gauges — ``ddr metrics summarize``'s SLO section).
+
+    Goodness comes from each event's ``slo_ok`` field when the serving layer
+    stamped one, else ``status == "ok"`` (pre-tracing logs). Windows trail the
+    LAST event's wall clock. ``target`` (when known — the run_end rollup
+    carries it) adds burn rates. Returns None with no usable events.
+    """
+    samples: list[tuple[float, bool]] = []
+    for e in events:
+        if e.get("event") != "serve_request":
+            continue
+        wall = e.get("wall")
+        if wall is None:
+            continue
+        ok = e.get("slo_ok")
+        good = bool(ok) if ok is not None else (e.get("status") == "ok")
+        samples.append((float(wall), good))
+    if not samples:
+        return None
+    end = max(w for w, _ in samples)
+    total = len(samples)
+    good_n = sum(1 for _, g in samples if g)
+    have_target = target is not None and 0.0 < float(target) < 1.0
+    out: dict[str, Any] = {
+        "good": good_n,
+        "total": total,
+        "attainment": good_n / total,
+        "windows": {},
+    }
+    if have_target:
+        out["target"] = float(target)
+        out["burn_rate"] = (1.0 - out["attainment"]) / (1.0 - float(target))
+    for w in sorted({float(w) for w in windows}):
+        sel = [g for t, g in samples if t > end - w]
+        if not sel:
+            continue
+        att = sum(sel) / len(sel)
+        entry: dict[str, Any] = {"attainment": att, "total": len(sel)}
+        if have_target:
+            entry["burn_rate"] = (1.0 - att) / (1.0 - float(target))
+        out["windows"][window_label(w)] = entry
+    return out

@@ -9,8 +9,15 @@ and opens ``torch.profiler.record_function(name)``, so the region shows on a
 profiler trace beside the port's ``ddr::`` ranges. ``trace(log_dir)`` runs
 ``torch.profiler.profile`` over a block when a directory is given (or
 ``DDR_PROFILE_DIR`` is set) and writes its Chrome trace there; it is
-re-entrant, the outermost call owning the profiler. The on-demand capture
-behind ``ddr profile`` and ``POST /v1/profile`` is ROADMAP A.10's second part.
+re-entrant, the outermost call owning the profiler. ``capture_profile(log_dir,
+seconds)`` is the on-demand capture behind ``POST /v1/profile``: a window of
+live traffic, under the same one-profiler-a-process guard.
+
+``torch.profiler`` records CPU ranges (``record_function``) only on the
+thread that started it, while CUDA kernels come through CUPTI from every
+thread. A capture therefore names the kernels a server launched from its
+batcher thread; its ``ddr::`` ranges show only under :func:`trace`, which
+runs on the thread of the work it wraps.
 """
 
 from __future__ import annotations
@@ -31,13 +38,24 @@ from ddr_tpu_torch.observability.events import get_recorder
 
 log = logging.getLogger(__name__)
 
-__all__ = ["profile_dir_from_env", "span", "spanned", "trace", "trace_active"]
+__all__ = [
+    "ProfilerBusyError",
+    "capture_profile",
+    "profile_dir_from_env",
+    "span",
+    "spanned",
+    "trace",
+    "trace_active",
+]
 
 _tls = threading.local()
 
 #: ``depth`` counts the live :func:`trace` frames; ``dir`` is set while the
 #: profiler runs.
 _TRACE = {"depth": 0, "dir": None}
+# serializes capture starts (HTTP handler threads race); trace() runs on one
+# thread by construction
+_CAPTURE_LOCK = threading.Lock()
 
 
 def profile_dir_from_env() -> str | None:
@@ -67,18 +85,83 @@ def trace(log_dir: str | None = None) -> Iterator[None]:
     if not log_dir:
         yield
         return
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
     log.info(f"Writing torch profiler trace to {log_dir}")
     _TRACE["depth"], _TRACE["dir"] = 1, str(log_dir)
     try:
-        with torch.profiler.profile(activities=activities) as prof:
+        with torch.profiler.profile(activities=_activities()) as prof:
             yield
         Path(log_dir).mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(Path(log_dir) / "trace.json"))
     finally:
         _TRACE["depth"], _TRACE["dir"] = 0, None
+
+
+def _activities() -> list:
+    """CPU, and CUDA when a card is visible."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    return activities
+
+
+class ProfilerBusyError(RuntimeError):
+    """A profiler capture or :func:`trace` is already running (one process
+    runs one ``torch.profiler`` at a time)."""
+
+
+def capture_profile(log_dir: str, seconds: float) -> threading.Thread:
+    """Profile the process for ``seconds`` from now, the on-demand form of
+    :func:`trace` behind ``POST /v1/profile``: a window of live traffic,
+    written to ``<log_dir>/capture_<time>_<pid>.json`` (a Chrome trace).
+
+    One owner thread starts the profiler, sleeps and stops it, so start and
+    stop run on one thread whichever thread asked. Returns that thread (a
+    caller can ``join`` it) once the profiler runs; a failure to start is
+    raised here. Raises :class:`ProfilerBusyError` while a :func:`trace` or
+    another capture runs: nesting would hand the caller a trace that someone
+    else stops."""
+    seconds = float(seconds)
+    if seconds <= 0:
+        raise ValueError(f"capture seconds must be > 0, got {seconds}")
+    log_dir = str(log_dir)
+    with _CAPTURE_LOCK:
+        if _TRACE["depth"] > 0:
+            raise ProfilerBusyError(f"a profiler trace is already running (dir={_TRACE['dir']})")
+        _TRACE["depth"], _TRACE["dir"] = 1, log_dir
+    started = threading.Event()
+    failed: list[BaseException] = []
+    out = Path(log_dir) / f"capture_{time.strftime('%Y%m%d-%H%M%S')}_{os.getpid()}.json"
+
+    def _own() -> None:
+        try:
+            prof = torch.profiler.profile(activities=_activities())
+            prof.start()
+        except BaseException as e:  # noqa: BLE001 - handed to the caller
+            failed.append(e)
+            _TRACE["depth"], _TRACE["dir"] = 0, None
+            started.set()
+            return
+        started.set()
+        log.info(f"profiler capture started: {seconds:.3g}s -> {out}")
+        try:
+            time.sleep(seconds)
+        finally:
+            try:
+                prof.stop()
+                out.parent.mkdir(parents=True, exist_ok=True)
+                prof.export_chrome_trace(str(out))
+                log.info(f"profiler capture finished -> {out}")
+            except Exception:
+                log.exception("profiler capture stop failed")
+            finally:
+                _TRACE["depth"], _TRACE["dir"] = 0, None
+
+    owner = threading.Thread(target=_own, name="ddr-profile-capture", daemon=True)
+    owner.start()
+    started.wait()
+    if failed:
+        raise failed[0]
+    return owner
 
 
 def _stack() -> list[str]:

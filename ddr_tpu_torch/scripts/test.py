@@ -3,9 +3,10 @@ carried discharge state, the port of ``ddr_tpu/scripts/test.py``. Writes
 the daily predictions and observations to ``model_test.zarr`` with the JAX
 package's arrays and attributes, and logs the metric battery.
 
-The run writes ``run_log.test.jsonl`` (its ``eval`` events and spans) under
-``DDR_METRICS_DIR`` or the save path. The JAX command's skill telemetry
-(ROADMAP A.10) and its evaluation plots (matplotlib, which the card machine
+The run writes ``run_log.test.jsonl`` (its ``eval`` events and spans, and
+one ``skill`` event with a ``skill`` rollup on run_end from the evaluation's
+per-gauge NSE, KGE and percent-bias) under ``DDR_METRICS_DIR`` or the save
+path. The JAX command's evaluation plots (matplotlib, which the card machine
 lacks) are skipped, and the log says so.
 """
 
@@ -19,7 +20,8 @@ import numpy as np
 
 from ddr_tpu_torch.device import resolve_device
 from ddr_tpu_torch.io import zarrlite
-from ddr_tpu_torch.observability.events import run_telemetry
+from ddr_tpu_torch.observability.events import get_recorder, run_telemetry
+from ddr_tpu_torch.observability.skill import SkillConfig, SkillTracker
 from ddr_tpu_torch.scripts.common import evaluate_hourly, get_flow_fn, load_kan, parse_cli, timed
 from ddr_tpu_torch.scripts_utils import compute_daily_runoff
 from ddr_tpu_torch.validation.configs import Config
@@ -31,10 +33,7 @@ log = logging.getLogger(__name__)
 __all__ = ["main", "test", "timestamp_strings"]
 
 #: Logged once by every ``ddr test`` run.
-TEST_PARTS_ABSENT = (
-    "not in this port yet, so off in this run: the skill telemetry of the evaluation "
-    "(ROADMAP A.10) and the evaluation plots (they need matplotlib)"
-)
+TEST_PARTS_ABSENT = "not in this port, so off in this run: the evaluation plots (they need matplotlib)"
 
 
 def timestamp_strings(times: np.ndarray) -> list[str]:
@@ -86,6 +85,20 @@ def test(cfg: Config, dataset=None, params=None) -> Metrics:
     warmup = cfg.experiment.warmup
     metrics = Metrics(pred=daily_runoff[:, warmup:], target=daily_obs[:, warmup:])
     log_metrics(metrics, header="Test evaluation")
+
+    # one `skill` event and run_end rollup from the evaluation's battery, the
+    # per-gauge stream the train loop writes a batch
+    rec = get_recorder()
+    skill_cfg = SkillConfig.from_env()
+    if rec is not None and skill_cfg.enabled:
+        try:
+            tracker = SkillTracker(skill_cfg)
+            summary = tracker.observe(daily_runoff[:, warmup:].T, daily_obs[:, warmup:].T, gage_ids,
+                                      cmd="test")
+            if summary is not None:
+                rec.merge_summary("skill", tracker.status())
+        except Exception as e:  # telemetry never fails the evaluation
+            log.warning(f"skill telemetry failed: {e}")
     log.info(f"Test run complete; results in {out_path}")
     return metrics
 

@@ -18,11 +18,24 @@ synchronised loss. ``main`` records the run in ``run_log.train.jsonl``
 (``DDR_METRICS_DIR``, else the save path): one ``step`` event a step with
 its wall-clock split (:class:`~ddr_tpu_torch.observability.phases.PhaseTimer`:
 ``data_load`` and ``host_prep`` on the prefetch thread, ``device_step``,
-``eval``, ``checkpoint``) and the loop's own wall ``loop_s``; the health
-watchdog runs when a run log does, as in the JAX loop. The JAX loop's optional subsystems that the port does not
-have yet raise ``NotImplementedError`` naming their ROADMAP item when their
-variable asks for them; those that only feed its telemetry plane are named
-in one log line at the start.
+``eval``, ``checkpoint``) and the loop's own wall ``loop_s``. As in the JAX
+loop, with a run log the health watchdog checks every step, a
+:class:`~ddr_tpu_torch.observability.skill.SkillTracker` scores every batch
+(one ``skill`` event), a
+:class:`~ddr_tpu_torch.observability.drift.DriftTracker` summarises the
+denormalized KAN fields once an epoch (one ``drift`` event), and run_end
+carries their rollups; the performance sentinel
+(:class:`~ddr_tpu_torch.observability.sentinel.Sentinel`, ``DDR_SENTINEL_*``)
+watches every step's phases and each heartbeat's gap and rolls the steps
+into run_end's ``pipeline`` verdict; a ``heartbeat`` event (with the prefetch
+pool's depth) follows the first step and every ``DDR_HEARTBEAT_EVERY``-th
+(default 25, 0: none). All of it runs on host copies after the step's own
+synchronisation, outside the timed brackets. The port has no XLA compile
+cache, so it writes no ``compile`` or ``program_card`` events. The JAX
+loop's optional subsystems that the port does not have yet raise
+``NotImplementedError`` naming their ROADMAP item when their variable asks
+for them; the validation plots, which need matplotlib, are named in one log
+line at the start.
 """
 
 from __future__ import annotations
@@ -36,16 +49,24 @@ import numpy as np
 import torch
 
 from ddr_tpu_torch.device import resolve_device
-from ddr_tpu_torch.geodatazoo.loader import DataLoader, prefetch
-from ddr_tpu_torch.observability.events import get_recorder, run_telemetry
+from ddr_tpu_torch.geodatazoo.loader import DataLoader, PrefetchStats, prefetch
+from ddr_tpu_torch.observability.drift import DriftTracker
+from ddr_tpu_torch.observability.events import emit_heartbeat, get_recorder, run_telemetry
 from ddr_tpu_torch.observability.health import HealthConfig, HealthWatchdog
 from ddr_tpu_torch.observability.phases import PhaseTimer
 from ddr_tpu_torch.observability.recovery import RecoveryConfig
+from ddr_tpu_torch.observability.sentinel import Sentinel, SentinelConfig
+from ddr_tpu_torch.observability.skill import SkillConfig, SkillTracker
 from ddr_tpu_torch.observability.spans import span, trace
 from ddr_tpu_torch.observability.throughput import Throughput
 from ddr_tpu_torch.observability.trace import run_trace_seed, step_context
 from ddr_tpu_torch.routing.mc import Bounds
-from ddr_tpu_torch.routing.model import engine_label, prepare_batch, single_ring_wavefront
+from ddr_tpu_torch.routing.model import (
+    denormalize_spatial_parameters,
+    engine_label,
+    prepare_batch,
+    single_ring_wavefront,
+)
 from ddr_tpu_torch.scripts.common import (
     build_kan,
     daily_observation_targets,
@@ -76,11 +97,7 @@ log = logging.getLogger(__name__)
 __all__ = ["main", "train"]
 
 #: Logged once at the start of every run.
-TELEMETRY_ABSENT = (
-    "not in this port yet, so off in this run: drift and skill tracking, the performance "
-    "sentinel and heartbeats (they write into the telemetry plane, ROADMAP A.10), and the "
-    "validation plots (they need matplotlib)"
-)
+TELEMETRY_ABSENT = "not in this port, so off in this run: the validation plots (they need matplotlib)"
 
 
 def _refuse_unported_switches() -> None:
@@ -109,6 +126,17 @@ def _refuse_unported_switches() -> None:
         )
     if fmt != "pickle":
         log.warning(f"ignoring malformed DDR_CKPT_FORMAT={fmt!r} (want pickle)")
+
+
+def _heartbeat_every() -> int:
+    """``DDR_HEARTBEAT_EVERY`` -> steps between heartbeats (default 25, 0:
+    none; a malformed value warns and keeps the default)."""
+    raw = os.environ.get("DDR_HEARTBEAT_EVERY", "25")
+    try:
+        return int(raw or 0)
+    except ValueError:
+        log.warning(f"ignoring malformed DDR_HEARTBEAT_EVERY={raw!r} (want an integer)")
+        return 25
 
 
 def _train_dtype() -> str:
@@ -171,6 +199,20 @@ def train(cfg: Config, dataset=None, max_batches: int | None = None):
     rec = get_recorder()
     health_on = health_cfg.enabled and rec is not None
     watchdog = HealthWatchdog(health_cfg) if health_on else None
+    # skill per batch and parameter drift per epoch, on host copies the loop
+    # already holds after the step's synchronisation
+    skill_cfg = SkillConfig.from_env()
+    skill = SkillTracker(skill_cfg) if (skill_cfg.enabled and rec is not None) else None
+    drift = (DriftTracker(cfg.params.parameter_ranges, config=health_cfg, watchdog=watchdog)
+             if rec is not None else None)
+    try:
+        sentinel_cfg = SentinelConfig.from_env()
+    except ValueError as e:
+        log.warning(f"ignoring malformed DDR_SENTINEL_* config: {e}")
+        sentinel_cfg = SentinelConfig(enabled=False)
+    sentinel = Sentinel(sentinel_cfg, scope="train") if sentinel_cfg.enabled else None
+    prefetch_stats = PrefetchStats()
+    heartbeat_every = _heartbeat_every()
     step = make_batch_train_step(
         kan,
         Bounds.from_config(cfg.params.attribute_minimums),
@@ -237,7 +279,8 @@ def train(cfg: Config, dataset=None, max_batches: int | None = None):
                     )
                 return i, rd, payload, obs_daily, obs_mask, phase_s
 
-            batches = prefetch(_batches(), _prepare, ahead=cfg.experiment.prefetch_ahead)
+            batches = prefetch(_batches(), _prepare, ahead=cfg.experiment.prefetch_ahead,
+                               stats=prefetch_stats)
             # each iteration's whole wall lands on its step event as loop_s
             loop_t0 = time.perf_counter()
             for i, rd, payload, obs_daily, obs_mask, phase_s in batches:
@@ -255,6 +298,17 @@ def train(cfg: Config, dataset=None, max_batches: int | None = None):
                 daily = out[1].cpu().numpy()  # (D-2, G)
                 if watchdog is not None:
                     watchdog.observe(out[2], epoch=epoch, batch=i)
+                if skill is not None:
+                    # per-gauge NSE/KGE/percent-bias over the post-warmup days
+                    # the loss scores: one `skill` event a batch
+                    try:
+                        w0 = cfg.experiment.warmup
+                        if w0 < daily.shape[0]:
+                            skill.observe(np.where(np.isfinite(daily), daily, np.nan)[w0:],
+                                          np.where(obs_mask, obs_daily, np.nan)[w0:],
+                                          rd.observations.gage_ids, epoch=epoch, batch=i)
+                    except Exception:
+                        log.exception("skill tracking failed")  # never the loop
                 log.info(
                     f"epoch {epoch} mini-batch {i}: loss={loss:.9g} ({throughput.last_rate:,.0f} "
                     f"reach-timesteps/s, {throughput.last_seconds * 1e3:.3f} ms, "
@@ -292,9 +346,37 @@ def train(cfg: Config, dataset=None, max_batches: int | None = None):
                             loop_s=loop_s,
                             **(step_ctx.ids() if step_ctx is not None else {}),
                         )
+                    if sentinel is not None:
+                        try:
+                            sentinel.observe_step(n_done + 1, phases=phase_s, loop_s=loop_s,
+                                                  seconds=throughput.last_seconds, rate=throughput.last_rate)
+                        except Exception:
+                            log.exception("sentinel observe failed")  # never the loop
                 n_done += 1
+                # liveness: the first executed step beats, then every heartbeat_every-th
+                if heartbeat_every and (n_done == 1 or n_done % heartbeat_every == 0):
+                    depth = prefetch_stats.depth()
+                    emit_heartbeat(rec, epoch=epoch, batch=i, step=n_done,
+                                   **({"prefetch_depth": depth} if depth is not None else {}))
+                    if sentinel is not None:
+                        try:
+                            sentinel.observe_heartbeat(step=n_done)
+                        except Exception:
+                            log.exception("sentinel heartbeat observe failed")
                 if max_batches is not None and n_done >= max_batches:
                     return kan, optimizer
+            if drift is not None and n_done > 0:
+                # the epoch's parameter fields: one KAN forward on the last
+                # batch's attributes, denormalized to physical space
+                try:
+                    with torch.no_grad():
+                        fields = denormalize_spatial_parameters(
+                            kan(attrs), cfg.params.parameter_ranges, cfg.params.log_space_parameters,
+                            cfg.params.defaults, int(attrs.shape[0]))
+                    drift.observe({k: np.atleast_1d(v.cpu().numpy()) for k, v in fields.items()},
+                                  epoch=epoch)
+                except Exception:
+                    log.exception("parameter drift tracking failed")  # never the loop
         return kan, optimizer
     finally:
         if ckpt_writer is not None:
@@ -312,6 +394,15 @@ def train(cfg: Config, dataset=None, max_batches: int | None = None):
             rec.merge_summary("phases", phase_timer.summary())
             if watchdog is not None:
                 rec.merge_summary("health", watchdog.status())
+            if skill is not None:
+                rec.merge_summary("skill", skill.status())
+            if drift is not None:
+                rec.merge_summary("drift", drift.status())
+            if sentinel is not None:
+                # the run's pipeline verdict and the detectors, which `ddr
+                # metrics summarize` and `ddr obs bottleneck` read
+                rec.merge_summary("pipeline", sentinel.pipeline_summary())
+                rec.merge_summary("sentinel", sentinel.status())
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -5,8 +5,6 @@ The port's copy of ``ddr_tpu/serving/config.py``. Every knob has a
 ``DDR_SERVE_*`` environment variable, so a deployment tunes backpressure
 without touching the run config. Construction order: dataclass defaults <
 environment < explicit keyword overrides (:meth:`ServeConfig.from_env`).
-JAX's ``profile_max_seconds`` (the ``POST /v1/profile`` capture ceiling)
-comes with that endpoint (ROADMAP A.10).
 """
 
 from __future__ import annotations
@@ -90,6 +88,10 @@ class ServeConfig:
     #: Forecast horizon in hourly steps for networks registered without one
     #: (DDR_SERVE_HORIZON_HOURS).
     horizon_hours: int = 72
+    #: Ceiling on a ``POST /v1/profile?seconds=N`` capture, seconds
+    #: (DDR_SERVE_PROFILE_MAX_SECONDS). A profiler holds what it records in
+    #: memory until it stops, so the API answers 400 past this.
+    profile_max_seconds: float = 60.0
 
     def __post_init__(self) -> None:
         if self.backpressure not in BACKPRESSURE_POLICIES:
@@ -102,6 +104,8 @@ class ServeConfig:
             raise ValueError(f"queue_cap must be >= 1, got {self.queue_cap}")
         if self.horizon_hours < 1:
             raise ValueError(f"horizon_hours must be >= 1, got {self.horizon_hours}")
+        if self.profile_max_seconds <= 0:
+            raise ValueError(f"profile_max_seconds must be > 0, got {self.profile_max_seconds}")
 
     @classmethod
     def from_env(cls, environ: dict | None = None, **overrides) -> "ServeConfig":
@@ -129,6 +133,7 @@ class ServeConfig:
             ("host", "HOST", str, 1.0),
             ("port", "PORT", int, 1.0),
             ("horizon_hours", "HORIZON_HOURS", int, 1.0),
+            ("profile_max_seconds", "PROFILE_MAX_SECONDS", float, 1.0),
         ):
             v = _get(var, cast, scale)
             if v is not None:

@@ -31,19 +31,25 @@ JAX package's:
   str|int, "times": [int hours], "values": [num]}, ...]}``: joins gauge
   observations to the forecasts the attached verification ledger holds and
   answers the join's counts (``matched``, ``unmatched``, ``duplicates``);
-  404 when no ledger is attached (``ForecastService.attach_verifier``).
+  404 when no ledger is attached (``ForecastService.attach_verifier``);
+- ``POST /v1/profile?seconds=N`` — a ``torch.profiler`` capture of live
+  traffic for N seconds (default 2, at most ``DDR_SERVE_PROFILE_MAX_SECONDS``):
+  202 ``{"status": "capturing", "seconds", "trace_dir"}`` at once, the Chrome
+  trace written under ``DDR_METRICS_DIR`` (else the active run log's
+  directory, else a fresh temporary directory) when the window ends; 400 for
+  a bad or over-cap N, 409 while a capture or a ``trace()`` runs, 500 when
+  the profiler fails to start
+  (:func:`~ddr_tpu_torch.observability.spans.capture_profile`).
 
 Error mapping: validation -> 400, unknown name -> 404, queue-full rejection ->
 429 (with ``Retry-After``), shed or deadline -> 503, not warm -> 503.
-
-Refused by name (501) until the profiler is ported: ``POST /v1/profile``
-(ROADMAP A.10).
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import tempfile
 import threading
 from concurrent.futures import TimeoutError as FutureTimeoutError
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -52,8 +58,10 @@ from urllib.parse import parse_qs, urlsplit
 
 import numpy as np
 
+from ddr_tpu_torch.observability.events import get_recorder, metrics_dir_from_env
 from ddr_tpu_torch.observability.federate import federate_text, replicas_from_env
 from ddr_tpu_torch.observability.prometheus import CONTENT_TYPE, render_text
+from ddr_tpu_torch.observability.spans import ProfilerBusyError, capture_profile
 from ddr_tpu_torch.observability.trace import adopt_trace_id, trace_enabled
 from ddr_tpu_torch.serving.batcher import QueueFullError, RequestShedError
 from ddr_tpu_torch.serving.service import ForecastService, make_request_id
@@ -65,11 +73,6 @@ __all__ = ["MAX_BODY_BYTES", "ForecastHTTPServer", "serve_http"]
 #: Hard ceiling on a request body (a full-width 72 h x 65,536-reach q_prime
 #: is ~47 MB of JSON; bulk forcings belong in a registered network).
 MAX_BODY_BYTES = 64 * 1024 * 1024
-
-#: What each refused request needs, by ROADMAP item.
-NOT_PORTED = {
-    "profile": "POST /v1/profile is not ported yet (ROADMAP A.10: torch.profiler capture)",
-}
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -154,7 +157,7 @@ class _Handler(BaseHTTPRequestHandler):
     def do_POST(self) -> None:  # noqa: N802 - http.server API
         path = urlsplit(self.path).path
         if path == "/v1/profile":
-            self._send(501, {"error": NOT_PORTED["profile"]})
+            self._post_profile()
             return
         if path == "/v1/observe":
             self._post_observe()
@@ -293,6 +296,36 @@ class _Handler(BaseHTTPRequestHandler):
             self._send(500, {"error": f"{type(e).__name__}: {e}"})
             return
         self._send(200, stats)
+
+
+    def _post_profile(self) -> None:
+        """``POST /v1/profile?seconds=N``: answer 202 at once and capture N
+        seconds of live traffic while the service keeps serving (see the
+        module docstring)."""
+        svc = self.server.service
+        raw = parse_qs(urlsplit(self.path).query).get("seconds", ["2"])[0]
+        try:
+            seconds = float(raw)
+        except ValueError:
+            self._send(400, {"error": f"seconds={raw!r} is not a number"})
+            return
+        cap = svc.serve_cfg.profile_max_seconds
+        if not 0 < seconds <= cap:
+            self._send(400, {"error": f"seconds must be in (0, {cap}] "
+                                      f"(DDR_SERVE_PROFILE_MAX_SECONDS), got {seconds}"})
+            return
+        rec = get_recorder()
+        trace_dir = metrics_dir_from_env() or (
+            str(rec.path.parent) if rec is not None else tempfile.mkdtemp(prefix="ddr-profile-"))
+        try:
+            capture_profile(trace_dir, seconds)
+        except ProfilerBusyError as e:
+            self._send(409, {"error": str(e)})
+            return
+        except Exception as e:  # the profiler failed to start: a server-side fault
+            self._send(500, {"error": f"{type(e).__name__}: {e}"})
+            return
+        self._send(202, {"status": "capturing", "seconds": seconds, "trace_dir": trace_dir})
 
 
 class ForecastHTTPServer(ThreadingHTTPServer):

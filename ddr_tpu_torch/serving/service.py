@@ -46,10 +46,16 @@ watchdog thresholds them after the batch's copy to the host. Serving routes
 in fp32: the JAX service has no dtype axis.
 
 ``stats()["fleet"]`` names the replica's place in a group
-(:func:`~ddr_tpu_torch.fleet.config.fleet_identity`). Not in this slice: the
-service's performance sentinel and skill tracker, program cards and compile
-accounting (ROADMAP A.10), mesh mode (A.13) and fault injection (A.6).
-``stats()`` carries their keys as None.
+(:func:`~ddr_tpu_torch.fleet.config.fleet_identity`). The performance
+sentinel (:mod:`~ddr_tpu_torch.observability.sentinel`, ``DDR_SENTINEL_*``)
+samples the queue depth, the shed rate and the p99 latency once a
+``sweep_s`` from the batch worker and from :meth:`ForecastService.stats`,
+whose ``sentinel`` slice it is; ``DDR_SENTINEL_FLAG_WATCHDOG`` lets a
+sustained anomaly degrade ``/readyz``. A skill tracker attached with
+:meth:`ForecastService.attach_skill_tracker` is ``stats()["skill"]``. The
+port has no XLA compile cache, so ``stats()["compiles"]`` is None and
+``/v1/models``' ``programs`` is empty; mesh mode (ROADMAP A.13) and fault
+injection (A.6) are not in this slice.
 """
 
 from __future__ import annotations
@@ -75,6 +81,7 @@ from ddr_tpu_torch.observability.health import (
 )
 from ddr_tpu_torch.observability.events import get_recorder
 from ddr_tpu_torch.observability.prometheus import declare_serve_metrics, event_tee
+from ddr_tpu_torch.observability.sentinel import Sentinel, SentinelConfig
 from ddr_tpu_torch.observability.spans import span
 from ddr_tpu_torch.observability.slo import SloConfig, SloTracker
 from ddr_tpu_torch.observability.trace import (
@@ -230,6 +237,24 @@ class ForecastService:
         self.watchdog = HealthWatchdog(self.health_cfg)
         # declared up front: GET /metrics shows every serve metric from the first scrape
         self.metrics = declare_serve_metrics()
+        # the performance sentinel: the queue depth, shed rate and p99 latency,
+        # sampled once a DDR_SENTINEL_SWEEP_S, not once a request
+        try:
+            sent_cfg = SentinelConfig.from_env()
+        except ValueError:
+            log.exception("ignoring malformed DDR_SENTINEL_* config")
+            sent_cfg = SentinelConfig(enabled=False)
+        self.sentinel: Sentinel | None = (
+            Sentinel(sent_cfg, scope="serve", registry=self.metrics, emit=self._emit)
+            if sent_cfg.enabled else None)
+        self._sent_lock = threading.Lock()
+        self._sent_last_sweep = time.monotonic()
+        self._sent_last_shed = 0.0
+        self._sent_sweeps = 0
+        self._sent_flag_streak = 0
+        self._sent_flagged = False
+        self._sent_lat: list[float] = []  # the latencies since the last sweep
+        self._skill: Any = None  # a SkillTracker, once attached
         self.bounds = Bounds.from_config(cfg.params.attribute_minimums)
         self._networks: dict[str, NetworkEntry] = {}
         self._lock = threading.Lock()
@@ -566,6 +591,10 @@ class ForecastService:
                        queue_s=self._queue_seconds(r), execute_s=exec_s, version=entry.version,
                        n_gauges=int(out.shape[1]), slo_ok=good, **_trace_fields(r))
             self._observe_slo(good)
+            if self.sentinel is not None:
+                with self._sent_lock:
+                    self._sent_lat.append(now - r.admitted)
+        self._sentinel_sweep()
         # the ledger is fed before any future resolves: a client that posts
         # observations right after its answer finds its forecast joinable
         valids = [self._feed_verifier(network_name, model_name, r.meta.get("request_id"), r.meta.get("t0"),
@@ -603,6 +632,10 @@ class ForecastService:
                    priority=req.priority, latency_s=round(req.age(), 6),
                    queue_s=self._queue_seconds(req), slo_ok=False, **_trace_fields(req))
         self._observe_slo(False)
+        if self.sentinel is not None:
+            with self._sent_lock:
+                self._sent_lat.append(req.age())
+        self._sentinel_sweep()
 
     # ---- SLO accounting ----
 
@@ -649,6 +682,64 @@ class ForecastService:
                 self._emit("slo", **change)
         except Exception:
             log.exception("SLO accounting failed")
+
+    def _sentinel_sweep(self) -> dict | None:
+        """Feed one sample of the serving signals (queue depth, shed rate,
+        p99 latency since the last sweep) to the sentinel, at most once a
+        ``DDR_SENTINEL_SWEEP_S``: detector baselines assume even sampling.
+        Run from the batch worker and from :meth:`stats`, so an idle replica
+        keeps sampling and its anomalies can resolve.
+
+        With ``DDR_SENTINEL_FLAG_WATCHDOG=1``, ``DDR_SENTINEL_FLAG_AFTER``
+        sweeps in a row with an anomaly firing flag the health watchdog
+        (``anomaly:<signal>``), degrading ``/readyz`` as a violation streak
+        does; the first quiet sweep clears it. Returns the sentinel's status,
+        or None when it is off. Never raises into a request."""
+        s = self.sentinel
+        if s is None:
+            return None
+        try:
+            now = time.monotonic()
+            bstats = self._batcher.stats()
+            with self._sent_lock:
+                dt = now - self._sent_last_sweep
+                if dt < s.config.sweep_s:
+                    return s.status()
+                self._sent_last_sweep = now
+                self._sent_sweeps += 1
+                lat = sorted(self._sent_lat)
+                del self._sent_lat[:]
+                shed = float(bstats.get("shed", 0))
+                shed_rate = max(0.0, shed - self._sent_last_shed) / dt if dt > 0 else 0.0
+                self._sent_last_shed = shed
+            step = self._sent_sweeps
+            s.observe("queue_depth", float(bstats.get("depth", 0)), step=step)
+            s.observe("shed_rate", shed_rate, step=step)
+            if lat:
+                s.observe("serve_p99_s", lat[min(len(lat) - 1, int(0.99 * len(lat)))], step=step)
+            active = s.active()
+            cfg = s.config
+            if cfg.flag_watchdog:
+                with self._sent_lock:
+                    self._sent_flag_streak = self._sent_flag_streak + 1 if active else 0
+                    streak = self._sent_flag_streak
+                    flagged = self._sent_flagged
+                    should_flag = streak >= cfg.flag_after
+                    self._sent_flagged = should_flag
+                if should_flag:
+                    self.watchdog.flag([f"anomaly:{sig}" for sig in active], source="sentinel", sweeps=streak)
+                elif flagged:
+                    self.watchdog.flag([])
+            return s.status()
+        except Exception:
+            log.exception("sentinel sweep failed")
+            return None
+
+    def attach_skill_tracker(self, tracker: Any) -> None:
+        """Attach a :class:`~ddr_tpu_torch.observability.skill.SkillTracker`
+        whose rollup is ``stats()["skill"]`` (fed by whatever loop holds
+        observations: data assimilation, a shadow evaluation)."""
+        self._skill = tracker
 
     # ---- verification ----
 
@@ -699,8 +790,9 @@ class ForecastService:
 
     def models_info(self) -> dict:
         """The ``/v1/models`` payload: version and source of each model.
-        ``programs`` (the JAX service's XLA cost cards) is empty: program
-        cards come with ROADMAP A.10."""
+        ``programs`` (the JAX service's XLA cost cards) is empty: the port
+        has no XLA compile cache, and only ``ddr profile`` writes program
+        cards."""
         return {
             entry.name: {"version": entry.version, "source": entry.source, "programs": {}}
             for entry in (self.registry.get(n) for n in self.registry.names())
@@ -733,12 +825,14 @@ class ForecastService:
     def stats(self) -> dict:
         """The ``/v1/stats`` payload, with the JAX service's keys. ``fleet``
         is the replica's identity in its group (None outside one), ``slo``
-        the tracker's status, ``verification`` the attached ledger's (None
-        without one); ``compiles``, ``sentinel`` and ``skill`` are None: their
-        features are not ported yet (ROADMAP A.10)."""
+        the tracker's status, ``sentinel`` the performance sentinel's,
+        ``skill`` and ``verification`` the attached tracker's and ledger's
+        (None without one); ``compiles`` is None, the port having no XLA
+        compile cache to count."""
         from ddr_tpu_torch.fleet.config import fleet_identity
 
         self._slo_sweep()  # an idle replica resolves a stale alert by polling
+        sentinel = self._sentinel_sweep()  # and a stale anomaly episode
         return {
             "ready": self._ready,
             "warmup_error": self._warmup_error,
@@ -753,8 +847,8 @@ class ForecastService:
             "queue": self._batcher.stats(),
             "compiles": None,
             "health": self.watchdog.status(),
-            "sentinel": None,
-            "skill": None,
+            "sentinel": sentinel,
+            "skill": None if self._skill is None else self._skill.status(),
             "verification": None if self._verifier is None else self._verifier.status(),
             "slo": None if self.slo is None else self.slo.status(),
             "models": self.models_info(),

@@ -10,7 +10,7 @@ on the card (``n_chunks`` launches of each kernel), the unrolled chunked
 router's variant (a band's own ring with external series and unmasked raw
 sums, a band of local depth 0) and its route, the step engine in
 float64 on the card, and one forecast served over the HTTP front on the
-card. The file imports
+card, and a profiler capture naming the forward scan's kernel. The file imports
 neither ``jax`` nor ``ddr_tpu``, so it runs on a machine that has only the
 port's dependencies:
 
@@ -776,3 +776,35 @@ def test_run_log_on_the_card_carries_device_peak_bytes(card, tmp_path):
     assert entry["platform"] == "gpu" and peak is not None and peak > 0
     assert entry["peak_bytes_in_use"] <= peak and entry["bytes_limit"] > entry["peak_bytes_in_use"] > 0
     assert device_peak_bytes("cpu") is None
+
+
+@pytest.mark.cuda
+def test_profiler_capture_names_the_scan_kernel(card, tmp_path):
+    """``capture_profile`` (``POST /v1/profile``'s capture) while another
+    thread routes on the card: its trace names the forward scan's kernel."""
+    import json
+    import threading
+
+    from ddr_tpu_torch.observability.spans import capture_profile, trace_active
+
+    basin = make_basin(n_segments=512, n_gauges=2, n_days=2, depth=16, seed=4)
+    net, ch, gauges = prepare_batch(basin.routing_data, 1e-4, device=card)
+    params = {k: torch.as_tensor(v, dtype=torch.float32, device=card) for k, v in basin.true_params.items()}
+    q = torch.as_tensor(basin.q_prime, device=card)
+    mc.route(net, ch, params, q, gauges=gauges, device=card)  # the kernel is built before the capture
+    owner = capture_profile(str(tmp_path), 1.0)
+
+    def work():
+        with torch.no_grad():
+            for _ in range(3):
+                mc.route(net, ch, params, q, gauges=gauges, device=card)
+        torch.cuda.synchronize(card)
+
+    worker = threading.Thread(target=work)
+    worker.start()
+    worker.join(timeout=60)
+    owner.join(timeout=60)
+    assert not trace_active()
+    trace, = tmp_path.glob("capture_*.json")
+    names = {str(e.get("name")) for e in json.loads(trace.read_text())["traceEvents"]}
+    assert any("wave_scan_tm_kernel" in n for n in names)

@@ -5,13 +5,14 @@ fields), ``ddr test``, ``ddr route``, ``ddr loadtest`` and ``ddr verify
 --synthetic`` by event types and keys. Timings, pids and device fields are
 set aside.
 
-JAX's logs hold events the port does not write yet, named below
+JAX's logs hold events the port does not write, named below
 (:data:`JAX_ONLY_EVENTS`, :func:`jax_only_span`): the XLA compile events
 and program cards (the port builds kernels with ``nvcc`` and has no compile
-cache to track), skill, drift and heartbeats (ROADMAP A.10, part 2), the
-spans JAX emits while tracing its jitted step (once per compile), and the
-second ``eval`` phase a JAX step spends drawing its validation plot
-(matplotlib).
+cache to track; only ``ddr profile`` writes cards), the spans JAX emits
+while tracing its jitted step (once per compile), and the second ``eval``
+phase a JAX step spends drawing its validation plot (matplotlib). Skill,
+drift and heartbeat events, and the skill, drift, pipeline and sentinel
+rollups, are in both.
 """
 
 from __future__ import annotations
@@ -31,10 +32,10 @@ from ddr_tpu.scripts import verify as jax_verify
 from ddr_tpu_torch.scripts import loadtest, router, test, train, verify
 
 CONFIG = "examples/synthetic/config.yaml"
-#: Event types of JAX's logs that the port does not write yet.
-JAX_ONLY_EVENTS = {"compile", "program_card", "skill", "drift", "heartbeat"}
-#: JAX's run_end rollups of those subsystems and of its performance sentinel.
-JAX_ONLY_SUMMARY = {"compile", "drift", "skill", "pipeline", "sentinel"}
+#: Event types of JAX's logs that the port does not write.
+JAX_ONLY_EVENTS = {"compile", "program_card"}
+#: JAX's run_end rollup of its compile cache.
+JAX_ONLY_SUMMARY = {"compile"}
 #: Fields whose values are timings, process ids, device names or run paths.
 SET_ASIDE = {"t", "wall", "pid", "seconds", "loop_s", "reach_timesteps_per_sec", "duration_s", "device",
              "phases", "span_id", "summary", "thread"}

@@ -25,8 +25,8 @@ synthetic basin (``make_basin(96, depth=10, seed=23)``, as
   200 on both, each with its package's ``federate_text`` over the same
   targets and its own registry.
 
-The refusal (``POST /v1/profile``, with and without its query) answers 501
-and names its ROADMAP item.
+``POST /v1/profile``, with and without its query, answers 202 with JAX's
+body, and both packages refuse a bad ``seconds`` and a second capture alike.
 """
 
 from __future__ import annotations
@@ -240,8 +240,11 @@ def test_get_endpoints_equal_jax(pair):
     assert jc == pc == 200 and set(jb) <= set(pb), set(jb) - set(pb)
     assert pb["config"] == jb["config"] and pb["networks"] == jb["networks"]
     assert set(jb["queue"]) <= set(pb["queue"]) and set(jb["health"]) <= set(pb["health"])
-    for key in ("compiles", "sentinel", "skill"):
-        assert pb[key] is None
+    # no XLA compile cache on the port; the sentinel's slice has JAX's keys
+    # and scope; no skill tracker attached on either side
+    assert pb["compiles"] is None
+    assert pb["sentinel"].keys() == jb["sentinel"].keys() and pb["sentinel"]["scope"] == jb["sentinel"]["scope"]
+    assert pb["skill"] is None and jb["skill"] is None
     assert pb["fleet"] == jb["fleet"]
     # no ledger attached on either side
     assert pb["verification"] is None and jb["verification"] is None
@@ -261,14 +264,48 @@ def test_get_endpoints_equal_jax(pair):
     assert jc == pc == 404 and jb == pb
 
 
-@pytest.mark.parametrize("request_kind,item", [("profile-default", "A.10"), ("profile", "A.10")])
-def test_unported_requests_answer_501_naming_their_item(pair, request_kind, item):
-    url = pair.urls[1]
-    if request_kind == "profile-default":
-        code, _, body = _request(url, "POST", "/v1/profile", {})
-    else:
-        code, _, body = _request(url, "POST", "/v1/profile?seconds=1", {})
-    assert code == 501 and item in body["error"]
+def _wait_for_captures(timeout: float = 30.0) -> None:
+    """Until neither package's profiler capture runs."""
+    from ddr_tpu.observability import spans as jax_spans
+    from ddr_tpu_torch.observability import spans
+
+    deadline = time.monotonic() + timeout
+    while jax_spans.trace_active() or spans.trace_active():
+        assert time.monotonic() < deadline, "a profiler capture did not end"
+        time.sleep(0.05)
+
+
+@pytest.mark.parametrize("request_kind", ["profile-default", "profile"])
+def test_unported_requests_answer_501_naming_their_item(pair, request_kind, tmp_path, monkeypatch):
+    """``POST /v1/profile`` (once refused with 501): both servers answer 202
+    with the same body, and each writes its trace under the metrics dir."""
+    monkeypatch.setenv("DDR_METRICS_DIR", str(tmp_path))
+    path = "/v1/profile" if request_kind == "profile-default" else "/v1/profile?seconds=1"
+    _wait_for_captures()
+    (jc, _, jb), (pc, _, pb) = pair.both("POST", path, {})
+    _wait_for_captures()
+    assert jc == pc == 202 and pb == jb
+    assert pb == {"status": "capturing", "seconds": 2.0 if request_kind == "profile-default" else 1.0,
+                  "trace_dir": str(tmp_path)}
+    assert list(tmp_path.glob("capture_*.json"))
+
+
+@pytest.mark.parametrize("query", ["seconds=0", "seconds=-1", "seconds=abc", "seconds=61"])
+def test_profile_refusals_equal_jax(pair, query, tmp_path, monkeypatch):
+    monkeypatch.setenv("DDR_METRICS_DIR", str(tmp_path))
+    _wait_for_captures()
+    (jc, _, jb), (pc, _, pb) = pair.both("POST", f"/v1/profile?{query}", {})
+    assert jc == pc == 400 and pb == jb
+
+
+def test_profile_during_a_capture_answers_409_as_jax(pair, tmp_path, monkeypatch):
+    monkeypatch.setenv("DDR_METRICS_DIR", str(tmp_path))
+    _wait_for_captures()
+    for url in pair.urls:
+        first = _request(url, "POST", "/v1/profile?seconds=1", {})
+        second = _request(url, "POST", "/v1/profile?seconds=1", {})
+        assert first[0] == 202 and second[0] == 409 and "already running" in second[2]["error"]
+    _wait_for_captures()
 
 
 IDENTITY = {"DDR_FLEET_GROUP": "east", "DDR_FLEET_REPLICA": "1", "DDR_FLEET_ROUTER": "local:42"}

@@ -87,8 +87,8 @@ def test_render_text_equals_jax_byte_for_byte(seed):
     assert tprom.CONTENT_TYPE == jprom.CONTENT_TYPE
 
 
-#: JAX's serve instruments that the port does not feed yet and so does not
-#: declare: compile counts (ROADMAP A.10).
+#: JAX's serve instruments that the port does not feed and so does not
+#: declare: compile counts (the port has no XLA compile cache).
 UNPORTED = {"ddr_compiles_total"}
 
 
@@ -197,18 +197,12 @@ ENVIRONS = [
 ]
 
 
-def _knobs(cfg) -> dict:
-    """A config's knobs less JAX's ``profile_max_seconds``, which the port
-    adds with ``POST /v1/profile`` (ROADMAP A.10)."""
-    return {k: v for k, v in cfg.__dict__.items() if k != "profile_max_seconds"}
-
-
 @pytest.mark.parametrize("environ", ENVIRONS, ids=range(len(ENVIRONS)))
 def test_serve_config_from_env_equals_jax(environ):
     ours, ref = ServeConfig.from_env(environ), JaxServeConfig.from_env(environ)
-    assert ours.__dict__ == _knobs(ref)
+    assert ours.__dict__ == ref.__dict__
     kw = {"max_batch": 2, "reload_poll_s": 0.0}
-    assert ServeConfig.from_env(environ, **kw).__dict__ == _knobs(JaxServeConfig.from_env(environ, **kw))
+    assert ServeConfig.from_env(environ, **kw).__dict__ == JaxServeConfig.from_env(environ, **kw).__dict__
 
 
 @pytest.mark.parametrize("environ", [{"DDR_SERVE_MAX_BATCH": "two"}, {"DDR_SERVE_BACKPRESSURE": "drop"},
@@ -271,7 +265,7 @@ def test_service_honours_the_serve_environment(monkeypatch):
         monkeypatch.setenv(k, v)
     svc = _tiny_service()
     try:
-        assert svc.serve_cfg.__dict__ == _knobs(JaxServeConfig.from_env())
+        assert svc.serve_cfg.__dict__ == JaxServeConfig.from_env().__dict__
         assert (svc.serve_cfg.max_batch, svc.serve_cfg.queue_cap, svc.serve_cfg.deadline_s) == (3, 5, 1.5)
         assert svc._batcher.max_batch == 3 and svc._batcher.queue_cap == 5
         assert svc._batcher.backpressure == "shed-oldest"

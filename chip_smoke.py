@@ -12,6 +12,7 @@
     python3 chip_smoke.py --ddr-lynker  # only the build and phases 18 and 23 (the Lynker path)
     python3 chip_smoke.py --ddr-fleet   # only the build and phases 18 and 24 (the replica tier)
     python3 chip_smoke.py --ddr-obs     # only the build and phases 18 and 25 (metrics, obs, profile)
+    python3 chip_smoke.py --ddr-chaos   # only the build and phases 18 and 26 (self-healing, ddr chaos)
 
 From the root of a checkout, with one CUDA card visible. Phases, each fatal
 on failure (non-zero exit, no result line):
@@ -258,6 +259,34 @@ on failure (non-zero exit, no result line):
            each program and one ``reverse_scan`` a call of the VJP and the
            step, both kernels named in the traces), and its forward route
            against the plain scan bit for bit.
+26. ddr chaos  the self-healing ``ddr train`` at 65,536 reaches on the
+           chaos drill's config (batch 1, four mini-batches an epoch): five
+           ``ddr chaos`` drills at once, each in a process of its own whose
+           ``ddr train`` and ``ddr serve`` subprocesses print their launch
+           counts at exit, each required to report ``passed: true``:
+           ``chaos train --kills 1,2`` (the seconds from each SIGKILL to the
+           resumed run's first step, the loss and weight deltas against the
+           golden run, the checkpoint each resume took); ``--signal term
+           --kills 1`` (a ``preempt`` event, the resume from the ``-preempt``
+           checkpoint); ``--nan-storm`` (one recovery a storm, the
+           ``device.step`` storm's ``non-finite`` reason from the card's
+           scan, one ``data_anomaly``, the weights within the drill's
+           tolerance); ``chaos serve --synthetic --horizon 72 --rps 20
+           --duration 10 --kill-after 3`` (seconds to ``/readyz`` 200, error
+           and shed rates, attainment after the restart) and
+           ``--kill-replica`` (ejection seconds, ``ddr_federate_up 0`` on the
+           survivor, readmission). Meanwhile, in process through the CLI: a
+           rollback to the pinned-good checkpoint with the learning rate
+           halved (``DDR_RECOVERY_MAX_SKIPS=0``, ``nan@device.step=2``), a
+           give-up (the rollback budget 0 too: a degraded ``-giveup``
+           checkpoint, exit 3) and the bf16 ring's ``fp32-reroute``
+           (``DDR_HEALTH_MAX_ULP_DRIFT=0``, outcome clean). Then phase 18's
+           regional run with ``DDR_RECOVERY_ENABLED=1`` beside phase 18's
+           own, and ``snapshot_state`` alone.
+The script points Python's bytecode cache at ``build/pycache``
+(``PYTHONPYCACHEPREFIX``) for itself and every process it starts: the card
+machine's interpreter writes none beside its packages, so each ``ddr
+train`` or ``ddr serve`` subprocess recompiled what it imported.
 Phases 18, 19, 21, 22 and 23 run with ``DDR_METRICS_DIR`` set to a
 directory per run, and print each run log's split: a ``ddr train`` run's
 step phases (``summarize_phases``), the steps' loop wall and the share of
@@ -4365,6 +4394,279 @@ def ddr_obs(smi, dev) -> dict:
     return launches
 
 
+# The self-healing `ddr train` and `ddr chaos` (phase 26): the drills at the
+# regional width, all five at once, each `ddr chaos` in a process of its own
+# (its run recorder is process-wide), while the in-process ladder drills run
+# the chaos drill's config (batch 1, four mini-batches an epoch) through the
+# CLI; each drill's own --timeout and --boot-timeout bound its subprocesses.
+CHAOS_SEGMENTS, CHAOS_TIMEOUT, CHAOS_BOOT_TIMEOUT, CHAOS_WALL_S = 65536, 600, 300, 1200
+# a drill's process patches `chaos._launch` so that each `ddr train` or
+# `ddr serve` it starts prints its launch counts at exit (one SIGKILLed
+# prints none), then runs `chaos.main` on its arguments
+COUNTING = ("import atexit, json, sys; from ddr_tpu_torch import cli; "
+            "from ddr_tpu_torch.routing.wave_kernel import wave_scan_tm; "
+            "from ddr_tpu_torch.routing.reverse_kernel import reverse_scan_tm; "
+            "atexit.register(lambda: print('LAUNCHES ' + json.dumps({'wave_scan': wave_scan_tm.launches, "
+            "'reverse_scan': reverse_scan_tm.launches}), flush=True)); sys.exit(cli.main(sys.argv[1:]))")
+DRILL = ("import subprocess, sys; from ddr_tpu_torch.scripts import chaos; counting = sys.argv[1]\n"
+         "def launch(args, env, log_path):\n"
+         "    with log_path.open('ab') as fh:\n"
+         "        return subprocess.Popen([sys.executable, '-c', counting, *args], stdout=fh, "
+         "stderr=subprocess.STDOUT, env=env)\n"
+         "chaos._launch = launch\n"
+         "sys.exit(chaos.main(sys.argv[2:]))")
+
+
+def start_drill(root: Path, label: str, argv: list[str]) -> tuple:
+    """One ``ddr chaos`` drill in a process of its own, started now."""
+    cmd = [sys.executable, "-c", DRILL, COUNTING, *argv, "--label", label, "--out", str(root)]
+    log = (root / f"drill_{label}.log").open("wb")
+    return label, argv, subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), log, time.time()
+
+
+def finish_drill(root: Path, drill: tuple, deadline: float, smi: str) -> tuple[dict, dict]:
+    """Wait for a started drill (killing it at the phase's deadline) and
+    fail unless it exited 0 with ``passed: true``. Returns the report and
+    the launches its subprocesses printed."""
+    label, argv, proc, log, t0 = drill
+    try:
+        code = proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    path = root / f"CHAOS_{label}.json"
+    report = json.loads(path.read_text()) if path.exists() else {}
+    wall = (path.stat().st_mtime if path.exists() else time.time()) - t0  # until its record was written
+    if code != 0 or report.get("passed") is not True:
+        tail = (root / f"drill_{label}.log").read_text(errors="replace").splitlines()[-30:]
+        fail(f"ddr chaos {' '.join(argv)}: exit {code}, report {report}\n" + "\n".join(tail))
+    counts = {"wave_scan": 0, "reverse_scan": 0}
+    for out in root.glob(f"chaos_*_{label}/*.out"):
+        for line in out.read_text(errors="replace").splitlines():
+            if line.startswith("LAUNCHES "):
+                for k, v in json.loads(line.split(" ", 1)[1]).items():
+                    counts[k] += v
+    print(f"ddr chaos {' '.join(argv)}: passed, {wall:.1f} s from its start to its end (the five drills "
+          f"run at once), launches in its subprocesses that exited {counts}, on {smi}")
+    return report, counts
+
+
+def chaos_events(run_dir: Path, kind: str) -> list[dict]:
+    path = run_dir / "run_log.train.jsonl"
+    return [e for e in (json.loads(line) for line in path.read_text().splitlines() if line.strip())
+            if e["event"] == kind]
+
+
+def ladder_run(root: Path, name: str, env: dict, spec: str | None, smi: str) -> tuple:
+    """``ddr train`` in this process through the CLI on the chaos drill's
+    config, with ``env`` set and the fault plan ``spec`` installed; returns
+    (exit code, run log events, the run's launches)."""
+    import os
+
+    import torch
+
+    from ddr_tpu_torch import cli
+    from ddr_tpu_torch.observability import faults
+    from ddr_tpu_torch.routing.reverse_kernel import reverse_scan_tm
+    from ddr_tpu_torch.routing.wave_kernel import wave_scan_tm
+    from ddr_tpu_torch.scripts.chaos import _train_cfg_dict, _yaml_text
+
+    class One:
+        segments, epochs = CHAOS_SEGMENTS, 1
+
+    run = root / name
+    cfg = root / f"{name}.yaml"
+    cfg.write_text(_yaml_text(_train_cfg_dict(run, None, One)))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    faults.configure(spec)
+    wave_scan_tm.launches = reverse_scan_tm.launches = 0
+    t0 = time.perf_counter()
+    try:
+        code = cli.main(["train", str(cfg)])
+        torch.cuda.synchronize()
+    finally:
+        faults.configure(None)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    wall = time.perf_counter() - t0
+    launches = {"wave_scan": wave_scan_tm.launches, "reverse_scan": reverse_scan_tm.launches}
+    events = [json.loads(line) for line in (run / "run_log.train.jsonl").read_text().splitlines() if line.strip()]
+    steps = [(e["epoch"], e["batch"], e["loss"], e.get("recovered")) for e in events if e["event"] == "step"]
+    recs = [{k: e.get(k) for k in ("stage", "reasons", "batch", "outcome", "checkpoint", "lr_backoff") if k in e}
+            for e in events if e["event"] == "recovery"]
+    print(f"ladder {name}: exit {code}, steps {steps}, recovery {recs}, launches {launches}, run wall {wall:.2f} s "
+          f"on {smi}")
+    return code, events, launches
+
+
+def ddr_chaos(smi, dev) -> dict:
+    """Phase 26: the self-healing ``ddr train`` and ``ddr chaos`` on the card
+    (see the module docstring). Returns the phase's launch counts."""
+    import os
+    import statistics
+
+    import torch
+
+    from ddr_tpu_torch import cli, training
+    from ddr_tpu_torch.scripts import train as train_script
+    from ddr_tpu_torch.validation.configs import Config, KanConfig
+
+    here = Path(__file__).resolve().parent
+    root = here / "build" / "ddr_chaos"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    torch.cuda.empty_cache()  # the drills' processes share the card with what earlier phases cached
+    launches = {"wave_scan": 0, "reverse_scan": 0}
+
+    def add(counts):
+        for k in launches:
+            launches[k] += counts[k]
+
+    seg = ["--segments", str(CHAOS_SEGMENTS)]
+    train_t = ["--timeout", str(CHAOS_TIMEOUT)]
+    serve_t = ["--boot-timeout", str(CHAOS_BOOT_TIMEOUT)]
+    deadline = time.perf_counter() + CHAOS_WALL_S
+    drills = [start_drill(root, label, argv) for label, argv in (
+        ("kill", ["train", *seg, "--kills", "1,2", *train_t]),
+        ("term", ["train", *seg, "--signal", "term", "--kills", "1", *train_t]),
+        ("storm", ["train", *seg, "--nan-storm", *train_t]),
+        ("serve", ["serve", "--synthetic", *seg, "--horizon", "72", "--rps", "20", "--duration", "10",
+                   "--kill-after", "3", *serve_t]),
+        ("fleet", ["serve", "--synthetic", *seg, "--kill-replica", *serve_t]),
+    )]
+    try:
+        # ---- 1. rollback and give-up, in process while the drills run ----
+        on = {"DDR_RECOVERY_ENABLED": "1", "DDR_RECOVERY_MAX_SKIPS": "0"}
+        code, events, counts = ladder_run(root, "rollback", on, "nan@device.step=2:n=1", smi)
+        add(counts)
+        rb = [e for e in events if e["event"] == "recovery"]
+        last = training.load_state(training.latest_checkpoint(root / "rollback" / "saved_models"))
+        lrs = [g["lr"] for g in last["opt_state"]["param_groups"]]
+        if code != 0 or [e["stage"] for e in rb] != ["rollback"] or rb[0]["lr_backoff"] != 0.5 or lrs != [0.005]:
+            fail(f"ladder rollback: exit {code}, recoveries {rb}, last checkpoint's learning rates {lrs}")
+        print(f"ladder rollback: to {rb[0]['checkpoint']} (the pinned-good checkpoint), learning rate 0.01 -> "
+              f"{lrs[0]}, on {smi}")
+        code, events, counts = ladder_run(root, "giveup", {**on, "DDR_RECOVERY_MAX_ROLLBACKS": "0"},
+                                          "nan@device.step=2:n=1", smi)
+        add(counts)
+        giveup = list((root / "giveup" / "saved_models").glob("_chaos-giveup_epoch_*_mb_*.pkl"))
+        manifest = json.loads(giveup[0].with_name(giveup[0].name + ".manifest.json").read_text()) if giveup else {}
+        stages = [e["stage"] for e in events if e["event"] == "recovery"]
+        if code != 3 or stages != ["give-up"] or manifest.get("degraded") is not True:
+            fail(f"ladder give-up: exit {code}, stages {stages}, checkpoints {giveup}, manifest {manifest}")
+        print(f"ladder give-up: main returned {code}, {giveup[0].name} saved with degraded {manifest['degraded']}, "
+              f"run_end status {events[-1]['status']}, on {smi}")
+
+        # ---- 2. the bf16 reroute: the watchdog's own drift knob set to trip ----
+        code, events, counts = ladder_run(root, "reroute", {
+            "DDR_RECOVERY_ENABLED": "1", "DDR_TRAIN_DTYPE": "bf16", "DDR_HEALTH_MAX_ULP_DRIFT": "0",
+            "DDR_RECOVERY_MAX_REROUTES": "8"}, None, smi)
+        add(counts)
+        rr = [e for e in events if e["event"] == "recovery"]
+        drift = [round(e.get("ulp_drift"), 3) for e in events if e["event"] == "health"]
+        if code != 0 or not rr or {(e["stage"], e["outcome"]) for e in rr} != {("fp32-reroute", "clean")}:
+            fail(f"ladder bf16 reroute: exit {code}, recoveries {rr}")
+        print(f"ladder bf16 reroute: {len(rr)} fp32-reroute, all clean; the bf16 steps' ulp drift {drift} "
+              f"(DDR_HEALTH_MAX_ULP_DRIFT=0), launches {counts} (bf16 and fp32 twin), on {smi}")
+
+        # ---- 3. the drills: kills, preemption, the nan storm, a server, a group ----
+        reports = {}
+        for drill in drills:
+            reports[drill[0]], counts = finish_drill(root, drill, deadline, smi)
+            add(counts)
+    finally:
+        for _, _, proc, log, _ in drills:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+
+    report = reports["kill"]
+    if launches["wave_scan"] < 1 or launches["reverse_scan"] < 1:
+        fail(f"ddr chaos: no kernel launch counted: {launches}")
+    golden = chaos_events(root / "chaos_train_kill" / "golden", "run_start")[0]
+    print(f"ddr chaos train (kill): kills {report['kills']}, seconds from each kill to the resumed run's first "
+          f"step {report['recoveries_s']} (the attempt killed again paced {report['pace_ms']} ms a step), resumed "
+          f"from {report['resumed_from']}, loss delta {report['loss_delta']}, params delta "
+          f"{report['params_max_abs_delta']} (tolerance {report['tolerance']}), {report['steps_chaos']}/"
+          f"{report['steps_golden']} steps; the golden run on device {golden.get('device')!r}, on {smi}")
+    report = reports["term"]
+    if report["preempt_events"] != 1 or not report["resumed_from"] or "-preempt_" not in report["resumed_from"][0]:
+        fail(f"ddr chaos train --signal term: preempt events {report['preempt_events']}, resumed from "
+             f"{report['resumed_from']}")
+    print(f"ddr chaos train (term): 1 preempt event, resumed from {report['resumed_from'][0]} "
+          f"{report['recoveries_s'][0]} s after the SIGTERM, loss delta {report['loss_delta']}, params delta "
+          f"{report['params_max_abs_delta']}, on {smi}")
+    report = reports["storm"]
+    storm = root / "chaos_train_storm" / "chaos"
+    reasons = [e["reasons"] for e in chaos_events(storm, "recovery")]
+    if (report["recovery_events"] != report["fault_events"] or report["data_anomalies"] != 1
+            or len(reasons) != 3 or "non-finite" not in reasons[1]):
+        fail(f"ddr chaos train --nan-storm: {report['fault_events']} faults, {report['recovery_events']} "
+             f"recoveries {reasons}, {report['data_anomalies']} data anomalies")
+    health = chaos_events(storm, "health")
+    print(f"ddr chaos train (nan storm): {report['fault_events']} storms -> recoveries {report['recovery_stages']} "
+          f"with reasons {reasons}, the device.step storm's health event nonfinite "
+          f"{health[0].get('nonfinite') if health else None}, {report['data_anomalies']} data anomaly, params "
+          f"delta {report['params_max_abs_delta']} (tolerance {report['tolerance']}), final loss "
+          f"{report['final_loss']}, compile events {report['compile_events_golden']}/"
+          f"{report['compile_events_chaos']} (the port writes none), on {smi}")
+    report = reports["serve"]
+    print(f"ddr chaos serve: {report['recovery_s']} s from the SIGKILL to /readyz 200, error rate "
+          f"{report['error_rate']}, shed rate {report['shed_rate']}, {report['requests']} requests, attainment after "
+          f"the restart {report['post_restart_attainment']} over {report['post_restart_requests']}, on {smi}")
+    report = reports["fleet"]
+    print(f"ddr chaos serve --kill-replica: ejected in {report['eject_s']} s, the survivor's federated scrape "
+          f"{report['federate_up']}, readmitted {report['recovery_s']} s after the kill, error rate "
+          f"{report['error_rate']}, dispatched {report['dispatched']}, attainment after the restart "
+          f"{report['post_restart_attainment']}, on {smi}")
+
+    # ---- 4. the pre-step snapshot's cost: phase 18's regional run with it, beside phase 18's own ----
+    def loop_ms(run_log: Path) -> tuple[list, list]:
+        steps = chaos_events(run_log, "step")
+        return [round(e["seconds"] * 1e3, 3) for e in steps], [round(e["loop_s"] * 1e3, 3) for e in steps]
+
+    logger = logging.getLogger(train_script.__name__)
+    logger.setLevel(logging.INFO)
+    run = root / "snapshot-on"
+    os.environ["DDR_RECOVERY_ENABLED"] = "1"
+    try:
+        code = cli.main(["train", DDR_TRAIN_CONFIG, f"synthetic_segments={N_SEGMENTS}", f"synthetic_depth={DEPTH}",
+                         f"params.save_path={run}"])
+        torch.cuda.synchronize()
+    finally:
+        os.environ.pop("DDR_RECOVERY_ENABLED", None)
+    with_it = loop_ms(run)
+    without = loop_ms(here / "build" / "ddr_train" / "logs" / "regional")
+    if code != 0 or len(with_it[0]) != DDR_TRAIN_STEPS:
+        fail(f"snapshot cost: exit {code}, {len(with_it[0])} steps")
+    print(f"snapshot cost: phase 18's regional run, step host ms {without[0]} and loop ms {without[1]} without "
+          f"DDR_RECOVERY_ENABLED, {with_it[0]} and {with_it[1]} with it, on {smi}")
+    # the snapshot alone: the regional KAN and its Adam state, cloned on the card
+    kan = new_kan(Config(kan=KanConfig(input_var_names=[f"a{i}" for i in range(10)])), dev)
+    opt = training.make_optimizer(kan.parameters(), 0.01)
+    sum(v.sum() for v in kan(torch.randn(8, 10, device=dev)).values()).backward()
+    opt.step()
+    times = []
+    for _ in range(21):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        training.snapshot_state(kan, opt)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    n_bytes = sum(p.numel() * p.element_size() for p in kan.parameters()) * 3
+    print(f"snapshot_state alone: median {statistics.median(times[1:]):.4f} ms (min {min(times[1:]):.4f}) for "
+          f"{n_bytes} bytes of KAN weights and Adam moments, on {smi}")
+    print(f"ddr chaos phase launches {launches} (drill subprocesses that exited, and the in-process runs) on {smi}")
+    return launches
+
+
 def nvidia_smi() -> str:
     """The card's name and power limit, as ``nvidia-smi`` reports them."""
     return subprocess.run(
@@ -4386,6 +4688,16 @@ def main() -> int:
         print("chip_smoke: run from the root of a checkout (ddr_tpu_torch/ not beside the "
               "script)", file=sys.stderr)
         return 2
+    # the card machine's interpreter writes no bytecode cache beside its
+    # packages, so every process recompiled what it imported (~7 s of each
+    # `ddr train` or `ddr serve` a phase starts): the cache goes under build/
+    # for this process and its children
+    import os
+
+    pycache = str(Path(__file__).resolve().parent / "build" / "pycache")
+    os.environ["PYTHONPYCACHEPREFIX"] = sys.pycache_prefix = pycache
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    sys.dont_write_bytecode = False
     if sys.argv[1:] == ["--time-fp32"]:
         return time_fp32_only()
     only_ddr_train = sys.argv[1:] == ["--ddr-train"]
@@ -4396,14 +4708,16 @@ def main() -> int:
     only_ddr_lynker = sys.argv[1:] == ["--ddr-lynker"]
     only_ddr_fleet = sys.argv[1:] == ["--ddr-fleet"]
     only_ddr_obs = sys.argv[1:] == ["--ddr-obs"]
+    only_ddr_chaos = sys.argv[1:] == ["--ddr-chaos"]
     only = (only_ddr_train or only_ddr_cli or only_ddr_serve or only_ddr_loadtest or only_ddr_merit
-            or only_ddr_lynker or only_ddr_fleet or only_ddr_obs)
+            or only_ddr_lynker or only_ddr_fleet or only_ddr_obs or only_ddr_chaos)
     old_log = None
     if len(sys.argv) == 3 and sys.argv[1] == "--old-kernels":
         old_log = sys.argv[2]
     elif sys.argv[1:] and not only:
         print("usage: chip_smoke.py [--time-fp32 | --ddr-train | --ddr-cli | --ddr-serve | --ddr-loadtest | "
-              "--ddr-merit | --ddr-lynker | --ddr-fleet | --ddr-obs | --old-kernels LOG]", file=sys.stderr)
+              "--ddr-merit | --ddr-lynker | --ddr-fleet | --ddr-obs | --ddr-chaos | --old-kernels LOG]",
+              file=sys.stderr)
         return 2
     import numpy as np
 
@@ -4462,6 +4776,10 @@ def main() -> int:
             t0 = time.perf_counter()
             ddr_obs(smi, dev)
             print(f"ddr obs phase: {time.perf_counter() - t0:.1f}s on {smi}")
+        if only_ddr_chaos:
+            t0 = time.perf_counter()
+            ddr_chaos(smi, dev)
+            print(f"ddr chaos phase: {time.perf_counter() - t0:.1f}s on {smi}")
         print(f"whole script: {time.perf_counter() - T_START:.1f}s on {smi}")
         print(smi)
         print(json.dumps({"ok": True, "device": {
@@ -4824,6 +5142,11 @@ def main() -> int:
     t0 = time.perf_counter()
     ddr_obs_launches = ddr_obs(smi, dev)
     print(f"ddr obs phase: {time.perf_counter() - t0:.1f}s on {smi}")
+
+    # ---- 26. the self-healing ddr train and ddr chaos: kills, preemption, storms, the ladder ----
+    t0 = time.perf_counter()
+    ddr_chaos_launches = ddr_chaos(smi, dev)
+    print(f"ddr chaos phase: {time.perf_counter() - t0:.1f}s on {smi}")
     print(f"whole script: {time.perf_counter() - T_START:.1f}s on {smi}")
 
     def band_entry(name, source, replaces, launches, err, t):
@@ -4845,7 +5168,7 @@ def main() -> int:
         "launches": (launches + train_launches["wave_scan"] + ddr_train_launches["wave_scan"]
                      + ddr_eval_launches["wave_scan"] + ddr_serve_launches + ddr_loadtest_launches
                      + ddr_merit_launches["wave_scan"] + ddr_lynker_launches["wave_scan"] + ddr_fleet_launches
-                     + ddr_obs_launches["wave_scan"]),
+                     + ddr_obs_launches["wave_scan"] + ddr_chaos_launches["wave_scan"]),
         "ddr_train_launches": ddr_train_launches["wave_scan"],
         "ddr_eval_launches": ddr_eval_launches["wave_scan"],
         "ddr_serve_launches": ddr_serve_launches,
@@ -4854,6 +5177,7 @@ def main() -> int:
         "ddr_lynker_launches": ddr_lynker_launches["wave_scan"],
         "ddr_fleet_launches": ddr_fleet_launches,
         "ddr_obs_launches": ddr_obs_launches["wave_scan"],
+        "ddr_chaos_launches": ddr_chaos_launches["wave_scan"],
         "ddr_eval_q_init_launches": ddr_eval_launches["q_init"],
         "max_abs_err": max_abs,
         "ms": kernel_ms,
@@ -4869,11 +5193,12 @@ def main() -> int:
         "replaces": "ddr_tpu/routing/pallas_kernel.py:348",
         "launches": (train_launches["reverse_scan"] + ddr_train_launches["reverse_scan"]
                      + ddr_merit_launches["reverse_scan"] + ddr_lynker_launches["reverse_scan"]
-                     + ddr_obs_launches["reverse_scan"]),
+                     + ddr_obs_launches["reverse_scan"] + ddr_chaos_launches["reverse_scan"]),
         "ddr_train_launches": ddr_train_launches["reverse_scan"],
         "ddr_merit_launches": ddr_merit_launches["reverse_scan"],
         "ddr_lynker_launches": ddr_lynker_launches["reverse_scan"],
         "ddr_obs_launches": ddr_obs_launches["reverse_scan"],
+        "ddr_chaos_launches": ddr_chaos_launches["reverse_scan"],
         "max_abs_err": reverse_err,
         "ms": reverse_ms,
         "plain_ms": reverse_plain_ms,

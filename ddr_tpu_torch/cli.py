@@ -1,11 +1,11 @@
 """The port's command-line dispatcher: ``python -m ddr_tpu_torch.cli
 {train,test,route,train-and-test,benchmark,summed-q-prime,serve,fleet,loadtest,verify,
-metrics,obs,profile} [config.yaml] [a.b=c ...]``.
+metrics,obs,profile,chaos} [config.yaml] [a.b=c ...]``.
 
 The subcommands are the JAX package's ``ddr`` CLI's. ``train``, ``test``,
 ``route``, ``train-and-test``, ``benchmark``, ``summed-q-prime``, ``serve``,
-``fleet``, ``loadtest``, ``verify`` and ``profile`` are ported; each runs on the
-card unless the config or an override says ``device=cpu``. ``metrics`` and ``obs``
+``fleet``, ``loadtest``, ``verify``, ``profile`` and ``chaos`` are ported; each
+runs on the card unless the config or an override says ``device=cpu``. ``metrics`` and ``obs``
 read run logs and scrape ``/metrics`` endpoints (standard library only). Every
 other subcommand exits with a message naming the ROADMAP item that ports it.
 """
@@ -31,10 +31,10 @@ _COMMANDS = {
     "metrics": "ddr_tpu_torch.observability.metrics_cli",
     "obs": "ddr_tpu_torch.observability.obs_cli",
     "profile": "ddr_tpu_torch.scripts.profile",
+    "chaos": "ddr_tpu_torch.scripts.chaos",
 }
 #: Subcommands of the JAX package's CLI that are not ported yet, by ROADMAP item.
 _NOT_PORTED = {
-    "chaos": "A.6",
     "geometry-predictor": "A.11",
     "tune": "A.13",
     "sweep": "A.12",

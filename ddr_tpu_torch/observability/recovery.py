@@ -1,8 +1,7 @@
-"""Self-healing training: the recovery supervisor's escalation ladder.
+"""Self-healing training: the recovery supervisor's escalation ladder and
+the forcing validator.
 
-The port of ``ddr_tpu/observability/recovery.py`` (without its
-``ForcingValidator``, which waits for the ``ddr train`` data path). The
-health watchdog (:mod:`ddr_tpu_torch.observability.health`) detects a NaN
+The port of ``ddr_tpu/observability/recovery.py``. The health watchdog (:mod:`ddr_tpu_torch.observability.health`) detects a NaN
 solve, a bf16 overflow or drift, an exploding gradient; this module turns
 each violation into one bounded, deterministic action from a ladder walked
 downwards:
@@ -20,6 +19,11 @@ The supervisor is host-side bookkeeping only: every decision is a function
 of the reasons and the remaining budgets, so a run replays the same
 recoveries. Each committed stage is logged and is one ``recovery`` event of
 the active run recorder.
+
+:class:`ForcingValidator` (``DDR_DATA_VALIDATE=off|warn|quarantine``) scans
+each assembled forcing batch on the host for non-finite and out-of-range
+inflow before the card sees it; ``ddr train`` drops a quarantined batch as a
+ladder ``skip``.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ log = logging.getLogger(__name__)
 __all__ = [
     "RECOVERY_STAGES",
     "REROUTE_REASONS",
+    "ForcingValidator",
     "RecoveryConfig",
     "RecoveryGiveUp",
     "RecoverySupervisor",
@@ -187,3 +192,134 @@ class RecoverySupervisor:
                 "counts": dict(self._counts),
                 "quarantined": [dict(q) for q in self._quarantined],
             }
+
+
+# ---------------------------------------------------------------------------
+# Forcing validation (the data_load-phase scan).
+# ---------------------------------------------------------------------------
+
+_POLICIES = ("off", "warn", "quarantine")
+
+
+class ForcingValidator:
+    """Host-side sanity scan over each assembled forcing batch.
+
+    Runs inside the existing ``data_load`` step phase (prefetch thread) so a
+    bad tile is caught before the device ever sees it. :meth:`scan` is pure
+    (safe off the main thread); :meth:`note` — called from the train loop —
+    emits the bounded ``data_anomaly`` event and answers what the policy says
+    to do with the batch (``"warn"``: train on it anyway, ``"quarantine"``:
+    drop it).
+    """
+
+    #: Physical ceiling for a lateral-inflow value (m^3/s). The largest
+    #: observed river discharge on Earth is O(1e5); anything past this is a
+    #: corrupt tile, not hydrology.
+    MAX_RUNOFF = 1.0e7
+    #: Small negative tolerance: spectral/NN runoff generators can undershoot
+    #: zero by numerical noise; genuinely negative inflow is an anomaly.
+    MIN_RUNOFF = -1.0
+    #: ``data_anomaly`` events emitted per run before suppression kicks in
+    #: (suppressed findings still count into the run_end rollup).
+    MAX_EVENTS = 32
+
+    def __init__(self, policy: str | None = None) -> None:
+        if policy is None:
+            policy = os.environ.get("DDR_DATA_VALIDATE", "off")
+        policy = (policy or "off").strip().lower() or "off"
+        if policy not in _POLICIES:
+            raise ValueError(
+                f"bad DDR_DATA_VALIDATE={policy!r} (want one of {', '.join(_POLICIES)})"
+            )
+        self.policy = policy
+        self.enabled = policy != "off"
+        self._lock = threading.Lock()
+        self._batches = 0
+        self._anomalies = 0
+        self._quarantined = 0
+        self._emitted = 0
+        self._suppressed = 0
+
+    def scan(self, q_prime: Any, **identity: Any) -> dict[str, Any] | None:
+        """Scan one forcing batch -> anomaly descriptor, or None when clean
+        (or validation is off). Duck-typed over the ndarray API so this module
+        needs no numpy import; the comparisons below are vectorized C loops
+        either way."""
+        if not self.enabled:
+            return None
+        with self._lock:
+            self._batches += 1
+        finite = _isfinite(q_prime)
+        n_nonfinite = int(q_prime.size - finite.sum())
+        # range check only over the finite entries (NaN comparisons are False
+        # anyway, but inf > MAX would double-count the non-finites)
+        in_range = (q_prime >= self.MIN_RUNOFF) & (q_prime <= self.MAX_RUNOFF)
+        n_out = int((finite & ~in_range).sum())
+        if not n_nonfinite and not n_out:
+            return None
+        with self._lock:
+            self._anomalies += 1
+        return {
+            "nonfinite": n_nonfinite,
+            "out_of_range": n_out,
+            "size": int(q_prime.size),
+            "policy": self.policy,
+            **{k: v for k, v in identity.items() if _plain(v)},
+        }
+
+    def note(self, anomaly: dict[str, Any]) -> str:
+        """Record one scan finding from the train loop: emit the bounded
+        ``data_anomaly`` event and return the policy's verdict for the batch
+        (``"warn"`` or ``"quarantine"``)."""
+        with self._lock:
+            if self._emitted < self.MAX_EVENTS:
+                self._emitted += 1
+                emit = True
+            else:
+                self._suppressed += 1
+                emit = False
+            if self.policy == "quarantine":
+                self._quarantined += 1
+        log.warning(
+            "forcing anomaly (%s): %s", self.policy,
+            " ".join(f"{k}={v}" for k, v in anomaly.items() if k != "policy"),
+        )
+        if emit:
+            try:
+                from ddr_tpu_torch.observability.events import get_recorder
+
+                rec = get_recorder()
+                if rec is not None:
+                    rec.emit("data_anomaly", **anomaly)
+            except Exception:
+                log.exception("could not record data_anomaly event")
+        return "quarantine" if self.policy == "quarantine" else "warn"
+
+    def summary(self) -> dict[str, Any]:
+        """Rollup for ``merge_summary("data_validate", ...)`` on run_end."""
+        with self._lock:
+            return {
+                "policy": self.policy,
+                "batches": self._batches,
+                "anomalies": self._anomalies,
+                "quarantined": self._quarantined,
+                "events_suppressed": self._suppressed,
+            }
+
+
+def _isfinite(arr: Any) -> Any:
+    """Elementwise finiteness without importing numpy: finite <=> the value
+    minus itself is 0 (NaN/inf propagate). Works on any ndarray duck type.
+    ``inf - inf`` legitimately hits the invalid-value path, so the expected
+    RuntimeWarning is silenced (stdlib ``warnings``, keeping the module
+    numpy-free)."""
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        diff = arr - arr
+    return diff == diff
+
+
+def _plain(v: Any) -> bool:
+    return isinstance(v, (bool, int, float, str)) or v is None

@@ -129,9 +129,22 @@ class GaugeIndex:
         )
 
     def aggregate(self, q: torch.Tensor) -> torch.Tensor:
-        """``(..., N) -> (..., G)``: one ``index_add_`` over the last axis."""
-        out = q.new_zeros(q.shape[:-1] + (self.n_gauges,))
-        return out.index_add_(-1, self.group_ids, q.index_select(-1, self.flat_idx))
+        """``(..., N) -> (..., G)``: :meth:`sum_groups` of the gauges' segments."""
+        return self.sum_groups(q.index_select(-1, self.flat_idx))
+
+    def sum_groups(self, picked: torch.Tensor) -> torch.Tensor:
+        """``(..., K)`` values of the ``flat_idx`` segments -> ``(..., G)``
+        sums, each gauge's terms added left to right on either device, so a
+        step gives the same bits every time it runs (a resumed run must
+        retrace its uninterrupted twin). On the CPU that is ``index_add_``;
+        on a card ``index_add_`` adds with atomics in no fixed order, so the
+        sum is ``segment_reduce`` over the gauges' contiguous runs of
+        ``group_ids`` (:meth:`from_ragged` sorts them), one thread a sum."""
+        if picked.device.type != "cuda":
+            return picked.new_zeros(picked.shape[:-1] + (self.n_gauges,)).index_add_(-1, self.group_ids, picked)
+        lengths = torch.bincount(self.group_ids, minlength=self.n_gauges)
+        lengths = lengths.expand(picked.shape[:-1] + (self.n_gauges,)).contiguous()
+        return torch.segment_reduce(picked, "sum", lengths=lengths, axis=picked.dim() - 1, unsafe=True)
 
 
 @dataclasses.dataclass(frozen=True)

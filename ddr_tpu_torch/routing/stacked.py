@@ -536,8 +536,7 @@ def route_stacked(
     if gauges is not None:
         # GaugeIndex.aggregate through out_map, clamping only the columns
         # the gauges read (the clamp is elementwise)
-        sel = maximum(flat.index_select(2, out_map[gauges.flat_idx]), lb)
-        runoff = sel.new_zeros(B, T, gauges.n_gauges).index_add(2, gauges.group_ids, sel)
+        runoff = gauges.sum_groups(maximum(flat.index_select(2, out_map[gauges.flat_idx]), lb))
     else:
         runoff = maximum(flat.index_select(2, out_map), lb)
     if single:

@@ -329,9 +329,14 @@ class _Handler(BaseHTTPRequestHandler):
 
 
 class ForecastHTTPServer(ThreadingHTTPServer):
-    """Threaded HTTP server bound to one :class:`ForecastService`."""
+    """Threaded HTTP server bound to one :class:`ForecastService`. Its
+    accept queue holds 128 pending connections, where ``socketserver``'s
+    default holds 5: an open loop of 80 requests a second with up to 64 in
+    flight overflowed that, and a client now and then had its connection
+    reset."""
 
     daemon_threads = True
+    request_queue_size = 128
 
     def __init__(self, service: ForecastService, host: str, port: int) -> None:
         self.service = service

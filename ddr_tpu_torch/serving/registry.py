@@ -22,8 +22,9 @@ entry holds the ``Kan`` module itself, and a swap replaces the module:
   that lands on the loaded checkpoint again after a corrupt one was
   quarantined does not swap the same weights in as a new version.
 
-The JAX watcher's fault-injection site (``registry.reload``, ROADMAP A.6)
-and its training-mesh note (A.13) have no counterpart yet.
+The ``registry.reload`` fault site (:mod:`~ddr_tpu_torch.observability.faults`)
+fires before each hot-reload load, as in the JAX watcher. Its training-mesh
+note (ROADMAP A.13) has no counterpart yet.
 """
 
 from __future__ import annotations
@@ -203,6 +204,7 @@ class CheckpointWatcher(threading.Thread):
         (saved while the training watchdog was violating) are never loaded:
         the scan walks back to the newest one saved healthy. Each bad file
         warns once."""
+        from ddr_tpu_torch.observability.faults import maybe_inject
         from ddr_tpu_torch.training import checkpoint_candidates, checkpoint_degraded, load_state
 
         path = None
@@ -229,6 +231,7 @@ class CheckpointWatcher(threading.Thread):
             return False
         try:
             t0 = time.perf_counter()
+            maybe_inject("registry.reload", path=str(path), model=self._model)
             blob = load_state(path, expected_arch=self._arch)
             entry = self._registry.swap_params(self._model, blob["params"], source=str(path))
             log.info(f"hot-reload of {self._model!r} from {path.name} took "

@@ -54,8 +54,11 @@ whose ``sentinel`` slice it is; ``DDR_SENTINEL_FLAG_WATCHDOG`` lets a
 sustained anomaly degrade ``/readyz``. A skill tracker attached with
 :meth:`ForecastService.attach_skill_tracker` is ``stats()["skill"]``. The
 port has no XLA compile cache, so ``stats()["compiles"]`` is None and
-``/v1/models``' ``programs`` is empty; mesh mode (ROADMAP A.13) and fault
-injection (A.6) are not in this slice.
+``/v1/models``' ``programs`` is empty; mesh mode (ROADMAP A.13) is not in
+this slice. The ``serve.execute`` fault site
+(:mod:`~ddr_tpu_torch.observability.faults`) is resolved at construction and
+fires at the top of each batch; its ``crash`` rides the batch's error path,
+so every request still gets its terminal ``serve_request`` event.
 """
 
 from __future__ import annotations
@@ -80,6 +83,7 @@ from ddr_tpu_torch.observability.health import (
     compute_output_worst,
 )
 from ddr_tpu_torch.observability.events import get_recorder
+from ddr_tpu_torch.observability.faults import fault_site
 from ddr_tpu_torch.observability.prometheus import declare_serve_metrics, event_tee
 from ddr_tpu_torch.observability.sentinel import Sentinel, SentinelConfig
 from ddr_tpu_torch.observability.spans import span
@@ -268,6 +272,8 @@ class ForecastService:
             backpressure=self.serve_cfg.backpressure,
             on_shed=self._on_shed,
         )
+        # resolved once: None (DDR_FAULTS unset) costs one `if` a batch
+        self._inject_execute = fault_site("serve.execute")
 
     # ---- registration ----
 
@@ -558,6 +564,10 @@ class ForecastService:
 
     def _execute_inner(self, key: tuple, reqs: list[ForecastRequest]) -> None:
         network_name, model_name = key
+        if self._inject_execute is not None:
+            # a crash here fails every future of the batch through _execute's
+            # error path, which gives each request its terminal event
+            self._inject_execute(network=network_name, model=model_name, size=len(reqs))
         net = self._networks[network_name]
         entry = self.registry.get(model_name)  # ONE snapshot for the whole batch
         mb = self.serve_cfg.max_batch

@@ -19,7 +19,12 @@ named ``_{name}_epoch_{E}_mb_{B}.pkl`` beside a ``.manifest.json`` that
 records the blob's length and SHA-256. They are written to a temporary name
 and renamed; a blob that fails its manifest is quarantined (renamed
 ``*.corrupt``). :class:`AsyncCheckpointWriter` takes the host snapshot on
-the loop thread and writes on its own.
+the loop thread and writes on its own. A checkpoint saved while the watchdog
+was healthy becomes the directory's pinned-good checkpoint
+(``_pinned_good.json``, :func:`pinned_good_checkpoint`), the recovery
+ladder's rollback target, which retention never deletes. The
+``checkpoint.write`` fault site (:mod:`ddr_tpu_torch.observability.faults`)
+fires between the temporary write and the rename.
 
 Alignment: for a D-day window (``(D-1) * 24`` hourly steps) the tau trim
 ``13 + tau : -11 + tau`` leaves ``D - 2`` daily blocks, compared against
@@ -47,6 +52,7 @@ import torch
 from torch.profiler import record_function
 
 from ddr_tpu_torch.device import resolve_device
+from ddr_tpu_torch.observability.faults import maybe_inject
 from ddr_tpu_torch.routing.mc import Bounds, route
 from ddr_tpu_torch.routing.model import denormalize_spatial_parameters, single_ring_wavefront
 
@@ -68,13 +74,17 @@ __all__ = [
     "make_batch_train_step",
     "make_optimizer",
     "make_train_step",
+    "mark_pinned_good",
     "masked_l1_daily",
+    "pinned_good_checkpoint",
     "prune_checkpoints",
     "prune_checkpoints_from_env",
     "quarantine_checkpoint",
     "restore_optimizer",
+    "restore_snapshot",
     "save_state",
     "set_learning_rate",
+    "snapshot_state",
     "verify_checkpoint",
 ]
 
@@ -314,6 +324,35 @@ def restore_optimizer(optimizer: torch.optim.Optimizer, opt_state: dict) -> torc
     return optimizer
 
 
+def _clone_tree(tree: Any) -> Any:
+    """``tree`` with every tensor leaf cloned on its own device."""
+    if torch.is_tensor(tree):
+        return tree.detach().clone()
+    if isinstance(tree, Mapping):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_clone_tree(v) for v in tree)
+    return tree
+
+
+def snapshot_state(kan: torch.nn.Module, optimizer: torch.optim.Optimizer) -> tuple[dict, dict]:
+    """A copy of the KAN's and the optimizer's state, taken on their device:
+    the pre-step snapshot that the recovery ladder restores. The step updates
+    both in place, and ``optimizer.state_dict()`` hands out the live Adam
+    moments, so every tensor is cloned."""
+    return _clone_tree(kan.state_dict()), _clone_tree(optimizer.state_dict())
+
+
+def restore_snapshot(kan: torch.nn.Module, optimizer: torch.optim.Optimizer, snapshot: tuple[dict, dict]) -> None:
+    """Put a :func:`snapshot_state` back. The snapshot stays intact for a
+    second restore: ``Optimizer.load_state_dict`` keeps tensors that already
+    sit on the right device and dtype, so it is handed clones, never the
+    snapshot's own tensors, which the next step would update in place."""
+    params, opt_state = snapshot
+    kan.load_state_dict(params)
+    optimizer.load_state_dict(_clone_tree(opt_state))
+
+
 def save_state(
     save_dir: str | Path,
     name: str,
@@ -332,9 +371,11 @@ def save_state(
     ``rng_state`` is the loader's (:meth:`DataLoader.state`), ``arch`` the
     architecture fingerprint :func:`load_state` checks, ``healthy`` the
     watchdog's verdict at save time (recorded as ``degraded`` in blob and
-    manifest; None without a watchdog). The blob goes to a temporary name,
-    its manifest is written, then the blob is renamed into place, so a
-    reader never sees a half-written blob under the final name."""
+    manifest; None without a watchdog; ``healthy=True`` refreshes the
+    pinned-good marker once the blob is in place). The blob goes to a
+    temporary name, its manifest is written, then the blob is renamed into
+    place, so a reader never sees a half-written blob under the final
+    name."""
     save_dir = Path(save_dir)
     save_dir.mkdir(parents=True, exist_ok=True)
     path = save_dir / f"_{name}_epoch_{epoch}_mb_{mini_batch}.pkl"
@@ -353,8 +394,16 @@ def save_state(
     data = pickle.dumps(blob)
     tmp = path.with_name(path.name + ".tmp")
     tmp.write_bytes(data)
+    # the fault site between the temp write and the rename: a crash leaves the
+    # torn-write .tmp, a corrupt flips bits under the manifest's digest
+    mutated = maybe_inject("checkpoint.write", data=data, path=str(path), epoch=epoch,
+                           mini_batch=mini_batch)
+    if mutated is not data and mutated is not None:
+        tmp.write_bytes(mutated)
     _write_manifest(path, data, degraded=None if healthy is None else not healthy)
     os.replace(tmp, path)
+    if healthy:
+        mark_pinned_good(save_dir, path)
     return path
 
 
@@ -472,8 +521,8 @@ def load_state(path: str | Path, expected_arch: dict | None = None, quarantine: 
     path = Path(path)
     if path.is_dir():
         raise NotImplementedError(
-            f"{path} is a directory checkpoint (the JAX package's orbax form); the port "
-            "reads pickle checkpoints only (ROADMAP A.6)"
+            f"{path} is a directory checkpoint (the JAX package's orbax form, which holds "
+            "sharded state); the port reads pickle checkpoints only (ROADMAP A.13)"
         )
     try:
         data = verify_checkpoint(path)
@@ -525,6 +574,56 @@ def checkpoint_degraded(path: str | Path) -> bool | None:
     return bool(flag) if flag is not None else None
 
 
+def _pinned_good_path(save_dir: str | Path) -> Path:
+    """The directory's pointer file: ``_pinned_good.json``."""
+    return Path(save_dir) / "_pinned_good.json"
+
+
+def mark_pinned_good(save_dir: str | Path, path: str | Path) -> Path:
+    """Point the pinned-good marker at ``path`` (written to a temporary name
+    and renamed, so the pointer is never seen half-written). The save
+    functions call it, the writer thread's included, only for a checkpoint
+    saved while the watchdog was healthy."""
+    path = Path(path)
+    em = _checkpoint_epoch_mb(path) or (-1, -1)
+    pointer = {
+        "format": "ddr-tpu-pinned-good",
+        "version": 1,
+        "path": path.name,  # relative to the directory, which may move
+        "epoch": em[0],
+        "mini_batch": em[1],
+    }
+    ppath = _pinned_good_path(save_dir)
+    tmp = ppath.with_name(ppath.name + ".tmp")
+    tmp.write_text(json.dumps(pointer))
+    os.replace(tmp, ppath)
+    return ppath
+
+
+def pinned_good_checkpoint(save_dir: str | Path) -> Path | None:
+    """The last checkpoint saved while the watchdog was healthy: the
+    recovery ladder's rollback target. The ``_pinned_good.json`` pointer when
+    its target still exists, else the newest candidate whose manifest does
+    not record ``degraded: true`` (a checkpoint without a verdict counts as
+    good); None when nothing qualifies."""
+    save_dir = Path(save_dir)
+    ppath = _pinned_good_path(save_dir)
+    if ppath.exists():
+        try:
+            pointer = json.loads(ppath.read_text())
+            target = save_dir / str(pointer.get("path", ""))
+            if pointer.get("path") and target.exists():
+                return target
+            log.warning(f"pinned-good pointer names missing checkpoint {pointer.get('path')!r}; "
+                        "falling back to a manifest scan")
+        except (json.JSONDecodeError, OSError) as e:
+            log.warning(f"unreadable pinned-good pointer {ppath}: {e}")
+    for cand in checkpoint_candidates(save_dir):
+        if checkpoint_degraded(cand) is not True:
+            return cand
+    return None
+
+
 def latest_checkpoint(save_dir: str | Path) -> Path | None:
     """The newest complete checkpoint by (epoch, mini_batch), or None."""
     cands = checkpoint_candidates(save_dir)
@@ -547,11 +646,15 @@ def prune_checkpoints(save_dir: str | Path, keep_last: int, keep_every_epoch: bo
     """Delete all but the newest ``keep_last`` checkpoints (``keep_last <= 0``
     keeps all); with ``keep_every_epoch`` the newest of every epoch stays
     too. Manifests go with their blobs; quarantines are never touched.
-    Returns the deleted paths."""
+    The pinned-good checkpoint (:func:`pinned_good_checkpoint`, the
+    rollback target) always stays. Returns the deleted paths."""
     if keep_last <= 0:
         return []
     cands = checkpoint_candidates(save_dir)
     keep = set(cands[:keep_last])
+    pinned = pinned_good_checkpoint(save_dir)
+    if pinned is not None:
+        keep.add(pinned)
     if keep_every_epoch:
         best_per_epoch: dict[int, Path] = {}
         for p in cands:  # newest first: the first of each epoch wins
@@ -614,6 +717,8 @@ class AsyncCheckpointWriter:
     - A failed write is raised on the next :meth:`save` or :meth:`drain`.
     - :meth:`drain` blocks until every enqueued snapshot is on disk;
       :meth:`close` drains and stops the thread.
+    - A snapshot saved with ``healthy=True`` refreshes the pinned-good
+      marker on the writer thread, after its blob has landed.
     - With a ``phase_timer`` each write is its ``checkpoint_io`` phase, a
       child span of the step context the loop sets on :attr:`trace_ctx`
       before the save.

@@ -15,20 +15,32 @@
 * The train loop resumes mid-epoch at the JAX loop's rule (a checkpoint at
   mini-batch 0 resumes at 0, any other at the next one) and executes the
   same (epoch, mini-batch) sequence as JAX's ``train`` from the same
-  checkpoint, with the optional subsystems it lacks refused by name.
+  checkpoint. The JAX package's directory checkpoints are refused naming
+  ROADMAP A.13; malformed self-healing switches raise as JAX's do, and an
+  injected ``crash@step`` takes the run down with ``InjectedFault``.
+* The pinned-good marker against the JAX package's: the pointer's JSON, its
+  refresh only on a healthy save and, through the background writer, only
+  once the blob has landed; the fallback scan when the pointer names a
+  missing file; retention keeping the pinned file; a ``checkpoint.write``
+  crash leaving a ``.tmp`` that no scan takes, and a corrupt write
+  quarantined on load.
 """
 
 from __future__ import annotations
 
+import json
 import logging
+import os
 import pickle
 import re
+import time
 
 import numpy as np
 import pytest
 import torch
 
 from ddr_tpu import training as jax_training
+from ddr_tpu.observability import faults as jax_faults
 from ddr_tpu.scripts import train as jax_train_script
 from ddr_tpu.scripts.common import build_kan as jax_build_kan
 from ddr_tpu.scripts.common import kan_arch as jax_kan_arch
@@ -36,6 +48,8 @@ from ddr_tpu.validation.configs import load_config as jax_load_config
 from ddr_tpu_torch import training
 from ddr_tpu_torch.nn.convert import kan_state_from_flax
 from ddr_tpu_torch.nn.kan import Kan
+from ddr_tpu_torch.observability import faults
+from ddr_tpu_torch.observability.faults import InjectedFault
 from ddr_tpu_torch.scripts import train as train_script
 from ddr_tpu_torch.scripts.common import kan_arch
 from ddr_tpu_torch.validation.configs import load_config
@@ -226,15 +240,168 @@ def test_directory_resume_skips_a_corrupt_newest(tmp_path, step_log):
     assert newest.with_name(newest.name + ".corrupt").exists()
 
 
-@pytest.mark.parametrize("var,value,item", [
-    ("DDR_RECOVERY_ENABLED", "1", "A.6"),
-    ("DDR_DATA_VALIDATE", "warn", "A.6"),
-    ("DDR_CKPT_FORMAT", "orbax", "A.6"),
-    ("DDR_FAULTS", "crash@step=1", "A.6"),
+@pytest.mark.parametrize("var,value,error,match", [
+    ("DDR_RECOVERY_MAX_ROLLBACKS", "-1", ValueError, "max_rollbacks must be >= 0, got -1"),
+    ("DDR_DATA_VALIDATE", "sometimes", ValueError,
+     re.escape("bad DDR_DATA_VALIDATE='sometimes' (want one of off, warn, quarantine)")),
+    ("DDR_CKPT_FORMAT", "orbax", NotImplementedError, r"ROADMAP A\.13"),
+    ("DDR_FAULTS", "crash@step=1", InjectedFault, "injected fault: crash@device.step step=1"),
 ])
-def test_optional_switches_raise_by_name(tmp_path, monkeypatch, var, value, item):
+def test_optional_switches_raise_by_name(tmp_path, monkeypatch, var, value, error, match):
+    """A malformed recovery budget or validation policy raises the JAX loop's
+    error, the directory checkpoint names the item that ports sharded state,
+    and ``crash@step=1`` takes the run down at its second step."""
     monkeypatch.setenv(var, value)
+    monkeypatch.setattr(faults, "_PLAN", None)  # DDR_FAULTS is parsed on first use
     cfg = load_config(CONFIG, ["device=cpu", "mode=training", f"params.save_path={tmp_path}"],
                       save_config=False)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=match) as raised:
         train_script.train(cfg)
+    if error is InjectedFault:
+        assert raised.value.site == "device.step"
+        assert training.latest_checkpoint(tmp_path / "saved_models").name.endswith("_epoch_1_mb_0.pkl")
+    if var != "DDR_CKPT_FORMAT" and var != "DDR_FAULTS":
+        # JAX's loop builds the same objects from the same variable
+        from ddr_tpu.observability.recovery import ForcingValidator, RecoveryConfig
+
+        with pytest.raises(error, match=match):
+            RecoveryConfig.from_env() if var.startswith("DDR_RECOVERY") else ForcingValidator()
+
+
+# ---------------------------------------------------------------------------
+# The pinned-good marker, against the JAX package's
+# ---------------------------------------------------------------------------
+
+JAX_PARAMS = {"w": np.arange(6, dtype=np.float32)}
+
+
+def _save(pkg, d, epoch, mb, healthy=None, scale=1.0):
+    if pkg == "jax":
+        return jax_training.save_state(d, "t", epoch, mb, {"w": JAX_PARAMS["w"] * scale}, None, healthy=healthy)
+    return training.save_state(d, "t", epoch, mb, {"w": torch.as_tensor(JAX_PARAMS["w"] * scale)}, None,
+                               healthy=healthy)
+
+
+def _pointer(d):
+    return json.loads((d / "_pinned_good.json").read_text())
+
+
+@pytest.fixture
+def disarm():
+    yield
+    faults.configure(None)
+    jax_faults.configure(None)
+
+
+def test_pinned_marker_equals_jax(tmp_path):
+    seen = {}
+    for pkg, mod in (("jax", jax_training), ("port", training)):
+        d = tmp_path / pkg
+        good = _save(pkg, d, 1, 0, healthy=True)
+        first = _pointer(d)
+        bad = _save(pkg, d, 1, 1, healthy=False, scale=2.0)  # a degraded save leaves the pin
+        plain = _save(pkg, d, 1, 2)  # no verdict: no refresh either
+        seen[pkg] = (first, _pointer(d), mod.pinned_good_checkpoint(d).name, mod.checkpoint_degraded(bad),
+                     mod.checkpoint_degraded(good), mod.checkpoint_degraded(plain),
+                     mod.latest_checkpoint(d).name)
+    assert seen["port"] == seen["jax"]
+    first, after, pinned, *_ = seen["port"]
+    assert first == after == {"format": "ddr-tpu-pinned-good", "version": 1, "path": "_t_epoch_1_mb_0.pkl",
+                              "epoch": 1, "mini_batch": 0}
+    assert pinned == "_t_epoch_1_mb_0.pkl"
+
+
+def test_pinned_marker_lands_after_the_async_blob(tmp_path, disarm):
+    """The background writer refreshes the pointer only once the blob is in
+    place: a slowed write leaves no pointer until it has landed."""
+    faults.configure("slow@checkpoint.write:ms=400")
+    writer = training.AsyncCheckpointWriter()
+    try:
+        writer.save(tmp_path, "t", 1, 0, {"w": torch.ones(3)}, None, healthy=True)
+        time.sleep(0.1)
+        assert not (tmp_path / "_pinned_good.json").exists()
+        assert not (tmp_path / "_t_epoch_1_mb_0.pkl").exists()
+        assert writer.drain(timeout=30.0)
+        assert _pointer(tmp_path)["path"] == "_t_epoch_1_mb_0.pkl"
+        writer.save(tmp_path, "t", 1, 1, {"w": torch.zeros(3)}, None, healthy=False)
+        assert writer.drain(timeout=30.0)
+    finally:
+        writer.close()
+    assert training.pinned_good_checkpoint(tmp_path).name == "_t_epoch_1_mb_0.pkl"
+
+
+def test_stale_pointer_falls_back_to_the_scan_as_jax(tmp_path):
+    found = {}
+    for pkg, mod in (("jax", jax_training), ("port", training)):
+        d = tmp_path / pkg
+        good = _save(pkg, d, 1, 0, healthy=True)
+        os.utime(good, (good.stat().st_atime, 1_000_000))
+        gone = _save(pkg, d, 1, 1, healthy=True)
+        bad = _save(pkg, d, 2, 0, healthy=False)
+        os.utime(bad, (bad.stat().st_atime, 3_000_000))
+        gone.unlink()
+        gone.with_name(gone.name + ".manifest.json").unlink()
+        found[pkg] = mod.pinned_good_checkpoint(d).name
+        (d / "_pinned_good.json").write_text("{torn")
+        found[pkg + "-unreadable"] = mod.pinned_good_checkpoint(d).name
+    assert found["port"] == found["jax"] == "_t_epoch_1_mb_0.pkl"
+    assert found["port-unreadable"] == found["jax-unreadable"] == "_t_epoch_1_mb_0.pkl"
+    assert training.pinned_good_checkpoint(tmp_path / "empty") is None
+
+
+def test_prune_keeps_the_pinned_checkpoint_as_jax(tmp_path):
+    kept = {}
+    for pkg, mod in (("jax", jax_training), ("port", training)):
+        d = tmp_path / pkg
+        pinned = _save(pkg, d, 1, 0, healthy=True)
+        os.utime(pinned, (pinned.stat().st_atime, 1_000_000))
+        for i, (epoch, mb) in enumerate([(1, 1), (1, 2), (2, 0), (2, 1)]):
+            p = _save(pkg, d, epoch, mb, healthy=False)
+            os.utime(p, (p.stat().st_atime, 2_000_000 + i))
+        deleted = mod.prune_checkpoints(d, keep_last=1, keep_every_epoch=False)
+        kept[pkg] = (sorted(p.name for p in deleted), sorted(p.name for p in mod.checkpoint_candidates(d)))
+    assert kept["port"] == kept["jax"]
+    assert kept["port"][1] == ["_t_epoch_1_mb_0.pkl", "_t_epoch_2_mb_1.pkl"]
+
+
+def test_checkpoint_write_faults_as_jax(tmp_path, disarm):
+    """``crash@checkpoint.write`` leaves the torn ``.tmp`` (no candidate, no
+    manifest-less blob) and ``corrupt@checkpoint.write`` writes flipped bits
+    under the intact manifest, which load quarantines."""
+    outcomes = {}
+    for pkg, mod, fmod in (("jax", jax_training, jax_faults), ("port", training, faults)):
+        d = tmp_path / pkg
+        fmod.configure("crash@checkpoint.write=0")
+        with pytest.raises(fmod.InjectedFault) as crash:
+            _save(pkg, d, 1, 0, healthy=True)
+        fmod.configure("corrupt@checkpoint.write:n=1")
+        corrupt = _save(pkg, d, 1, 1, healthy=True)
+        fmod.configure(None)
+        left = sorted(p.name for p in d.iterdir())
+        cands = [p.name for p in mod.checkpoint_candidates(d)]
+        with pytest.raises(ValueError, match="checksum mismatch"):
+            mod.load_state(corrupt)
+        outcomes[pkg] = (crash.value.site, left, cands, sorted(p.name for p in d.iterdir()))
+    assert outcomes["port"] == outcomes["jax"]
+    site, left, cands, after = outcomes["port"]
+    assert site == "checkpoint.write"
+    assert "_t_epoch_1_mb_0.pkl.tmp" in left and "_t_epoch_1_mb_0.pkl" not in left
+    assert cands == ["_t_epoch_1_mb_1.pkl"]
+    assert "_t_epoch_1_mb_1.pkl.corrupt" in after
+
+
+def test_directory_resume_skips_a_torn_tmp(tmp_path, step_log):
+    """A write killed between the temp file and the rename leaves a ``.tmp``;
+    a directory resume takes the newest complete checkpoint instead."""
+    ov = ["device=cpu", "mode=training", "experiment.batch_size=1", "experiment.epochs=1",
+          f"params.save_path={tmp_path}"]
+    cfg = load_config(CONFIG, ov, save_config=False)
+    train_script.train(cfg, max_batches=2)
+    saved = tmp_path / "saved_models"
+    newest = training.latest_checkpoint(saved)
+    torn = newest.with_name(newest.name.replace("_mb_1", "_mb_2") + ".tmp")
+    torn.write_bytes(newest.read_bytes()[:100])
+    step_log.steps.clear()
+    cfg.experiment.checkpoint = saved
+    train_script.train(cfg, max_batches=1)
+    assert step_log.steps == [(1, 2)]  # resumed after mini-batch 1, not from the torn 2

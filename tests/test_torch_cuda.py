@@ -5,7 +5,9 @@ time-major kernels (``wave_scan_tm``, ``reverse_scan_tm``) on the single
 ring and on the bands of a stacked frame (external series, ``mask_raw``,
 width-0 gather buckets, transposed width 16), the forward kernel's bf16 ring
 on both, a network wide enough that a reach's pair moves between threads
-and blocks from wave to wave, a NaN-poisoned inflow, the stacked band router
+and blocks from wave to wave, a NaN-poisoned inflow (one value, and the
+fault-injection storm's every third value, which must reach the watchdog's
+non-finite gate), the stacked band router
 on the card (``n_chunks`` launches of each kernel), the unrolled chunked
 router's variant (a band's own ring with external series and unmasked raw
 sums, a band of local depth 0) and its route, the step engine in
@@ -215,6 +217,54 @@ def test_nan_poisoned_inflow_on_the_card(card, where):
     nan = torch.isnan(ref)
     assert int(nan.sum()) > q.shape[0] and torch.equal(torch.isnan(raw), nan)
     _close(torch.nan_to_num(ref), torch.nan_to_num(raw), f"{where}: finite values")
+
+
+@pytest.mark.cuda
+def test_nan_storm_inflow_on_the_card_matches_the_plain_scan_and_trips_the_watchdog(card):
+    """The ``nan@device.step`` storm's poison (every third inflow value NaN,
+    the first +inf: ``faults._poison_array``) through ``wave_scan_tm`` on
+    the card: the same NaN and inf pattern as its plain version on the same
+    inputs, equal finite values, and through ``route`` the health stats'
+    ``non-finite`` gate that the recovery ladder answers."""
+    from ddr_tpu_torch.observability.faults import _poison_array
+    from ddr_tpu_torch.observability.health import HealthWatchdog
+
+    net, phys, q, q_init, T = _case("hotstart", card)
+    bad = torch.as_tensor(_poison_array(q.cpu().numpy()), device=card)
+    raw = wave_scan_tm(bad, net, phys, q_init)
+    torch.cuda.synchronize()
+    ref = wave_scan_tm_reference(bad, net, phys, q_init)
+    assert not torch.isfinite(raw).all()
+    assert torch.equal(torch.isnan(raw), torch.isnan(ref)) and torch.equal(torch.isinf(raw), torch.isinf(ref))
+    finite = torch.isfinite(ref)
+    _close(torch.where(finite, ref, 0.0), torch.where(finite, raw, 0.0), "finite values")
+
+    basin = make_basin(n_segments=512, n_gauges=4, n_days=2, seed=3, depth=24)
+    net, ch, gauges = prepare_batch(basin.routing_data, 0.001, device=card)
+    params = {k: torch.as_tensor(v, dtype=torch.float32, device=card) for k, v in basin.true_params.items()}
+    q = torch.as_tensor(_poison_array(basin.q_prime[:24]), device=card)[None]
+    with torch.no_grad():
+        before = wave_scan_tm.launches
+        out = mc.route(net, ch, params, q, gauges=gauges, device=card, collect_health=True)
+        torch.cuda.synchronize()
+    assert wave_scan_tm.launches == before + 1
+    assert int(out.health.nonfinite) > 0 and "non-finite" in HealthWatchdog().check(out.health)
+
+
+@pytest.mark.cuda
+def test_gauge_sums_on_the_card_repeat_bit_for_bit_and_equal_the_cpu(card):
+    """``GaugeIndex.sum_groups`` on the card (``segment_reduce``, one thread
+    a sum, terms left to right): the same bits on every call, equal to the
+    CPU's ``index_add_`` bit for bit, for a gauge of every reach beside small
+    ones; a resumed ``ddr train`` retraces its uninterrupted twin only so."""
+    rng = np.random.default_rng(5)
+    groups = [np.arange(4096)] + [rng.choice(4096, 9, replace=False) for _ in range(5)] + [np.array([7])]
+    q = torch.as_tensor(rng.gamma(2.0, 3.0, (2, 48, 4096)).astype(np.float32), device=card)
+    g = mc.GaugeIndex.from_ragged(groups, device=card)
+    sums = [g.aggregate(q) for _ in range(3)]
+    cpu = mc.GaugeIndex.from_ragged(groups, device="cpu").aggregate(q.cpu())
+    assert sums[0].shape == (2, 48, 7)
+    assert all(torch.equal(sums[0], s) for s in sums[1:]) and torch.equal(sums[0].cpu(), cpu)
 
 
 @pytest.mark.cuda

@@ -74,7 +74,10 @@ def test_port_imports_no_jax_and_nothing_of_ddr_tpu():
             # the replica tier: router, group, canary, federation, sentinel, skill
             "ddr_tpu_torch.fleet.router", "ddr_tpu_torch.fleet.group", "ddr_tpu_torch.fleet.canary",
             "ddr_tpu_torch.observability.federate", "ddr_tpu_torch.observability.sentinel",
-            "ddr_tpu_torch.observability.skill", "ddr_tpu_torch.scripts.fleet"} <= names
+            "ddr_tpu_torch.observability.skill", "ddr_tpu_torch.scripts.fleet",
+            # the self-healing train loop and the drills
+            "ddr_tpu_torch.observability.faults", "ddr_tpu_torch.observability.preempt",
+            "ddr_tpu_torch.scripts.chaos"} <= names
     assert bad == "[]", f"the port imported {bad}"
 
 

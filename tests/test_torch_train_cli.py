@@ -398,7 +398,7 @@ def test_cli_defaults_to_the_card(tmp_path, monkeypatch):
         cli.main(["train", CONFIG, "device=tpu", f"params.save_path={tmp_path}"])
 
 
-@pytest.mark.parametrize("command,item", [("chaos", "A.6"), ("sweep", "A.12"), ("tune", "A.13")])
+@pytest.mark.parametrize("command,item", [("geometry-predictor", "A.11"), ("sweep", "A.12"), ("tune", "A.13")])
 def test_cli_names_the_item_of_an_unported_command(capsys, command, item):
     assert cli.main([command, CONFIG]) == 2
     assert item in capsys.readouterr().err
